@@ -6,30 +6,48 @@
 Phases, each printing its results; any failed check raises and the run
 exits non-zero before the last line:
 
-1. device: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
-2. build: the CUDA kernels from ``eda_dm_tpu_torch/csrc`` (cold), seconds;
-3. each hand-written kernel against its plain PyTorch version on the card
-   at the batch-500 CIFAR shapes: int32 accumulators bit-equal (K1, K2),
-   outputs within the stated tolerance (K1's bf16 output, the serving
-   carrier, equal), softmax codes within ±1 and
-   ≥ 99.9 % equal (K3); median times of kernel, plain version, one
-   library call where one computes the same function, and the bound;
+1. device: ``nvidia-smi`` name, power limit and max SM clock, ``torch.cuda``
+   name and SM count;
+2. build: the CUDA kernels from ``eda_dm_tpu_torch/csrc`` (cold, one
+   ``nvcc`` each, all started together), seconds;
+3. each hand-written kernel against its plain PyTorch version on the card:
+   int32 accumulators bit-equal (K1, K2; the CIFAR batch-500 shapes and the
+   LSUN-Bedroom ones: the symmetric-pad stride-2 conv of ``DownsampleL``, a
+   concatenated input, the heads-layout einsums), outputs within the stated
+   tolerance (K1's bf16 output, the serving carrier, equal); softmax codes
+   within ±1 and ≥ 99.9 % equal (K3 at the CIFAR shapes and the bedroom
+   8x8 site's, and K4 at its four main-path shapes, whose outputs agree
+   within rtol = atol = 1e-5 on the rows whose codes agree); median times of kernel, plain version, one library call where
+   one computes the same function (for K4 the port's own einsum chain
+   K2 → K3 → K2 instead), and the bound;
 4. the full CIFAR-10 ``DDPMConfig()`` UNet with seeded random weights and a
    smoke quant state (below), exported by the port's
    ``export_serving_int8``, in DEPLOY_INT8 through the kernels and through
    the plain versions (batch 8, f32 carrier): flip-aware gate;
-5. serving, the main path: ``generalized_steps``, eta=0, 10 quad-skip
-   steps at batch 500, bf16 carrier, DEPLOY_INT8 — launch counts are set
-   to 0 just before and read just after; steps/s beside the bf16-FP and
-   fp32-FP forwards in the same loop.
+5. CIFAR serving: ``generalized_steps``, eta=0, 10 quad-skip steps at batch
+   500, bf16 carrier, DEPLOY_INT8 — launch counts are set to 0 just before
+   and read just after; steps/s beside the bf16-FP and fp32-FP forwards;
+6. the full LSUN-Bedroom LDM-4 UNet (``bedroom_config()``), smoke quant
+   state, DEPLOY_INT8 through the kernels and the plain versions (batch 5,
+   f32 carrier; its attention sites take the branches of batch 50): the
+   same flip-aware gate, then K3 and K4 on each call's input from the
+   plain run, held as in phase 3;
+7. bedroom serving, this slice's main path: ``LDMPipeline.sample_batch``
+   at batch 50, 10 DDIM steps at eta 1.0 (the task's eta; the cost of a
+   step does not depend on their number), bf16 carrier, DEPLOY_INT8, then
+   the VQ-f4 decode to (50, 256, 256, 3) images in [0, 1] — launch counts
+   set to 0 just before and read just after, and printed per forward;
+   ms per denoise step of int8 W4A8, bf16-FP and fp32-FP (each warmed up
+   at batch 50 and timed twice), the decode ms, img/s, peak memory and one
+   profiled int8 forward.
 
 The smoke quant state stands in for calibration (a later slice): weight
 scales from the per-output-channel symmetric range ``[-max|w|, max|w|]``
 with round-to-nearest AdaRound alphas, activation scales from the min/max
-that one FP forward (batch 8, t = 500) records at every act quantizer.
+that one FP forward records at every act quantizer.
 
-TF32 is off for the whole run: the plain versions and the fp32-FP forward
-compute in full float32.
+TF32 is off for the whole run: the plain versions, the fp32-FP forwards
+and the first-stage decode compute in full float32.
 """
 
 import contextlib
@@ -42,7 +60,9 @@ import time
 import torch
 
 BATCH, STEPS = 500, 10
+LDM_BATCH = 50                         # the bedroom task's batch
 INT8_PEAK, F32_PEAK, HBM = 1979e12, 67e12, 3.35e12     # H100 SXM data sheet
+SFU_PER_CLOCK = 16                     # exponentials per SM per clock, sm_90
 
 
 def check(ok, what):
@@ -67,14 +87,38 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def bound(nbytes, ops, peak):
-    tb, to = nbytes / HBM * 1e3, ops / peak * 1e3
+def bound(nbytes, ops, peak, other_ms=0.0):
+    """The larger of bytes over the memory rate and operations over their
+    peak (``other_ms``: a further operation time, e.g. the exponentials)."""
+    tb, to = nbytes / HBM * 1e3, max(ops / peak * 1e3, other_ms)
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
 def codes(g, shape, lo=-128, hi=127):
     return torch.randint(lo, hi + 1, shape, generator=g, device="cuda",
                          dtype=torch.int32).to(torch.int8)
+
+
+def codes_gate(ck, cp, what):
+    """Softmax codes of a kernel and its plain version: within ±1 and
+    ≥ 99.9 % identical.  Returns |Δ|."""
+    diff = (ck.int() - cp.int()).abs()
+    same = float((diff == 0).float().mean())
+    check(int(diff.max()) <= 1 and same >= 0.999,
+          f"{what}: codes within ±1, {same:.6f} identical")
+    return diff
+
+
+def attention_gate(out_k, W_k, out_p, W_p, what):
+    """K4 against its plain version: the codes by ``codes_gate``, the
+    output within rtol = atol = 1e-5 on the rows whose codes agree.
+    Returns the largest |Δ| there."""
+    rows = (codes_gate(W_k, W_p, what) == 0).all(-1)
+    e = float((out_k[rows] - out_p[rows]).abs().max())
+    check(torch.allclose(out_k[rows], out_p[rows], rtol=1e-5, atol=1e-5),
+          f"{what}: output within 1e-5 on the {float(rows.float().mean()):.4%}"
+          f" of rows whose codes agree (max |d| {e:.3g})")
+    return e
 
 
 # --------------------------------------------------------------------------
@@ -86,14 +130,18 @@ def check_conv(g):
                                                 int8_conv_acc_plain,
                                                 int8_conv_plain, out_size,
                                                 same_pads)
-    cases = [("32x32x128->128 3x3 same", 32, 128, 128, 3, 1, None),
-             ("32x32x128 3x3 s2 downsample", 32, 128, 128, 3, 2, ((0, 1), (0, 1))),
-             ("16x16x256->256 1x1", 16, 256, 256, 1, 1, ((0, 0), (0, 0))),
-             ("conv_in 32x32x3->128 3x3", 32, 3, 128, 3, 1, None)]
+    cases = [(BATCH, "32x32x128->128 3x3 same", 32, 128, 128, 3, 1, None),
+             (BATCH, "32x32x128 3x3 s2 downsample", 32, 128, 128, 3, 2, ((0, 1), (0, 1))),
+             (BATCH, "16x16x256->256 1x1", 16, 256, 256, 1, 1, ((0, 0), (0, 0))),
+             (BATCH, "conv_in 32x32x3->128 3x3", 32, 3, 128, 3, 1, None),
+             (LDM_BATCH, "bedroom DownsampleL 64x64x224 3x3 s2 pad ((1,1),(1,1))",
+              64, 224, 224, 3, 2, ((1, 1), (1, 1))),
+             (LDM_BATCH, "bedroom concat 32x32x(448+224)->448 3x3", 32, 672, 448,
+              3, 1, None)]
     err, timing = 0.0, None
-    for name, hw, cin, cout, k, s, pads in cases:
+    for batch, name, hw, cin, cout, k, s, pads in cases:
         pads = pads or same_pads(hw, hw, k, k, s, s)
-        x = codes(g, (BATCH, hw, hw, cin))
+        x = codes(g, (batch, hw, hw, cin))
         w = codes(g, (cout, k, k, cin), -8, 7)
         isum = w.float().sum((1, 2, 3))
         border = (border_map(w, hw, hw, (s, s), pads)
@@ -107,6 +155,7 @@ def check_conv(g):
                           border, torch.float32)
         acc_p = int8_conv_acc_plain(x, w, (s, s), pads)
         bad = acc_k.to(torch.int32) != acc_p
+        name = f"batch {batch} {name}"
         check(not bool(bad.any()), f"K1 {name}: int32 accumulators bit-equal "
               f"({int(bad.sum())} differ, max |d| "
               f"{float((acc_k - acc_p.float()).abs().max()):.6g})")
@@ -129,7 +178,7 @@ def check_conv(g):
             xf = x.permute(0, 3, 1, 2).float()
             wf = w.permute(0, 3, 1, 2).float()
             timing = dict(
-                shape=f"batch {BATCH} {name}, bf16 out",
+                shape=f"{name}, bf16 out",
                 ms=cuda_ms(lambda: int8_conv(*args, torch.bfloat16)),
                 plain_ms=cuda_ms(lambda: int8_conv_plain(*args, torch.bfloat16)),
                 library_ms=cuda_ms(lambda: torch.nn.functional.conv2d(
@@ -189,6 +238,27 @@ def check_bmm(g):
                     ca * B.sum(-1, dtype=torch.int32).float(), ca * cb * 256.0, da * db)),
                 library_ms=cuda_ms(lambda: torch.bmm(Af, Bf)),
                 **dict(zip(("bound_ms", "bound_by"), bound(nbytes, ops, INT8_PEAK))))
+    # the LDM heads layout at the bedroom 8x8 site: (50, 64, 28 heads, 32)
+    b, s, h, c = LDM_BATCH, 64, 28, 32
+    for eq, sa in (("bthc,bshc->bhts", (b, s, h, c)), ("bhts,bshc->bthc", (b, h, s, s))):
+        A, B = codes(g, sa), codes(g, (b, s, h, c))
+        Bh = B.permute(0, 2, 1, 3).reshape(b * h, s, c)
+        Ah = (A.permute(0, 2, 1, 3).reshape(b * h, s, c) if eq.startswith("bthc")
+              else A.reshape(b * h, s, s))
+        Bt = Bh if eq.startswith("bthc") else Bh.transpose(1, 2).contiguous()
+        bad = int8_bmm_nt(Ah.contiguous(), Bt).to(torch.int32) != int8_bmm_acc_plain(
+            Ah.contiguous(), Bt)
+        check(not bool(bad.any()), f"K2 heads {eq} ({b * h}, {s}, {sa[-1]}): int32 "
+              f"accumulators bit-equal ({int(bad.sum())} differ)")
+        ca, cb = torch.tensor(5.0, device="cuda"), torch.tensor(-2.0, device="cuda")
+        da, db = torch.tensor(0.011, device="cuda"), torch.tensor(0.0093, device="cuda")
+        out_k = int8_code_einsum(eq, A, ca, da, B, cb, db)
+        with swapped(ein, "int8_bmm_nt", _plain_bmm):
+            out_p = int8_code_einsum(eq, A, ca, da, B, cb, db)
+        e = float((out_k - out_p).abs().max())
+        check(torch.allclose(out_k, out_p, rtol=1e-5, atol=1e-5),
+              f"K2 heads {eq}: f32 epilogue within 1e-5 (max |d| {e:.3g})")
+        err = max(err, e)
     return dict(name="int8_bmm", route="cuda",
                 source="eda_dm_tpu_torch/csrc/int8_bmm.cu",
                 replaces="eda_dm_tpu/ops/int8_einsum.py:79", max_abs_err=err, **timing)
@@ -206,32 +276,77 @@ def check_softmax(g):
     from eda_dm_tpu_torch.ops.softmax_codes import (softmax_int8_codes,
                                                     softmax_int8_codes_plain)
     d, z = torch.tensor(1.0 / 255.0, device="cuda"), torch.tensor(0.0, device="cuda")
-    timing = None
-    for s in (256, 16):
-        logits = 6.0 * torch.randn(BATCH * s, s, generator=g, device="cuda")
+    err, timing = 0.0, None
+    # CIFAR at batch 500 (256 and 16 tokens); the bedroom 8x8 site at batch
+    # 50 (28 heads of 64 tokens)
+    for n, s in ((BATCH, 256), (BATCH, 16), (LDM_BATCH * 28, 64)):
+        logits = 6.0 * torch.randn(n * s, s, generator=g, device="cuda")
         ck, _ = softmax_int8_codes(logits, d, z, 256)
-        cp = softmax_int8_codes_plain(logits, d, z, 256)
-        diff = (ck.int() - cp.int()).abs()
-        same = float((diff == 0).float().mean())
-        check(int(diff.max()) <= 1 and same >= 0.999,
-              f"K3 ({BATCH}*{s}, {s}): codes within ±1, {same:.6f} identical")
+        diff = codes_gate(ck, softmax_int8_codes_plain(logits, d, z, 256),
+                          f"K3 ({n}*{s}, {s})")
+        err = max(err, float(diff.max()))
         if timing is None:
-            n = logits.numel()
+            nel = logits.numel()
             timing = dict(
-                shape=f"({BATCH}*{s}, {s}) f32 -> int8",
-                max_abs_err=float(diff.max()),
+                shape=f"({n}*{s}, {s}) f32 -> int8",
                 ms=cuda_ms(lambda: softmax_int8_codes(logits, d, z, 256)),
                 plain_ms=cuda_ms(lambda: softmax_int8_codes_plain(logits, d, z, 256)),
                 library_ms=None,
                 **dict(zip(("bound_ms", "bound_by"),
-                           bound(5 * n, 10 * n, F32_PEAK))))
+                           bound(5 * nel, 10 * nel, F32_PEAK))))
     return dict(name="softmax_codes", route="triton",
                 source="eda_dm_tpu_torch/ops/softmax_codes.py",
-                replaces="eda_dm_tpu/ops/pallas_softmax.py:50", **timing)
+                replaces="eda_dm_tpu/ops/pallas_softmax.py:50", max_abs_err=err,
+                **timing)
+
+
+def check_attention(g, sms, clock_hz):
+    """K4 against its plain version at the four main-path shapes: the two
+    fused LSUN-Bedroom sites at batch 50 (32x32 and 16x16, 32-channel
+    heads) and the two CIFAR sites at batch 8."""
+    from eda_dm_tpu_torch.ops.int8_attention import (
+        _int8_fused_attention_cuda, attention_scalars, int8_fused_attention_plain)
+    from eda_dm_tpu_torch.ops.int8_einsum import int8_code_einsum
+    from eda_dm_tpu_torch.ops.softmax_codes import softmax_int8_codes
+    err, timing = 0.0, None
+    for n, s, c in ((700, 1024, 32), (1050, 256, 32), (8, 256, 256), (8, 16, 256)):
+        Q, K, V = (codes(g, (n, s, c)) for _ in range(3))
+        cq, ck, cv = 3.0, -5.0, 1.0
+        dq, dk, dv, dw, zw = 0.021, 0.017, 0.025, 1.0 / 255.0, 0.0
+        sc = attention_scalars(cq, dq, ck, dk, cv, dv, c ** -0.5, dw, zw, "cuda")
+        out_k, W_k = _int8_fused_attention_cuda(Q, K, V, sc, 256, True)
+        torch.cuda.synchronize()
+        out_p, W_p = int8_fused_attention_plain(Q, K, V, sc, 256, True)
+        err = max(err, attention_gate(out_k, W_k, out_p, W_p, f"K4 ({n}, {s}, {c})"))
+        del W_k, W_p, out_p
+        if timing is None:                 # the bedroom 32x32 site
+            tq, tk, tv, tdq, tdk, tdv, tdw, tzw = (
+                torch.tensor(v, device="cuda") for v in (cq, ck, cv, dq, dk, dv, dw, zw))
+
+            def chain():
+                w = int8_code_einsum("nic,njc->nij", Q, tq, tdq, K, tk, tdk) * (c ** -0.5)
+                W, cw = softmax_int8_codes(w, tdw, tzw, 256)
+                return int8_code_einsum("nij,njc->nic", W, cw, tdw, V, tv, tdv)
+            exp_ms = n * s * s / (sms * SFU_PER_CLOCK * clock_hz) * 1e3
+            timing = dict(
+                shape=f"({n}, {s}, {c}) int8 -> f32 (bedroom 32x32, batch {LDM_BATCH})",
+                ms=cuda_ms(lambda: _int8_fused_attention_cuda(Q, K, V, sc, 256, False)),
+                plain_ms=cuda_ms(lambda: int8_fused_attention_plain(Q, K, V, sc, 256),
+                                 reps=5),
+                library_ms=None, chain_ms=cuda_ms(chain, reps=5),
+                **dict(zip(("bound_ms", "bound_by"),
+                           bound(n * 7 * s * c, 4 * n * s * s * c, INT8_PEAK, exp_ms))))
+            print(f"    K4 bound parts: bytes {n * 7 * s * c / HBM * 1e3:.4f} ms, int8 "
+                  f"ops {4 * n * s * s * c / INT8_PEAK * 1e3:.4f} ms, exponentials "
+                  f"{exp_ms:.4f} ms ({sms} SMs at {clock_hz / 1e6:.0f} MHz)")
+    return dict(name="int8_attention", route="cuda",
+                source="eda_dm_tpu_torch/csrc/int8_attention.cu",
+                replaces="eda_dm_tpu/ops/pallas_attention.py:115",
+                max_abs_err=err, **timing)
 
 
 # --------------------------------------------------------------------------
-# phase 4/5 helpers
+# phase 4-7 helpers
 
 
 @contextlib.contextmanager
@@ -245,23 +360,57 @@ def swapped(module, name, value):
 
 
 @contextlib.contextmanager
-def plain_versions():
-    """Route the model's three kernel call sites to the plain versions, on
-    the card, for the comparison only."""
+def plain_versions(record=None):
+    """Route the models' four kernel call sites to the plain versions, on
+    the card, for the comparison only.  With ``record`` (a dict), the
+    inputs of every softmax-codes and fused-attention call are kept there
+    under the kernel's name."""
     import eda_dm_tpu_torch.models.ddpm_unet as unet
+    import eda_dm_tpu_torch.models.ldm_unet as ldm
     import eda_dm_tpu_torch.nn.layers as layers
+    import eda_dm_tpu_torch.ops.int8_attention as attn
     import eda_dm_tpu_torch.ops.int8_einsum as ein
     from eda_dm_tpu_torch.ops.int8_conv import int8_conv_plain
     from eda_dm_tpu_torch.ops.softmax_codes import softmax_int8_codes_plain
 
+    def keep(name, *args):
+        if record is not None:
+            record.setdefault(name, []).append(args)
+
     def softmax_plain(logits, delta, zp, n_levels):
+        keep("softmax_codes", logits, delta, zp, n_levels)
         return (softmax_int8_codes_plain(logits, delta, zp, n_levels),
                 n_levels / 2 - zp)
 
+    def attention_plain(Q, K, V, sc, n_levels_w, return_codes):
+        keep("int8_attention", Q, K, V, sc, n_levels_w)
+        return attn.int8_fused_attention_plain(Q, K, V, sc, n_levels_w, return_codes)
+
     with swapped(layers, "int8_conv", int8_conv_plain), \
             swapped(ein, "int8_bmm_nt", _plain_bmm), \
-            swapped(unet, "softmax_int8_codes", softmax_plain):
+            swapped(unet, "softmax_int8_codes", softmax_plain), \
+            swapped(ldm, "softmax_int8_codes", softmax_plain), \
+            swapped(attn, "_int8_fused_attention_cuda", attention_plain):
         yield
+
+
+def check_recorded(record):
+    """K3 and K4 on the inputs that one run of the plain versions gave each
+    of their calls, against the plain versions on the same inputs: a code
+    that flips on a rounding tie shows here as a ±1 code, apart from what
+    it does downstream."""
+    from eda_dm_tpu_torch.ops.int8_attention import (
+        _int8_fused_attention_cuda, int8_fused_attention_plain)
+    from eda_dm_tpu_torch.ops.softmax_codes import (softmax_int8_codes,
+                                                    softmax_int8_codes_plain)
+    for i, (logits, d, z, n_levels) in enumerate(record.get("softmax_codes", [])):
+        codes_gate(softmax_int8_codes(logits, d, z, n_levels)[0],
+                   softmax_int8_codes_plain(logits, d, z, n_levels),
+                   f"K3 call {i} {tuple(logits.shape)}")
+    for i, (Q, K, V, sc, n_levels) in enumerate(record.get("int8_attention", [])):
+        out_k, W_k = _int8_fused_attention_cuda(Q, K, V, sc, n_levels, True)
+        out_p, W_p = int8_fused_attention_plain(Q, K, V, sc, n_levels, True)
+        attention_gate(out_k, W_k, out_p, W_p, f"K4 call {i} {tuple(Q.shape)}")
 
 
 @torch.no_grad()
@@ -289,7 +438,7 @@ def smoke_quant_state(model, x, t):
                 lo, hi = ranges.get(mod, (v.min(), v.max()))
                 ranges[mod] = (torch.minimum(lo, v.min()), torch.maximum(hi, v.max()))
             hooks.append(m.register_forward_hook(hook))
-    model(x, t, FP)
+    model(x, t, mode=FP)
     for h in hooks:
         h.remove()
     for m, (lo, hi) in ranges.items():
@@ -337,6 +486,113 @@ def steps_per_s(model_fn, x, seq, betas):
     return len(seq) / (time.perf_counter() - t0), out
 
 
+def flip_gate(out_k, out_p, what):
+    d = (out_k - out_p).abs()
+    med, mx, share = float(d.median()), float(d.max()), float((d < 2e-4).float().mean())
+    check(med < 2e-4 and mx < 0.15 and share > 0.7,
+          f"{what} flip gate: median {med:.3g} < 2e-4, max {mx:.3g} < 0.15, "
+          f"share {share:.4f} > 0.7")
+
+
+def timed(fn):
+    """(result, wall seconds) of one call, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def bedroom(kernels, smi):
+    """Phases 6 and 7: the LSUN-Bedroom LDM-4 at full width and depth."""
+    from eda_dm_tpu_torch.models.latent_diffusion import bedroom_config
+    from eda_dm_tpu_torch.models.ldm_unet import LDMUNet
+    from eda_dm_tpu_torch.ops import _build
+    from eda_dm_tpu_torch.pipelines.latent import LDMPipeline, task_config
+    from eda_dm_tpu_torch.quant import DEPLOY_INT8, FP
+    from eda_dm_tpu_torch.quant.export import export_serving_int8
+
+    print("[6] bedroom LDM-4 UNet DEPLOY_INT8, kernels vs plain versions (batch 5, f32)")
+    pipe = LDMPipeline(task_config("bedroom", custom_steps=STEPS), device="cuda", seed=0)
+    unet, cfg, qc = pipe.ld.unet, pipe.mc.unet, pipe.qc
+    print(f"    UNet {sum(p.numel() for p in unet.parameters()):,} params; schedule "
+          f"{pipe.sched.num_steps} DDIM steps, eta {pipe.cfg.eta}")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    # batch 5 splits the sites as batch 50 does: K4 at 32x32 (70 batch-heads)
+    # and 16x16 (105), the einsum chain at 8x8 (140 >= 128)
+    x5 = torch.randn(5, 64, 64, 3, generator=g, device="cuda")
+    t5 = torch.tensor([900.0, 500.0, 200.0, 50.0, 20.0], device="cuda")
+    n_aq = smoke_quant_state(unet, x5, t5)
+    export_serving_int8(unet, qc, torch.float32)
+    record = {}
+    with torch.no_grad():
+        _build.launch_counts.clear()
+        out_k = unet(x5, t5, mode=DEPLOY_INT8)
+        launches = dict(_build.launch_counts)
+        with plain_versions(record):
+            out_p = unet(x5, t5, mode=DEPLOY_INT8)
+    check(bool(torch.isfinite(out_k).all()) and out_k.shape == (5, 64, 64, 3),
+          f"int8 output finite, shape {tuple(out_k.shape)} ({n_aq} act quantizers set)")
+    check(launches.get("int8_attention") == 10 and launches.get("softmax_codes") == 6,
+          f"batch 5 serves 10 attention blocks with K4 and 6 with K2 -> K3 -> K2, "
+          f"as batch {LDM_BATCH} does (launches {launches})")
+    flip_gate(out_k, out_p, "bedroom")
+    check_recorded(record)
+    del record, out_k, out_p
+
+    print(f"[7] bedroom serving: sample_batch, batch {LDM_BATCH}, {STEPS} DDIM steps at "
+          f"eta {pipe.cfg.eta}, bf16 carrier DEPLOY_INT8, VQ-f4 decode")
+    for p in unet.parameters():                  # the export's carrier cast
+        p.data = p.data.to(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    x50 = torch.randn(LDM_BATCH, 64, 64, 3, generator=g, device="cuda")
+    t50 = torch.full((LDM_BATCH,), 500.0, device="cuda")
+    int8_fwd = lambda: unet(x50.to(torch.bfloat16), t50, mode=DEPLOY_INT8)
+    with torch.no_grad():
+        int8_fwd()                                # warm up (K3's first compile)
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    imgs, wall = timed(lambda: pipe.sample_batch(DEPLOY_INT8, generator=g))  # the main path
+    launches = dict(_build.launch_counts)
+    check(bool(torch.isfinite(imgs).all()) and imgs.shape == (LDM_BATCH, 256, 256, 3)
+          and float(imgs.min()) >= 0.0 and float(imgs.max()) <= 1.0,
+          f"images finite, shape {tuple(imgs.shape)}, in [0, 1] "
+          f"(mean {float(imgs.mean()):.4f}, std {float(imgs.std()):.4f})")
+    print(f"    launches per UNet forward: "
+          + ", ".join(f"{k} {v / STEPS:g}" for k, v in sorted(launches.items())))
+    for k in kernels:
+        k["launches"] = launches.get(k["name"], 0)
+        check(k["launches"] > 0, f"{k['name']} launched {k['launches']} times "
+              f"({k['launches'] / STEPS:g} per forward) on the bedroom path")
+    z, int8_s = timed(lambda: pipe.sample_batch(DEPLOY_INT8, generator=g, decode=False))
+    _, decode_s = timed(lambda: pipe.ld.decode_first_stage(z))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def step_ms(mode):
+        _, secs = timed(lambda: pipe.sample_batch(mode, generator=g, decode=False))
+        return secs / STEPS * 1e3
+    # each arm timed twice in a row, after a warm-up at the timed batch
+    ms = {"int8": [int8_s / STEPS * 1e3, step_ms(DEPLOY_INT8)]}
+    print(f"    profile, DEPLOY_INT8 forward at batch {LDM_BATCH}, bf16 carrier:")
+    with torch.no_grad():
+        profile_forward(int8_fwd)
+    del pipe.ld.unet, unet
+    for arm, dtype in (("bf16_fp", torch.bfloat16), ("fp32_fp", torch.float32)):
+        pipe.ld.unet = LDMUNet(cfg, qc, device="cuda", seed=0).to(dtype)
+        with torch.no_grad():
+            pipe.ld.unet(x50.to(dtype), t50, mode=FP)        # warm up
+        ms[arm] = [step_ms(FP), step_ms(FP)]
+        del pipe.ld.unet
+    both = lambda arm: " / ".join(f"{v:.3f}" for v in ms[arm])
+    print(f"    on {smi}: ms per denoise step at batch {LDM_BATCH} (two runs each): "
+          f"int8 W4A8 {both('int8')} | bf16-FP {both('bf16_fp')} | fp32-FP "
+          f"{both('fp32_fp')}; decode {decode_s * 1e3:.1f} ms; sample_batch {wall:.3f} s = "
+          f"{LDM_BATCH / wall:.4f} img/s ({STEPS} steps + decode); peak memory "
+          f"{peak:.2f} GiB")
+    return dict(ms_per_step=ms, decode_ms=decode_s * 1e3, img_per_s=LDM_BATCH / wall,
+                steps=STEPS, batch=LDM_BATCH, peak_gib=peak)
+
+
 # --------------------------------------------------------------------------
 
 
@@ -353,12 +609,16 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    query = lambda q: subprocess.run(
+        ["nvidia-smi", f"--query-gpu={q}", "--format=csv,noheader"], capture_output=True,
+        text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = query("name,power.limit")
+    clock_mhz = float(query("clocks.max.sm").split()[0])
     kind = torch.cuda.get_device_name(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"[1] device: {smi} | torch {torch.__version__} cuda {torch.version.cuda}"
-          f" | {kind} x{torch.cuda.device_count()}")
+          f" | {kind} x{torch.cuda.device_count()}, {sms} SMs, max SM clock "
+          f"{clock_mhz:.0f} MHz")
 
     secs = _build.build()
     print(f"[2] build: {secs:.1f} s for {', '.join(_build.CUDA_SOURCES)}")
@@ -368,15 +628,18 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"    {name}: {line.strip()}")
 
-    print(f"[3] kernels vs plain versions, batch {BATCH}")
+    print(f"[3] kernels vs plain versions")
     g = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
-    kernels = [check_conv(g), check_bmm(g), check_softmax(g)]
+    kernels = [check_conv(g), check_bmm(g), check_softmax(g),
+               check_attention(g, sms, clock_mhz * 1e6)]
     for k in kernels:
         print(f"    {k['name']}: {k['shape']}: {k['ms']:.4f} ms (plain "
-              f"{k['plain_ms']:.4f}, library {k['library_ms']}, bound "
-              f"{k['bound_ms']:.4f} by {k['bound_by']})")
+              f"{k['plain_ms']:.4f}, library {k['library_ms']}"
+              + (f", einsum chain {k['chain_ms']:.4f}" if "chain_ms" in k else "")
+              + f", bound {k['bound_ms']:.4f} by {k['bound_by']})")
     print(f"    phase 3: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
 
     print("[4] DDPMConfig() DEPLOY_INT8, kernels vs plain versions (batch 8, f32)")
     cfg, qc = DDPMConfig(), QuantConfig(weight_bit=4, act_bit=8)
@@ -388,20 +651,20 @@ def main():
     export_serving_int8(model, qc, torch.float32)
     with torch.no_grad():
         fp_ref = DDPMUNet(cfg, qc, device="cuda", seed=0)(x8, t8, FP)
+        _build.launch_counts.clear()
         out_k = model(x8, t8, DEPLOY_INT8)
+        batch8 = dict(_build.launch_counts)
         with plain_versions():
             out_p = model(x8, t8, DEPLOY_INT8)
-    d = (out_k - out_p).abs()
     check(bool(torch.isfinite(out_k).all()) and out_k.shape == (8, 32, 32, 3),
           f"int8 output finite, shape {tuple(out_k.shape)} ({n_aq} act quantizers set)")
-    med, mx, share = float(d.median()), float(d.max()), float((d < 2e-4).float().mean())
-    check(med < 2e-4 and mx < 0.15 and share > 0.7,
-          f"flip gate: median {med:.3g} < 2e-4, max {mx:.3g} < 0.15, "
-          f"share {share:.4f} > 0.7")
+    check(batch8.get("int8_attention", 0) == 6 and "softmax_codes" not in batch8,
+          f"batch 8 serves all 6 attention blocks with K4 (launches {batch8})")
+    flip_gate(out_k, out_p, "CIFAR")
     print(f"    quantization error mean |int8 - FP| = "
           f"{float((out_k - fp_ref).abs().mean()):.4f}")
 
-    print(f"[5] serving: DDIM eta=0, {STEPS} quad steps, batch {BATCH}, "
+    print(f"[5] CIFAR serving: DDIM eta=0, {STEPS} quad steps, batch {BATCH}, "
           f"bf16 carrier DEPLOY_INT8")
     for p in model.parameters():                 # the export's carrier cast
         p.data = p.data.to(torch.bfloat16)
@@ -410,14 +673,14 @@ def main():
     seq = skip_sequence("quad", STEPS, 1000)
     xb = torch.randn(BATCH, 32, 32, 3, generator=gx, device="cuda")
     int8_fn = lambda x, t: model(x.to(torch.bfloat16), t, DEPLOY_INT8)
-    int8_sps, out = steps_per_s(int8_fn, xb, seq, betas)         # the main path
-    launches = dict(_build.launch_counts)
+    int8_sps, out = steps_per_s(int8_fn, xb, seq, betas)         # CIFAR's main path
+    cifar = dict(_build.launch_counts)
     check(bool(torch.isfinite(out).all()) and out.shape == (BATCH, 32, 32, 3),
           f"samples finite, shape {tuple(out.shape)}")
-    for k in kernels:
-        k["launches"] = launches.get(k["name"], 0)
-        check(k["launches"] > 0, f"{k['name']} launched {k['launches']} times "
-              f"({k['launches'] / STEPS:g} per forward) on the main path")
+    for k in kernels[:3]:
+        k["cifar_launches"] = cifar.get(k["name"], 0)
+        check(k["cifar_launches"] > 0, f"{k['name']} launched {k['cifar_launches']} "
+              f"times ({k['cifar_launches'] / STEPS:g} per forward) on the CIFAR path")
     print(f"    profile, DEPLOY_INT8 forward at batch {BATCH}, bf16 carrier:")
     t500 = torch.full((BATCH,), 500.0, device="cuda")
     with torch.no_grad():
@@ -428,19 +691,23 @@ def main():
     bf16 = DDPMUNet(cfg, qc, device="cuda", seed=0).to(torch.bfloat16)
     bf16_sps, _ = steps_per_s(lambda x, t: bf16(x.to(torch.bfloat16), t, FP),
                               xb, seq, betas)
-    print(f"    profile, bf16-FP forward at batch {BATCH}:")
-    with torch.no_grad():
-        profile_forward(lambda: bf16(xb.to(torch.bfloat16), t500, FP), top=6)
     print(f"    steps/s at batch {BATCH} on {smi}: int8 W4A8 {int8_sps:.4f} | "
           f"bf16-FP {bf16_sps:.4f} | fp32-FP {fp32_sps:.4f}")
     print(f"    peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del fp32, bf16
+    torch.cuda.empty_cache()
+
+    serving = bedroom(kernels, smi)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
-    print(json.dumps({"kernels": [{**{k: kern[k] for k in keys}, "check": "pass"}
-                                  for kern in kernels]}))
-    print(json.dumps({"serving_steps_per_s": {"int8": int8_sps, "bf16_fp": bf16_sps,
-                                              "fp32_fp": fp32_sps, "batch": BATCH}}))
+    extra = ("cifar_launches", "chain_ms")
+    print(json.dumps({"kernels": [{**{k: kern[k] for k in keys},
+                                   **{k: kern[k] for k in extra if k in kern},
+                                   "check": "pass"} for kern in kernels]}))
+    print(json.dumps({"cifar_serving_steps_per_s": {
+        "int8": int8_sps, "bf16_fp": bf16_sps, "fp32_fp": fp32_sps, "batch": BATCH},
+        "bedroom_serving": serving}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

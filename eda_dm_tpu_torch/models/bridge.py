@@ -4,11 +4,16 @@
 numpy arrays (a calibrated tree or an ``export_serving(_int8)`` tree, after
 ``jax.tree.map(np.asarray, ...)``) and loads it into a ``DDPMUNet``;
 :func:`load_jax_variables` does the same for any port module whose
-submodules mirror the tree.  :func:`to_jax_variables` is the inverse, so
-the port's own export can be compared with the JAX export leaf by leaf.
+submodules mirror the tree (``LDMUNet``: ``input_blocks_3_0``,
+``middle_block_1``, ``time_embed_0``, ``out_2``); :func:`first_stage_from_jax`
+loads the decode part of a ``FirstStage`` tree.  :func:`to_jax_variables`
+is the inverse, so the port's own export can be compared with the JAX
+export leaf by leaf.
 
 Path rule: a flax list entry ``down_0`` / ``up_1`` / ``block_0`` /
 ``attn_2`` is ``down[0]`` ... here; every other name is the attribute name.
+A parameter ``weight`` is the tree's ``kernel``; every other parameter
+(``bias``, ``scale``, ``codebook``) keeps its name.
 Layouts: conv kernels HWIO ↔ ``[Cout, Cin, kh, kw]``, dense kernels
 ``[in, out]`` ↔ ``[out, in]``, weight codes HWIO ↔ ``[Cout, kh, kw, Cin]``,
 per-channel ``(1, 1, 1, Cout)`` / ``(1, Cout)`` ↔ ``(Cout,)``.  The act
@@ -24,8 +29,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..nn.layers import ActQuantizer, GNorm, QConv, QDense
+from ..nn.layers import ActQuantizer, QConv, QDense
 from .ddpm_unet import DDPMConfig, DDPMUNet
+from .vae import FirstStage, VAEConfig
 
 _LIST = re.compile(r"(down|up|block|attn)_(\d+)")
 _WLEAF = re.compile(r"(w\d)_(delta|zp|alpha|bits|int|isum)")
@@ -82,11 +88,12 @@ def _load_params(module: nn.Module, tree: Dict[str, Any], device, seen, path):
             _load_params(_child(module, k), v, device, seen, f"{path}{k}/")
             continue
         t = _tensor(v, device)
-        if k == "kernel" and isinstance(module, (QConv, QDense)):
-            t = _to_port(t, "kernel", isinstance(module, QDense))
-            target = module.weight
-        elif k in ("bias", "scale") and isinstance(getattr(module, k, None),
-                                                   nn.Parameter):
+        weight = getattr(module, "weight", None)
+        if k == "kernel" and isinstance(weight, nn.Parameter):
+            t = _to_port(t, "kernel", weight.dim() == 2)
+            target = weight
+        elif k != "weight" and isinstance(getattr(module, k, None),
+                                          nn.Parameter):
             target = getattr(module, k)
         else:
             raise KeyError(f"unexpected param leaf {path}{k}")
@@ -144,6 +151,16 @@ def from_jax_variables(tree: Dict[str, Any], cfg: DDPMConfig, qc,
     return load_jax_variables(DDPMUNet(cfg, qc, device=device), tree)
 
 
+def first_stage_from_jax(tree: Dict[str, Any], cfg: VAEConfig,
+                         device=None) -> FirstStage:
+    """A ``FirstStage`` on ``device`` holding the decode part of a JAX
+    ``FirstStage`` tree (``decoder``, ``post_quant_conv``, ``codebook``);
+    the encoder and ``quant_conv`` are not read."""
+    params = {k: v for k, v in tree["params"].items()
+              if k not in ("encoder", "quant_conv")}
+    return load_jax_variables(FirstStage(cfg, device=device), {"params": params})
+
+
 def to_jax_variables(module: nn.Module) -> Dict[str, Any]:
     """The module's weights and serving state as a JAX-layout tree of numpy
     arrays (bf16 leaves come back as float32)."""
@@ -161,12 +178,13 @@ def to_jax_variables(module: nn.Module) -> Dict[str, Any]:
         quant.update(delta=_numpy(module.delta),
                      zero_point=_numpy(module.zero_point),
                      a_bits=np.asarray(module.spec.n_bits, np.int32))
-    elif isinstance(module, GNorm):
-        params.update(scale=_numpy(module.scale), bias=_numpy(module.bias))
-    elif isinstance(module, (QConv, QDense)):
+    for name, p in module.named_parameters(recurse=False):
+        if name == "weight":
+            params["kernel"] = _numpy(_to_jax(p, "kernel", p.dim() == 2))
+        else:
+            params[name] = _numpy(p)
+    if isinstance(module, (QConv, QDense)):
         dense = isinstance(module, QDense)
-        params["kernel"] = _numpy(_to_jax(module.weight, "kernel", dense))
-        params["bias"] = _numpy(module.bias)
         for name, _, _ in module._parts:
             quant[f"{name}_bits"] = np.asarray(module.wq.n_bits, np.int32)
             for leaf in ("delta", "zp", "alpha", "int", "isum"):

@@ -22,9 +22,10 @@ import torch.nn as nn
 from ..device import resolve_device
 from ..nn.layers import (ActQuantizer, GNorm, QConv, QDense, lecun_normal_,
                          swish, timestep_embedding)
+from ..ops.int8_attention import int8_fused_attention
 from ..ops.int8_einsum import (int8_act_einsum, int8_code_einsum,
                                quantize_act_int8)
-from ..ops.serving_policy import int8_serving
+from ..ops.serving_policy import attention_impl, int8_serving
 from ..ops.softmax_codes import softmax_int8_codes
 from ..quant.config import FP, QuantConfig, QuantizerSpec, QuantMode
 
@@ -101,19 +102,26 @@ class AttnBlockD(nn.Module):
         v = self.v(h, mode).reshape(n, hh * ww, c)
         L, Lw = self.aq.n_levels, self.aq_w.n_levels
         if int8_serving(mode) and L <= 256 and Lw <= 256:
-            # both products run int8×int8→int32 (kernel K2) with the exact
-            # recentering epilogue; softmax→codes is kernel K3.  This einsum
-            # branch is the only int8 attention until the fused kernels
-            # (K4/K5) are ported.
             dq, zq = self.act_quantizer_q(q, mode, params_only=True)
             dk, zk = self.act_quantizer_k(k, mode, params_only=True)
             dv, zv = self.act_quantizer_v(v, mode, params_only=True)
             dw, zw = self.act_quantizer_w(None, mode, params_only=True)
-            w = int8_act_einsum("nic,njc->nij", q, (dq, zq, L),
-                                k, (dk, zk, L)) * (c ** -0.5)
-            W, cw = softmax_int8_codes(w, dw, zw, Lw)
-            V, cv = quantize_act_int8(v, dv, zv, L)
-            h = int8_code_einsum("nij,njc->nic", W, cw, dw, V, cv, dv)
+            if attention_impl(n, 1, hh * ww, hh * ww, c) == "fused":
+                # the whole attention in one kernel (K4): the (n, hw, hw)
+                # logits never reach device memory
+                Qc, cq = quantize_act_int8(q, dq, zq, L)
+                Kc, ck = quantize_act_int8(k, dk, zk, L)
+                V, cv = quantize_act_int8(v, dv, zv, L)
+                h = int8_fused_attention(Qc, cq, dq, Kc, ck, dk, V, cv, dv,
+                                         c ** -0.5, dw, zw, Lw)
+            else:
+                # both products int8×int8→int32 (K2) with the exact
+                # recentering epilogue; softmax→codes is K3
+                w = int8_act_einsum("nic,njc->nij", q, (dq, zq, L),
+                                    k, (dk, zk, L)) * (c ** -0.5)
+                W, cw = softmax_int8_codes(w, dw, zw, Lw)
+                V, cv = quantize_act_int8(v, dv, zv, L)
+                h = int8_code_einsum("nij,njc->nic", W, cw, dw, V, cv, dv)
         else:
             q = self.act_quantizer_q(q, mode)
             k = self.act_quantizer_k(k, mode)

@@ -1,0 +1,376 @@
+"""LDM UNet (openai architecture, legacy attention), serving part (port of
+``eda_dm_tpu/models/ldm_unet.py``).
+
+Module names are the JAX package's flax names: a dict entry
+``input_blocks["3_0"]`` of the flax module is the attribute
+``input_blocks_3_0`` here, as are ``middle_block_1``, ``output_blocks_5_2``,
+``time_embed_0`` and ``out_2``; inside the blocks every name is kept
+(``in_layers_2``, ``emb_layers_1``, ``qkv``, ``act_quantizer_w``).  Layout
+is NHWC; dropout is omitted (inference only).
+
+Modes: FP, DEPLOY, DEPLOY_INT8.  The spatial-transformer family
+(``use_spatial_transformer``) and class conditioning are a later slice
+and raise ``NotImplementedError``.
+
+The first/last policy: ``time_embed_0`` and ``out_2`` are 8-bit (so they
+serve on the folded path), ``out_2``'s act quant is disabled, and the
+registration-last act quantizer of the last output-block item (a skip
+conv, ``proj_out`` or the upsample conv) is 8-bit (``aq_last``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from ..nn.layers import (ActQuantizer, GNorm, QConv, QDense, lecun_normal_,
+                         swish, timestep_embedding)
+from ..ops.int8_attention import int8_fused_attention_heads
+from ..ops.int8_einsum import (int8_act_einsum, int8_code_einsum,
+                               quantize_act_int8)
+from ..ops.serving_policy import attention_impl, int8_serving
+from ..ops.softmax_codes import softmax_int8_codes
+from ..quant.config import FP, QuantConfig, QuantizerSpec, QuantMode
+
+
+@dataclasses.dataclass(frozen=True)
+class LDMUNetConfig:
+    """UNetModel constructor args (openaimodel.py:477-503) that the ported
+    legacy-attention UNet reads; resampling is always by conv."""
+    image_size: int = 64
+    in_channels: int = 3
+    model_channels: int = 224
+    out_channels: int = 3
+    num_res_blocks: int = 2
+    attention_resolutions: Tuple[int, ...] = (8, 4, 2)  # in downsample rates
+    channel_mult: Tuple[int, ...] = (1, 2, 3, 4)
+    num_classes: Optional[int] = None
+    num_heads: int = -1
+    num_head_channels: int = -1
+    use_scale_shift_norm: bool = False
+    resblock_updown: bool = False
+    use_spatial_transformer: bool = False
+    legacy: bool = True
+
+    @property
+    def time_embed_dim(self) -> int:
+        return self.model_channels * 4
+
+    def head_split(self, ch: int) -> Tuple[int, int]:
+        """(num_heads, dim_head) at a given channel width."""
+        if self.num_head_channels == -1:
+            heads, dim = self.num_heads, ch // self.num_heads
+        else:
+            heads, dim = ch // self.num_head_channels, self.num_head_channels
+        if self.legacy:
+            dim = ch // heads if self.use_spatial_transformer \
+                else self.num_head_channels
+        return heads, dim
+
+
+@dataclasses.dataclass
+class LayerItem:
+    key: str              # flax dict key, e.g. "3_0"
+    kind: str             # 'conv' | 'res' | 'attn' | 'tx' | 'down' | 'up'
+    in_ch: int = 0
+    out_ch: int = 0
+    heads: int = 0
+    dim_head: int = 0
+    split: int = 0        # split point for output-block skip convs
+    updown: str = ""      # '', 'up', 'down' for resblock_updown ResBlocks
+
+
+@dataclasses.dataclass
+class UNetLayout:
+    input_blocks: List[LayerItem]
+    middle_block: List[LayerItem]
+    output_blocks: List[LayerItem]
+
+
+def build_layout(cfg: LDMUNetConfig, split_shortcut: bool) -> UNetLayout:
+    """Replays UNetModel.__init__'s channel bookkeeping."""
+    mc = cfg.model_channels
+    attn = "tx" if cfg.use_spatial_transformer else "attn"
+    inputs: List[LayerItem] = [LayerItem("0_0", "conv", cfg.in_channels, mc)]
+    input_chans = [mc]
+    ch, ds, idx = mc, 1, 1
+    for level, mult in enumerate(cfg.channel_mult):
+        for _ in range(cfg.num_res_blocks):
+            inputs.append(LayerItem(f"{idx}_0", "res", ch, mult * mc))
+            ch = mult * mc
+            if ds in cfg.attention_resolutions:
+                heads, dim = cfg.head_split(ch)
+                inputs.append(LayerItem(f"{idx}_1", attn, ch, ch, heads, dim))
+            input_chans.append(ch)
+            idx += 1
+        if level != len(cfg.channel_mult) - 1:
+            inputs.append(LayerItem(f"{idx}_0", "res", ch, ch, updown="down")
+                          if cfg.resblock_updown
+                          else LayerItem(f"{idx}_0", "down", ch, ch))
+            input_chans.append(ch)
+            idx += 1
+            ds *= 2
+
+    heads, dim = cfg.head_split(ch)
+    middle = [LayerItem("0", "res", ch, ch),
+              LayerItem("1", attn, ch, ch, heads, dim),
+              LayerItem("2", "res", ch, ch)]
+
+    outputs: List[LayerItem] = []
+    out_idx = 0
+    for level, mult in list(enumerate(cfg.channel_mult))[::-1]:
+        for i in range(cfg.num_res_blocks + 1):
+            ich = input_chans.pop()
+            outputs.append(LayerItem(f"{out_idx}_0", "res", ch + ich, mc * mult,
+                                     split=ch if split_shortcut else 0))
+            ch = mc * mult
+            j = 1
+            if ds in cfg.attention_resolutions:
+                heads, dim = cfg.head_split(ch)
+                outputs.append(LayerItem(f"{out_idx}_{j}", attn, ch, ch,
+                                         heads, dim))
+                j += 1
+            if level and i == cfg.num_res_blocks:
+                outputs.append(LayerItem(f"{out_idx}_{j}", "res", ch, ch,
+                                         updown="up")
+                               if cfg.resblock_updown
+                               else LayerItem(f"{out_idx}_{j}", "up", ch, ch))
+                ds //= 2
+            out_idx += 1
+    return UNetLayout(inputs, middle, outputs)
+
+
+def _group(items: List[LayerItem]) -> Dict[int, List[LayerItem]]:
+    grouped: Dict[int, List[LayerItem]] = {}
+    for it in items:
+        grouped.setdefault(int(it.key.split("_")[0]), []).append(it)
+    return grouped
+
+
+def _up2(x: torch.Tensor) -> torch.Tensor:
+    """2× nearest upsample, NHWC."""
+    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+
+def _avg_pool2(x: torch.Tensor) -> torch.Tensor:
+    """2×2 stride-2 average pool, NHWC."""
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+
+
+class ResBlockL(nn.Module):
+    """LDM ResBlock, with scale-shift norm and resblock up/down."""
+
+    def __init__(self, in_ch: int, out_ch: int, emb_ch: int, wq: QuantizerSpec,
+                 aq: QuantizerSpec, use_scale_shift_norm: bool = False,
+                 updown: str = "", split: int = 0,
+                 aq_last: Optional[QuantizerSpec] = None):
+        super().__init__()
+        self.updown, self.use_scale_shift_norm = updown, use_scale_shift_norm
+        self.in_layers_0 = GNorm(in_ch)
+        self.in_layers_2 = QConv(in_ch, out_ch, (3, 3), wq=wq, aq=aq)
+        self.emb_layers_1 = QDense(emb_ch, 2 * out_ch if use_scale_shift_norm
+                                   else out_ch, wq=wq, aq=aq)
+        self.out_layers_0 = GNorm(out_ch)
+        self.out_layers_3 = QConv(out_ch, out_ch, (3, 3), wq=wq, aq=aq)
+        self.skip_connection = (QConv(in_ch, out_ch, (1, 1), padding="VALID",
+                                      wq=wq, aq=aq_last or aq, split=split)
+                                if in_ch != out_ch else None)
+
+    def _resample(self, x):
+        if self.updown == "up":
+            return _up2(x)
+        return _avg_pool2(x) if self.updown == "down" else x
+
+    def forward(self, x, emb, mode: QuantMode):
+        h = self.in_layers_2(self._resample(swish(self.in_layers_0(x))), mode)
+        x = self._resample(x)
+        emb_out = self.emb_layers_1(swish(emb), mode)[:, None, None, :]
+        if self.use_scale_shift_norm:
+            scale, shift = emb_out.chunk(2, dim=-1)
+            h = swish(self.out_layers_0(h) * (1 + scale) + shift)
+            h = self.out_layers_3(h, mode)
+        else:
+            h = self.out_layers_3(swish(self.out_layers_0(h + emb_out)), mode)
+        if self.skip_connection is not None:
+            x = self.skip_connection(x, mode)
+        return x + h
+
+
+class AttentionBlockL(nn.Module):
+    """LDM AttentionBlock with legacy QKV attention: q·C^-¼ and k·C^-¼
+    quantized before the logits product (so the logit scale is 1); the
+    softmax output (sm_abit, always_zero) and v before the value product.
+    The ``qkv`` channels are heads × (q|k|v) × ch.  As in the JAX package,
+    the residual adds the normalized input."""
+
+    def __init__(self, ch: int, num_heads: int, wq: QuantizerSpec,
+                 aq: QuantizerSpec, aq_w: QuantizerSpec,
+                 aq_last: Optional[QuantizerSpec] = None):
+        super().__init__()
+        self.num_heads, self.aq, self.aq_w = num_heads, aq, aq_w
+        self.norm = GNorm(ch)
+        self.qkv = QDense(ch, 3 * ch, wq=wq, aq=aq)
+        self.act_quantizer_q = ActQuantizer(aq)
+        self.act_quantizer_k = ActQuantizer(aq)
+        self.act_quantizer_w = ActQuantizer(aq_w)
+        self.act_quantizer_v = ActQuantizer(aq)
+        self.proj_out = QDense(ch, ch, wq=wq, aq=aq_last or aq)
+
+    def forward(self, x, mode: QuantMode):
+        b, hh, ww, c = x.shape
+        t_len, heads = hh * ww, self.num_heads
+        xs = self.norm(x.reshape(b, t_len, c))
+        ch = c // heads
+        qkv = self.qkv(xs, mode).reshape(b, t_len, heads, 3, ch)
+        scale = 1.0 / torch.sqrt(torch.sqrt(torch.tensor(float(ch))))
+        q, k, v = qkv[..., 0, :] * scale, qkv[..., 1, :] * scale, qkv[..., 2, :]
+        L, Lw = self.aq.n_levels, self.aq_w.n_levels
+        if int8_serving(mode) and L <= 256 and Lw <= 256:
+            dq, zq = self.act_quantizer_q(q, mode, params_only=True)
+            dk, zk = self.act_quantizer_k(k, mode, params_only=True)
+            dw, zw = self.act_quantizer_w(None, mode, params_only=True)
+            dv, zv = self.act_quantizer_v(v, mode, params_only=True)
+            impl = attention_impl(b, heads, t_len, t_len, ch)
+            if impl == "flash":
+                raise NotImplementedError(
+                    "K5 (int8_flash_attention) is not ported: this attention "
+                    f"site (batch {b}, {heads} heads, S {t_len}, C {ch}) needs it")
+            if impl == "fused":
+                # the (b, h, t, s) logits never reach device memory (K4)
+                Qc, cq = quantize_act_int8(q, dq, zq, L)
+                Kc, ck = quantize_act_int8(k, dk, zk, L)
+                V, cv = quantize_act_int8(v, dv, zv, L)
+                a = int8_fused_attention_heads(Qc, cq, dq, Kc, ck, dk, V, cv,
+                                               dv, 1.0, dw, zw, Lw)
+            else:
+                # K2 → K3 → K2 on the heads layout
+                w = int8_act_einsum("bthc,bshc->bhts", q, (dq, zq, L),
+                                    k, (dk, zk, L))
+                W, cw = softmax_int8_codes(w, dw, zw, Lw)
+                V, cv = quantize_act_int8(v, dv, zv, L)
+                a = int8_code_einsum("bhts,bshc->bthc", W, cw, dw, V, cv, dv)
+        else:
+            q = self.act_quantizer_q(q, mode)
+            k = self.act_quantizer_k(k, mode)
+            w = torch.einsum("bthc,bshc->bhts", q.float(), k.float())
+            w = torch.softmax(w, dim=-1).to(x.dtype)
+            w = self.act_quantizer_w(w, mode)
+            v = self.act_quantizer_v(v, mode)
+            a = torch.einsum("bhts,bshc->bthc", w.float(), v.float())
+        a = a.to(x.dtype).reshape(b, t_len, c)
+        return (xs + self.proj_out(a, mode)).reshape(b, hh, ww, c)
+
+
+class DownsampleL(nn.Module):
+    """Stride-2 3×3 conv with the symmetric ((1,1),(1,1)) pad."""
+
+    def __init__(self, ch: int, wq: QuantizerSpec, aq: QuantizerSpec):
+        super().__init__()
+        self.op = QConv(ch, ch, (3, 3), strides=(2, 2),
+                        padding=((1, 1), (1, 1)), wq=wq, aq=aq)
+
+    def forward(self, x, mode):
+        return self.op(x, mode)
+
+
+class UpsampleL(nn.Module):
+    """2× nearest upsample + 3×3 conv."""
+
+    def __init__(self, ch: int, wq: QuantizerSpec, aq: QuantizerSpec):
+        super().__init__()
+        self.conv = QConv(ch, ch, (3, 3), wq=wq, aq=aq)
+
+    def forward(self, x, mode):
+        return self.conv(_up2(x), mode)
+
+
+class LDMUNet(nn.Module):
+    """The LDM UNet.  Built on ``device`` (the card unless the caller passes
+    ``"cpu"``) with N(0, 1/fan_in) weights drawn from ``seed``; real
+    weights come through ``models/bridge.py``.  Positional order
+    ``(x, t, context, y, mode)`` as in the JAX package."""
+
+    def __init__(self, cfg: LDMUNetConfig = LDMUNetConfig(),
+                 qc: QuantConfig = QuantConfig(), device=None, seed: int = 0):
+        super().__init__()
+        if cfg.use_spatial_transformer or cfg.num_classes is not None:
+            raise NotImplementedError(
+                "the spatial-transformer / class-conditional LDM UNet is not "
+                "ported yet")
+        device = resolve_device(device)
+        self.cfg, self.qc = cfg, qc
+        wq, aq = qc.wq, qc.aq
+        # LDM SMV softmax quantizer: always_zero (and an asymmetric search,
+        # which only calibration reads)
+        aq_w = qc.aq_softmax(always_zero=True)
+        self.layout = build_layout(cfg, qc.split)
+        mc, ted = cfg.model_channels, cfg.time_embed_dim
+        last_key = self.layout.output_blocks[-1].key
+
+        def make(it: LayerItem, aq_last: Optional[QuantizerSpec]):
+            if it.kind == "conv":
+                return QConv(it.in_ch, mc, (3, 3), wq=wq, aq=aq)
+            if it.kind == "res":
+                return ResBlockL(it.in_ch, it.out_ch, ted, wq, aq,
+                                 cfg.use_scale_shift_norm, it.updown,
+                                 it.split, aq_last)
+            if it.kind == "attn":
+                return AttentionBlockL(it.out_ch, it.heads, wq, aq, aq_w,
+                                       aq_last)
+            if it.kind == "down":
+                return DownsampleL(it.out_ch, wq, aq)
+            if it.kind == "up":
+                return UpsampleL(it.out_ch, wq, aq_last or aq)
+            raise ValueError(it.kind)
+
+        with torch.device(device):
+            self.time_embed_0 = QDense(mc, ted, wq=wq.with_bits(8), aq=aq)
+            self.time_embed_2 = QDense(ted, ted, wq=wq, aq=aq)
+            for prefix in ("input_blocks", "middle_block", "output_blocks"):
+                for it in getattr(self.layout, prefix):
+                    last = (prefix == "output_blocks" and it.key == last_key)
+                    setattr(self, f"{prefix}_{it.key}",
+                            make(it, aq.with_bits(8) if last else None))
+            self.out_0 = GNorm(mc)
+            self.out_2 = QConv(mc, cfg.out_channels, (3, 3),
+                               wq=wq.with_bits(8), aq=aq,
+                               disable_act_quant=True)
+        self.init_weights(seed)
+
+    def init_weights(self, seed: int) -> None:
+        g = torch.Generator(device=self.out_2.weight.device).manual_seed(seed)
+        for m in self.modules():
+            if isinstance(m, (QConv, QDense)):
+                lecun_normal_(m.weight, g)
+
+    def _run(self, prefix: str, items: List[LayerItem], h, emb, mode):
+        for it in items:
+            m = getattr(self, f"{prefix}_{it.key}")
+            h = m(h, emb, mode) if it.kind == "res" else m(h, mode)
+        return h
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor, context=None, y=None,
+                mode: QuantMode = FP) -> torch.Tensor:
+        # unconditional models never read `context`: a QuantMode passed where
+        # DDPMUNet takes its mode would otherwise run the whole net in FP
+        if isinstance(context, QuantMode) or isinstance(y, QuantMode):
+            raise TypeError("pass the QuantMode as mode=...; LDMUNet's "
+                            "positional order is (x, t, context, y, mode)")
+        # the carrier dtype follows the input (bf16 on the deployment path)
+        emb = timestep_embedding(t, self.cfg.model_channels).to(x.dtype)
+        emb = self.time_embed_0(emb, mode)
+        emb = self.time_embed_2(swish(emb), mode)
+        hs, h = [], x
+        for _, items in sorted(_group(self.layout.input_blocks).items()):
+            h = self._run("input_blocks", items, h, emb, mode)
+            hs.append(h)
+        h = self._run("middle_block", self.layout.middle_block, h, emb, mode)
+        for _, items in sorted(_group(self.layout.output_blocks).items()):
+            h = self._run("output_blocks", items, torch.cat([h, hs.pop()], -1),
+                          emb, mode)
+        return self.out_2(swish(self.out_0(h)), mode)

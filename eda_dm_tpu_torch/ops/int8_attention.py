@@ -1,0 +1,154 @@
+"""Fused int8 attention (kernel K4) and the applicability gates (port of
+``eda_dm_tpu/ops/pallas_attention.py``: ``int8_fused_attention``,
+``int8_fused_attention_heads``, ``fused_attention_applicable``,
+``flash_attention_applicable``).
+
+Semantics, in ``_kernel``'s operation order (each f32 step rounded):
+
+    logits = (((Q·Kᵀ + ck·Σq) + cq·Σk) + cq·ck·C) · (dq·dk·attn_scale)
+    w      = exp(logits − rowmax) / rowsum     (rowsum: f64, rounded to f32)
+    W      = clip(round(w/dw), −zw, Lw−1−zw) − (Lw/2 − zw)     (codes)
+    out    = (((W·V + cv·ΣW) + cw·ΣV) + cw·cv·S) · (dw·dv)
+
+This is the unfused chain's function (K2 → K3 → K2), but the chain scales
+its logits after the einsum epilogue and so rounds differently: the plain
+version here follows the fused order.  The kernel and the plain version
+add each row's exponentials in float64 and round the sum once to float32
+(the JAX package adds them in float32, in XLA's order): the f32 sum then
+does not depend on the order in which the threads add, unless the f64
+sums of two orders straddle an f32 rounding boundary (under S·2⁻³⁰ of
+rows).  So a kernel may add its rows in any order, and still a
+probability on a rounding tie of its code takes the plain version's code.
+
+On a CUDA tensor :func:`int8_fused_attention` launches
+``csrc/int8_attention.cu``; on a CPU tensor it runs the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ._build import check_launch, cuda_lib, launch_counts, ptr, stream_ptr
+from .int8_einsum import int8_bmm_acc_plain
+
+_ATTN_SIG = {"edm_int8_fused_attention": [ctypes.c_void_p] * 6
+             + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
+
+# the gates' working-set budget (bytes), as the TPU kernels' VMEM budget
+GATE_BYTES = 6 * 1024 * 1024
+
+
+def fused_attention_applicable(s: int, c: int) -> bool:
+    """The whole-attention kernel's gate: S and C multiples of 8 (the JAX
+    package's default admits the LDM zoos' sub-128-lane heads), one
+    element's working set within 6 MiB."""
+    if s % 8 != 0 or c % 8 != 0:
+        return False
+    return 3 * s * c + 4 * s * s + 4 * s * c <= GATE_BYTES
+
+
+def flash_attention_applicable(sq: int, skv: int, c: int) -> bool:
+    """The two-pass tiled kernel's (K5) gate, as the JAX package has it."""
+    tq, tk = min(sq, 256), min(skv, 512)
+    if sq % tq != 0 or skv % tk != 0 or skv % 128 != 0 or c % 8 != 0:
+        return False
+    return 2 * skv * c + 4 * tq * c * 3 + 4 * tq * tk <= GATE_BYTES
+
+
+def attention_scalars(cq, dq, ck, dk, cv, dv, attn_scale: float, dw, zw,
+                      device) -> torch.Tensor:
+    """``[cq, ck, cv, dq·dk·attn_scale, dw, zw, dw·dv]`` as float32, formed
+    as the JAX wrapper forms them."""
+    def f(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=device).reshape(())
+    return torch.stack([f(cq), f(ck), f(cv), f(dq) * f(dk) * attn_scale,
+                        f(dw), f(zw), f(dw) * f(dv)])
+
+
+def int8_fused_attention_plain(Q, K, V, sc: torch.Tensor, n_levels_w: int,
+                               return_codes: bool = False):
+    """K4's arithmetic in plain PyTorch, in ``_kernel``'s operation order,
+    the softmax row sums in float64 as in the kernel (module docstring)."""
+    cq, ck, cv, lsc, dw, zw, dwdv = sc.unbind()
+    s, c = Q.shape[1], Q.shape[2]
+    acc = int8_bmm_acc_plain(Q, K).float()
+    sum_q = Q.sum(-1, dtype=torch.int32).float()[..., None]
+    sum_k = K.sum(-1, dtype=torch.int32).float()[:, None, :]
+    logits = (acc + ck * sum_q + cq * sum_k + cq * ck * float(c)) * lsc
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    w = e / e.double().sum(-1, keepdim=True).float()
+    cw = n_levels_w / 2 - zw
+    wc = torch.clamp(torch.round(w / dw), -zw, float(n_levels_w - 1) - zw) - cw
+    W = wc.to(torch.int8)
+    acc2 = int8_bmm_acc_plain(W, V.transpose(1, 2).contiguous()).float()
+    sum_w = W.sum(-1, dtype=torch.int32).float()[..., None]
+    sum_v = V.sum(1, dtype=torch.int32).float()[:, None, :]
+    out = (acc2 + cv * sum_w + cw * sum_v + cw * cv * float(s)) * dwdv
+    return (out, W) if return_codes else out
+
+
+def _int8_fused_attention_cuda(Q, K, V, sc, n_levels_w, return_codes):
+    dev = Q.device
+    if any(t.dtype != torch.int8 or t.device != dev for t in (K, V)) \
+            or Q.dtype != torch.int8:
+        raise ValueError("int8_fused_attention takes int8 Q/K/V on one device")
+    if Q.dim() != 3 or K.shape != Q.shape or V.shape != Q.shape:
+        raise ValueError(f"Q/K/V must share one (N, S, C) shape, got "
+                         f"{tuple(Q.shape)}, {tuple(K.shape)}, {tuple(V.shape)}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (Q, K, V)):
+        raise ValueError("int8_fused_attention takes contiguous, aligned operands")
+    n, s, c = Q.shape
+    if not fused_attention_applicable(s, c):
+        raise ValueError(f"int8_fused_attention: S={s}, C={c} is outside the "
+                         "kernel's gate (S, C multiples of 8, 3SC+4S²+4SC ≤ 6 MiB)")
+    if n_levels_w > 256:
+        raise ValueError("int8 codes require sm_abit <= 8")
+    out = torch.empty((n, s, c), dtype=torch.float32, device=dev)
+    codes = (torch.empty((n, s, s), dtype=torch.int8, device=dev)
+             if return_codes else None)
+    lib = cuda_lib("int8_attention", _ATTN_SIG)
+    err = lib.edm_int8_fused_attention(
+        ptr(Q), ptr(K), ptr(V), ptr(sc.contiguous()), ptr(out), ptr(codes),
+        n, s, c, n_levels_w, stream_ptr(dev))
+    check_launch(lib, err, "int8_fused_attention")
+    launch_counts["int8_attention"] += 1
+    return (out, codes) if return_codes else out
+
+
+def int8_fused_attention(Q: torch.Tensor, cq, dq, K: torch.Tensor, ck, dk,
+                         V: torch.Tensor, cv, dv, attn_scale: float, dw, zw,
+                         n_levels_w: int, return_codes: bool = False):
+    """Attention over centered int8 codes, fused end to end.
+
+    Q/K/V: (N, S, C) int8 codes with offsets cq/ck/cv and steps dq/dk/dv
+    (the contract of ``quantize_act_int8``); ``attn_scale`` scales the
+    logits; dw/zw/n_levels_w are the softmax quantizer's.  Returns f32
+    (N, S, C), and with ``return_codes`` also the int8 codes W (N, S, S).
+    On a CUDA tensor this launches kernel K4; on a CPU tensor it runs the
+    plain version."""
+    sc = attention_scalars(cq, dq, ck, dk, cv, dv, attn_scale, dw, zw, Q.device)
+    if Q.is_cuda:
+        return _int8_fused_attention_cuda(Q, K, V, sc, n_levels_w, return_codes)
+    if Q.device.type != "cpu":
+        raise ValueError(f"int8_fused_attention: unsupported device {Q.device}")
+    return int8_fused_attention_plain(Q, K, V, sc, n_levels_w, return_codes)
+
+
+def heads_to_batched(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, C) → (B·H, S, C), contiguous."""
+    b, s, h, c = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b * h, s, c)
+
+
+def int8_fused_attention_heads(Q: torch.Tensor, cq, dq, K: torch.Tensor, ck,
+                               dk, V: torch.Tensor, cv, dv, attn_scale: float,
+                               dw, zw, n_levels_w: int) -> torch.Tensor:
+    """Heads layout: Q/K/V (B, S, H, C) codes → f32 (B, S, H, C); heads are
+    flattened into the batch, one (S, C) attention per (b, h)."""
+    b, s, h, c = Q.shape
+    out = int8_fused_attention(heads_to_batched(Q), cq, dq, heads_to_batched(K),
+                               ck, dk, heads_to_batched(V), cv, dv, attn_scale,
+                               dw, zw, n_levels_w)
+    return out.reshape(b, h, s, c).permute(0, 2, 1, 3)

@@ -170,7 +170,19 @@ def int8_code_einsum(eq: str, A: torch.Tensor, ca, da,
                      B: torch.Tensor, cb, db) -> torch.Tensor:
     """einsum over precomputed centered int8 codes (the ``(codes, c)``
     contract of :func:`quantize_act_int8` / ``softmax_int8_codes``), for the
-    two attention equations.  Returns float32."""
+    attention equations: the (n, ·, ·) forms and the LDM heads layout
+    (``bthc,bshc->bhts``, ``bhts,bshc->bthc``), whose heads become K2's
+    batch.  Returns float32."""
+    if eq in ("bthc,bshc->bhts", "bhts,bshc->bthc"):
+        b, h = B.shape[0], B.shape[2]
+        Bh = B.permute(0, 2, 1, 3).reshape(b * h, B.shape[1], B.shape[3])
+        if eq == "bthc,bshc->bhts":
+            Ah = A.permute(0, 2, 1, 3).reshape(b * h, A.shape[1], A.shape[3])
+            out = int8_code_einsum("nic,njc->nij", Ah, ca, da, Bh, cb, db)
+            return out.reshape(b, h, out.shape[1], out.shape[2])
+        out = int8_code_einsum("nij,njc->nic", A.reshape(b * h, *A.shape[2:]),
+                               ca, da, Bh, cb, db)
+        return out.reshape(b, h, *out.shape[1:]).permute(0, 2, 1, 3)
     if eq == "nic,njc->nij":
         Bt = B
         sum_a, sum_b = A.sum(-1, dtype=torch.int32), B.sum(-1, dtype=torch.int32)

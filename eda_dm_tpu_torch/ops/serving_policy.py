@@ -1,13 +1,22 @@
 """Serving gates for the quantized deployment path (port of
 ``eda_dm_tpu/ops/serving_policy.py`` and the int8 gates beside it).
 
-The TPU package's thresholds and environment switches do not carry over:
-each dispatch choice is measured anew on the card.  With the serving
-slice's modes (FP, DEPLOY, DEPLOY_INT8) the JAX package's
+With the serving slice's modes (FP, DEPLOY, DEPLOY_INT8) the JAX package's
 ``int8_serving`` and ``int8_attention_serving`` are the same predicate.
+``attention_impl`` keeps the JAX package's default thresholds and reads no
+environment switch, so the port takes the branch JAX takes at every shape;
+retuning them for the card is measured work of its own.
 """
 
 from __future__ import annotations
+
+from .int8_attention import (flash_attention_applicable,
+                             fused_attention_applicable)
+
+# the batch·heads above which the batched einsums serve small-S attention
+BATCH_HEADS_EINSUM_MIN = 128
+# the einsum path's logits bytes beyond which a fused kernel serves instead
+LOGITS_BYTES_MAX = 256 * 1024 * 1024
 
 
 def int8_serving(mode) -> bool:
@@ -25,3 +34,17 @@ def int8_conv_serving(mode, wq, aq, disable_act_quant: bool = False,
     recentering (act_bit ≤ 8)."""
     return (int8_serving(mode) and not disable_act_quant and split == 0
             and wq.n_bits <= 7 and aq.n_bits <= 8)
+
+
+def attention_impl(batch: int, heads: int, sq: int, skv: int, c: int) -> str:
+    """The int8 serving branch of one attention site: ``'einsum'`` (K2 →
+    K3 → K2), ``'fused'`` (K4) or ``'flash'`` (K5, not ported yet)."""
+    can_fuse = sq == skv and fused_attention_applicable(sq, c)
+    bh = batch * heads
+    if bh >= BATCH_HEADS_EINSUM_MIN and 4 * bh * sq * skv <= LOGITS_BYTES_MAX:
+        return "einsum"
+    if can_fuse:
+        return "fused"
+    if flash_attention_applicable(sq, skv, c):
+        return "flash"
+    return "einsum"

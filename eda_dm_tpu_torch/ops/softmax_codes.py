@@ -9,8 +9,14 @@ Port of ``eda_dm_tpu/ops/pallas_softmax.py::softmax_int8_codes``:
 The kernel reads each f32 row once and writes its int8 codes once: one
 program per block of rows, the row length masked up to the next power of
 two.  Bound on the card: bytes (5 per element), far below the compute
-ridge.  ``exp`` and the division in Triton may differ from PyTorch's in the
-last bit, so a code at a rounding boundary may flip by one.
+ridge.  It computes what the plain version computes, operation by
+operation: libdevice's ``expf`` (PyTorch's ``exp`` on the card) rather
+than Triton's approximate ``exp``, IEEE divisions, and the row sum added
+in float64 and rounded once to float32, so that it does not depend on the
+order of the reduction (the JAX package adds in float32, in XLA's order).
+A code may still flip by one where ``exp`` on the host differs from the
+card's, or where the f64 sums of two orders straddle an f32 rounding
+boundary.
 
 ``triton`` is imported only when a CUDA tensor is launched: the module
 imports on machines without it.
@@ -27,6 +33,7 @@ import torch
 from ._build import import_triton, launch_counts
 
 tl = None            # triton.language, bound at the first launch
+libdevice = None     # triton.language.extra.libdevice, likewise
 _jit_kernel = None
 
 
@@ -38,12 +45,13 @@ def _softmax_codes_kernel(x_ptr, out_ptr, d_ptr, z_ptr, R, S, hi, half,
     offs = rows[:, None].to(tl.int64) * S + cols[None, :]
     x = tl.load(x_ptr + offs, mask=mask, other=-1e30)
     m = tl.max(x, axis=1)
-    e = tl.exp(x - m[:, None])
+    e = libdevice.exp(x - m[:, None])
     e = tl.where(mask, e, 0.0)
-    w = e / tl.sum(e, axis=1)[:, None]
+    total = tl.sum(e.to(tl.float64), axis=1).to(tl.float32)
+    w = libdevice.div_rn(e, tl.broadcast_to(total[:, None], (ROWS, BLOCK_S)))
     d = tl.load(d_ptr)
     z = tl.load(z_ptr)
-    r = w / d
+    r = libdevice.div_rn(w, tl.broadcast_to(d, (ROWS, BLOCK_S)))
     # round half to even: adding 1.5*2^23 leaves no fraction bits, and the
     # add rounds to nearest-even; r >= 0, and r above 2^22 is clipped below
     r = (r + 12582912.0) - 12582912.0
@@ -52,11 +60,12 @@ def _softmax_codes_kernel(x_ptr, out_ptr, d_ptr, z_ptr, R, S, hi, half,
 
 
 def _kernel():
-    global tl, _jit_kernel
+    global tl, libdevice, _jit_kernel
     if _jit_kernel is None:
         triton = import_triton()
         import triton.language as language
-        tl = language
+        from triton.language.extra import libdevice as extra
+        tl, libdevice = language, extra
         _jit_kernel = triton.jit(_softmax_codes_kernel)
     return _jit_kernel
 
@@ -65,7 +74,7 @@ def softmax_int8_codes_plain(logits: torch.Tensor, delta: torch.Tensor,
                              zp: torch.Tensor, n_levels: int) -> torch.Tensor:
     x = logits.float()
     e = torch.exp(x - x.amax(-1, keepdim=True))
-    w = e / e.sum(-1, keepdim=True)
+    w = e / e.double().sum(-1, keepdim=True).float()
     q = torch.clamp(torch.round(w / delta), -zp, float(n_levels - 1) - zp)
     return (q - (n_levels / 2 - zp)).to(torch.int8)
 

@@ -1,0 +1,121 @@
+"""Latent-diffusion DDIM (port of ``eda_dm_tpu/samplers/latent.py``: the
+schedules, classifier-free guidance and the DDIM loop).
+
+The JAX ``lax.scan`` is a Python step loop here.  Noise comes from an
+explicit ``torch.Generator`` or is passed in per step: JAX's PRNG and
+torch's give different numbers from one seed.  A step whose σ is 0 adds no
+noise and draws none.  PLMS and DPM-Solver come with a later slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+
+
+def make_beta_schedule(n_timestep: int, linear_start: float = 1e-4,
+                       linear_end: float = 2e-2) -> np.ndarray:
+    """The ``linear`` schedule of ldm/modules/diffusionmodules/util.py:20-43
+    (float64 → float32), the one the ported tasks use."""
+    betas = np.linspace(linear_start ** 0.5, linear_end ** 0.5, n_timestep,
+                        dtype=np.float64) ** 2
+    return betas.astype(np.float32)
+
+
+@dataclasses.dataclass
+class LDMSchedule:
+    """DDIM sub-schedule buffers (float32 numpy)."""
+    betas: np.ndarray
+    alphas_cumprod: np.ndarray
+    ddim_timesteps: np.ndarray         # ascending, +1 offset applied
+    ddim_alphas: np.ndarray
+    ddim_alphas_prev: np.ndarray
+    ddim_sigmas: np.ndarray
+    ddim_sqrt_one_minus_alphas: np.ndarray
+
+    @property
+    def num_steps(self) -> int:
+        return len(self.ddim_timesteps)
+
+
+def make_ldm_schedule(num_timesteps: int = 1000, linear_start: float = 0.0015,
+                      linear_end: float = 0.0195, ddim_steps: int = 200,
+                      eta: float = 0.0) -> LDMSchedule:
+    """make_ddim_timesteps + make_ddim_sampling_parameters
+    (ldm/modules/diffusionmodules/util.py:46-75) on the linear schedule
+    with the uniform DDIM grid."""
+    betas = make_beta_schedule(num_timesteps, linear_start=linear_start,
+                               linear_end=linear_end)
+    alphas_cumprod = np.cumprod(1.0 - betas.astype(np.float64)).astype(
+        np.float32)
+    dt = np.arange(0, num_timesteps, num_timesteps // ddim_steps) + 1
+    al = alphas_cumprod[dt]
+    al_prev = np.concatenate([[alphas_cumprod[0]], alphas_cumprod[dt[:-1]]])
+    sigmas = eta * np.sqrt((1 - al_prev) / (1 - al) * (1 - al / al_prev))
+    return LDMSchedule(
+        betas=betas, alphas_cumprod=alphas_cumprod,
+        ddim_timesteps=dt.astype(np.int32),
+        ddim_alphas=al.astype(np.float32),
+        ddim_alphas_prev=al_prev.astype(np.float32),
+        ddim_sigmas=sigmas.astype(np.float32),
+        ddim_sqrt_one_minus_alphas=np.sqrt(1.0 - al).astype(np.float32))
+
+
+def cfg_model_fn(apply_fn: Callable, cond, uncond, scale: float) -> Callable:
+    """Classifier-free guidance: one doubled-batch call,
+    eps = e_uncond + scale·(e_cond − e_uncond)."""
+    if uncond is None or scale == 1.0:
+        return lambda x, t: apply_fn(x, t, cond)
+
+    def fn(x, t):
+        e = apply_fn(torch.cat([x, x]), torch.cat([t, t]),
+                     torch.cat([uncond, cond]))
+        e_uncond, e_cond = e.chunk(2)
+        return e_uncond + scale * (e_cond - e_uncond)
+    return fn
+
+
+def ddim_update(x, e_t, a_t, a_prev, sigma_t, sqrt_one_minus_at, noise):
+    """One p_sample_ddim update; returns (x_prev, pred_x0).  The schedule
+    values are float32 0-d tensors; ``noise`` may be None where σ is 0."""
+    pred_x0 = (x - sqrt_one_minus_at * e_t) / torch.sqrt(a_t)
+    dir_xt = torch.sqrt(1.0 - a_prev - sigma_t ** 2) * e_t
+    x_prev = torch.sqrt(a_prev) * pred_x0 + dir_xt
+    if noise is not None:
+        x_prev = x_prev + sigma_t * noise
+    return x_prev, pred_x0
+
+
+@torch.no_grad()
+def ldm_ddim_sample(x_T: torch.Tensor, sched: LDMSchedule, model_fn: Callable,
+                    generator: Optional[torch.Generator] = None,
+                    noise: Optional[Sequence[torch.Tensor]] = None,
+                    device=None) -> torch.Tensor:
+    """The reverse DDIM over the sub-schedule.  ``model_fn(x, t) -> eps``
+    with ``t`` float32 of shape (N,).  The noise of step k (k = 0 first)
+    is ``noise[k]`` when given, else drawn from ``generator``.  Returns
+    the final latents."""
+    device = resolve_device(device)
+    x = x_T.to(device)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    al, al_prev = f32(sched.ddim_alphas), f32(sched.ddim_alphas_prev)
+    sig, som = f32(sched.ddim_sigmas), f32(sched.ddim_sqrt_one_minus_alphas)
+    steps = sched.ddim_timesteps[::-1]
+    n = x.shape[0]
+    for k, step in enumerate(steps.tolist()):
+        index = len(steps) - 1 - k
+        t = torch.full((n,), float(step), dtype=torch.float32, device=device)
+        e_t = model_fn(x, t)
+        z = None
+        if sched.ddim_sigmas[index] != 0:
+            z = (noise[k].to(device) if noise is not None else
+                 torch.randn(x.shape, generator=generator, device=device,
+                             dtype=x.dtype))
+        x, _ = ddim_update(x, e_t, al[index], al_prev[index], sig[index],
+                           som[index], z)
+    return x

@@ -1,0 +1,139 @@
+"""The port's attention dispatch and fused int8 attention (K4's plain
+version) against the JAX package on the CPU.
+
+* ``attention_impl``: the same branch as JAX's at every shape of the grid
+  (the three LSUN-Bedroom sites at batch 50, the CIFAR sites at batch 8 to
+  500, SD's 4096 tokens); ``'flash'`` raises in the models (K5 is not
+  ported).
+* ``int8_fused_attention`` against the Pallas kernel in interpret mode:
+  the softmax codes within ±1 and ≥ 99.9 % identical (the exponentials and
+  the row sums may round differently in the last bit), the output within
+  rtol = atol = 1e-5 on every row whose codes agree.  JAX's codes are its
+  kernel body's arithmetic replayed with ``jnp``.
+* the heads layout (``int8_fused_attention_heads``) and the heads-layout
+  einsums of the LDM einsum branch (``bthc,bshc->bhts``,
+  ``bhts,bshc->bthc``): the int8 products are exact, the epilogues run in
+  the JAX order (rtol = atol = 1e-6).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from eda_dm_tpu.ops import int8_einsum as jein
+from eda_dm_tpu.ops import pallas_attention as jpa
+from eda_dm_tpu.ops import serving_policy as jpolicy
+from eda_dm_tpu_torch.ops import int8_einsum as tein
+from eda_dm_tpu_torch.ops.int8_attention import (int8_fused_attention,
+                                                 int8_fused_attention_heads)
+from eda_dm_tpu_torch.ops.serving_policy import attention_impl
+
+GRID = [  # batch, heads, S, C
+    (50, 14, 1024, 32), (50, 21, 256, 32), (50, 28, 64, 32),   # bedroom
+    (8, 1, 256, 256), (8, 1, 16, 256), (64, 1, 256, 256),       # CIFAR
+    (128, 1, 256, 256), (500, 1, 256, 256), (500, 1, 16, 256),
+    (4, 8, 4096, 40), (2, 8, 4096, 160), (2, 8, 1024, 80),      # SD
+    (1, 1, 1240, 8), (1, 1, 1248, 8), (3, 3, 72, 24), (2, 2, 77, 64),
+    (64, 2, 64, 64), (63, 2, 64, 64), (1, 1, 8, 4)]
+
+
+@pytest.mark.parametrize("site", GRID, ids=lambda s: "x".join(map(str, s)))
+def test_attention_impl_matches_jax(site, monkeypatch):
+    for var in ("EDM_FUSED_ATTN", "EDM_FUSED_ATTN_NARROW"):
+        monkeypatch.delenv(var, raising=False)
+    b, h, s, c = site
+    assert attention_impl(b, h, s, s, c) == jpolicy.attention_impl(b, h, s, s, c)
+
+
+def test_bedroom_sites_and_cifar_branches():
+    """Pinned: the 16×16 site's logits are 2.5 % above the einsum cap."""
+    assert attention_impl(50, 14, 1024, 1024, 32) == "fused"
+    assert attention_impl(50, 21, 256, 256, 32) == "fused"
+    assert attention_impl(50, 28, 64, 64, 32) == "einsum"
+    assert attention_impl(8, 1, 256, 256, 256) == "fused"
+    assert attention_impl(500, 1, 256, 256, 256) == "einsum"
+    assert attention_impl(4, 8, 4096, 4096, 40) == "flash"
+
+
+def _inputs(seed, n, s, c):
+    rng = np.random.default_rng(seed)
+    f = lambda scale: (rng.standard_normal((n, s, c)) * scale).astype(np.float32)
+    q, k, v = f(1.0), f(0.8), f(1.2)
+    scal = dict(dq=0.021, zq=130.0, dk=0.017, zk=122.0, dv=0.025, zv=127.0,
+                dw=1.0 / 255.0, zw=0.0)
+    return q, k, v, {key: np.float32(x) for key, x in scal.items()}
+
+
+def _jax_codes(Q, cq, dq, K, ck, dk, attn_scale, dw, zw, n_lv):
+    """``_kernel``'s arithmetic up to the codes, with jnp."""
+    c = Q.shape[-1]
+    lsc = jnp.asarray(dq, jnp.float32) * jnp.asarray(dk, jnp.float32) * attn_scale
+    q, k = Q.astype(jnp.float32), K.astype(jnp.float32)
+    acc = jnp.einsum("nic,njc->nij", q, k)
+    sum_q = jnp.sum(q, axis=2, keepdims=True)
+    sum_k = jnp.sum(k, axis=2)[:, None, :]
+    logits = (acc + ck * sum_q + cq * sum_k + cq * ck * float(c)) * lsc
+    e = jnp.exp(logits - jnp.max(logits, axis=2, keepdims=True))
+    w = e / jnp.sum(e, axis=2, keepdims=True)
+    cw = n_lv / 2 - zw
+    return np.asarray(jnp.clip(jnp.round(w / dw), -zw, float(n_lv - 1) - zw) - cw)
+
+
+@pytest.mark.parametrize("s", [16, 64, 72])
+@pytest.mark.parametrize("c", [8, 32, 128])
+@pytest.mark.parametrize("scale_form", ["c^-1/2", "1.0"])
+def test_fused_attention_matches_the_pallas_kernel(s, c, scale_form):
+    q, k, v, p = _inputs(s * c, 3, s, c)
+    attn_scale = float(c) ** -0.5 if scale_form == "c^-1/2" else 1.0
+    jq = [jein.quantize_act_int8(jnp.asarray(x), p["d" + n], p["z" + n], 256)
+          for x, n in ((q, "q"), (k, "k"), (v, "v"))]
+    (Qj, cq), (Kj, ck), (Vj, cv) = jq
+    ref = np.asarray(jpa.int8_fused_attention(
+        Qj, cq, p["dq"], Kj, ck, p["dk"], Vj, cv, p["dv"], attn_scale,
+        p["dw"], p["zw"], 256, interpret=True))
+    ref_codes = _jax_codes(Qj, cq, p["dq"], Kj, ck, p["dk"], attn_scale,
+                           p["dw"], p["zw"], 256)
+    T = lambda a: torch.from_numpy(np.array(a))
+    out, codes = int8_fused_attention(
+        T(Qj), T(cq), T(p["dq"]), T(Kj), T(ck), T(p["dk"]), T(Vj), T(cv),
+        T(p["dv"]), attn_scale, T(p["dw"]), T(p["zw"]), 256, return_codes=True)
+    diff = np.abs(codes.numpy().astype(np.int32) - ref_codes.astype(np.int32))
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.999
+    rows = (diff == 0).all(-1)
+    assert rows.mean() > 0.9
+    np.testing.assert_allclose(out.numpy()[rows], ref[rows], rtol=1e-5, atol=1e-5)
+
+
+def test_heads_layout_matches_jax():
+    b, s, h, c = 2, 64, 3, 32
+    q, k, v, p = _inputs(5, b, s, h * c)
+    jq = [jein.quantize_act_int8(jnp.asarray(x.reshape(b, s, h, c)), p["d" + n],
+                                 p["z" + n], 256)
+          for x, n in ((q, "q"), (k, "k"), (v, "v"))]
+    (Qj, cq), (Kj, ck), (Vj, cv) = jq
+    ref = np.asarray(jpa.int8_fused_attention_heads(
+        Qj, cq, p["dq"], Kj, ck, p["dk"], Vj, cv, p["dv"], 1.0, p["dw"],
+        p["zw"], 256, interpret=True))
+    T = lambda a: torch.from_numpy(np.array(a))
+    out = int8_fused_attention_heads(
+        T(Qj), T(cq), T(p["dq"]), T(Kj), T(ck), T(p["dk"]), T(Vj), T(cv),
+        T(p["dv"]), 1.0, T(p["dw"]), T(p["zw"]), 256)
+    assert out.shape == (b, s, h, c)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("eq", ["bthc,bshc->bhts", "bhts,bshc->bthc"])
+def test_heads_layout_einsums_match_jax(eq):
+    b, s, h, c = 2, 16, 3, 8
+    rng = np.random.default_rng(7)
+    shape_a = (b, s, h, c) if eq.startswith("bthc") else (b, h, s, s)
+    A = rng.integers(-128, 128, shape_a).astype(np.int8)
+    B = rng.integers(-128, 128, (b, s, h, c)).astype(np.int8)
+    ca, da, cb, db = (np.float32(x) for x in (3.0, 0.013, -2.0, 0.0071))
+    ref = np.asarray(jein.int8_code_einsum(eq, jnp.asarray(A), ca, da,
+                                           jnp.asarray(B), cb, db))
+    T = lambda a: torch.from_numpy(np.array(a))
+    out = tein.int8_code_einsum(eq, T(A), T(ca), T(da), T(B), T(cb), T(db))
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6, atol=1e-6)

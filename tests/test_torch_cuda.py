@@ -10,9 +10,10 @@ multiples of the 128 tile, Cin not a multiple of 32 (the byte-gather path
 of K1), softmax rows that are not a power of two.  Integer accumulators
 must be bit-equal; the f32 epilogues run the same operations in the same
 order, so outputs must be equal too; softmax codes may flip by one where
-Triton's exp/division round differently (≥ 99.9 % equal).  Last, the tiny
-UNet in DEPLOY_INT8 on the card against the same model on the host, module
-by module and as a whole.
+a kernel's float64 row sum rounds to another float32 than the plain
+version's (≥ 99.9 % equal).  Last,
+the tiny DDPM and LDM UNets in DEPLOY_INT8 on the card against the same
+model on the host, module by module and as a whole.
 """
 
 import pytest
@@ -89,27 +90,64 @@ def test_softmax_codes_kernel(gen, s):
     assert float(c) == 128.0 - 7.0
 
 
+def _attention_case(g, n, s, c):
+    from eda_dm_tpu_torch.ops.int8_attention import attention_scalars
+    Q, K, V = (_codes(g, (n, s, c)) for _ in range(3))
+    sc = attention_scalars(3.0, 0.021, -5.0, 0.017, 1.0, 0.025,
+                           float(c) ** -0.5, 1.0 / 255.0, 0.0, "cuda")
+    return Q, K, V, sc
+
+
+@pytest.mark.parametrize("s", [8, 72, 264, 1024, 1240])
+@pytest.mark.parametrize("c", [8, 24, 32, 40, 256])
+def test_int8_attention_kernel(gen, s, c):
+    """K4 at ragged shapes: codes within ±1 and ≥ 99.9 % equal, the output
+    within rtol = atol = 1e-5 on the rows whose codes agree; a shape
+    outside the TPU kernel's gate is refused."""
+    from eda_dm_tpu_torch.ops.int8_attention import (
+        _int8_fused_attention_cuda, fused_attention_applicable,
+        int8_fused_attention_plain)
+    n = max(2, 4096 // s)
+    Q, K, V, sc = _attention_case(gen, n, s, c)
+    if not fused_attention_applicable(s, c):
+        with pytest.raises(ValueError, match="gate"):
+            _int8_fused_attention_cuda(Q, K, V, sc, 256, False)
+        return
+    out, codes = _int8_fused_attention_cuda(Q, K, V, sc, 256, True)
+    torch.cuda.synchronize()
+    ref, ref_codes = int8_fused_attention_plain(Q, K, V, sc, 256, True)
+    diff = (codes.int() - ref_codes.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.999
+    rows = (diff == 0).all(-1)
+    torch.testing.assert_close(out[rows], ref[rows], rtol=1e-5, atol=1e-5)
+
+
+def test_int8_attention_kernel_past_the_grid_limit(gen):
+    """More (b·h) elements than a grid's y/z dimension holds (65,535)."""
+    from eda_dm_tpu_torch.ops.int8_attention import (
+        _int8_fused_attention_cuda, int8_fused_attention_plain)
+    Q, K, V, sc = _attention_case(gen, 70_000, 8, 8)
+    out = _int8_fused_attention_cuda(Q, K, V, sc, 256, False)
+    torch.cuda.synchronize()
+    ref = int8_fused_attention_plain(Q, K, V, sc, 256)
+    close = ((out - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all(-1)
+    assert float(close.float().mean()) >= 0.999
+
+
 TINY = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(8,),
             resolution=16)
 
 
-def _tiny_int8_model(state):
-    """The tiny UNet on the host, exported by ``export_serving_int8`` with an
-    f32 carrier, and a seeded input.  Quant state ``uniform``: every act
-    range [-3, 3], every weight Δ 0.02 with zp 8; ``minmax``: act ranges
-    from the min/max one FP forward records, weights on their symmetric
-    per-channel range with round-to-nearest alphas."""
-    from eda_dm_tpu_torch.models.ddpm_unet import DDPMConfig, DDPMUNet
+def _set_quant_state(model, x, t, state):
+    """Quant state ``uniform``: every act range [-3, 3], every weight Δ 0.02
+    with zp 8; ``minmax``: act ranges from the min/max one FP forward
+    records, weights on their symmetric per-channel range with
+    round-to-nearest alphas."""
     from eda_dm_tpu_torch.nn.layers import ActQuantizer, QConv, QDense
     from eda_dm_tpu_torch.parity import tap
-    from eda_dm_tpu_torch.quant import FP, QuantConfig
+    from eda_dm_tpu_torch.quant import FP
     from eda_dm_tpu_torch.quant.adaround import init_alpha
     from eda_dm_tpu_torch.quant.affine import calculate_qparams
-    from eda_dm_tpu_torch.quant.export import export_serving_int8
-    qc = QuantConfig()
-    model = DDPMUNet(DDPMConfig(**TINY), qc, device="cpu")
-    x = torch.randn(2, 16, 16, 3, generator=torch.Generator().manual_seed(0))
-    t = torch.full((2,), 50.0)
     with torch.no_grad():
         if state == "uniform":
             for m in model.modules():
@@ -121,58 +159,59 @@ def _tiny_int8_model(state):
                     p.fill_(0.02)
                 elif name.endswith("_zp"):
                     p.fill_(8.0)
-        else:
-            with tap(model, ActQuantizer) as rec:
-                model(x, t, FP)
-            for name, calls in rec.items():
-                q, v = model.get_submodule(name), calls[0][0]
-                q.delta, q.zero_point = calculate_qparams(
-                    v.min(), v.max(), q.spec.n_levels, q.spec.always_zero)
-            for m in model.modules():
-                if isinstance(m, (QConv, QDense)):
-                    for part, s, e in m._parts:
-                        w = m.weight[:, s:e]
-                        amax = w.abs().reshape(w.shape[0], -1).amax(1)
-                        d, zp = calculate_qparams(-amax, amax, m.wq.n_levels)
-                        setattr(m, f"{part}_delta", d)
-                        setattr(m, f"{part}_zp", zp)
-                        setattr(m, f"{part}_alpha", init_alpha(w, m._per_channel(d)))
+            return
+        with tap(model, ActQuantizer) as rec:
+            model(x, t, mode=FP)
+        for name, calls in rec.items():
+            q, v = model.get_submodule(name), calls[0][0]
+            q.delta, q.zero_point = calculate_qparams(
+                v.min(), v.max(), q.spec.n_levels, q.spec.always_zero)
+        for m in model.modules():
+            if isinstance(m, (QConv, QDense)):
+                for part, s, e in m._parts:
+                    w = m.weight[:, s:e]
+                    amax = w.abs().reshape(w.shape[0], -1).amax(1)
+                    d, zp = calculate_qparams(-amax, amax, m.wq.n_levels)
+                    setattr(m, f"{part}_delta", d)
+                    setattr(m, f"{part}_zp", zp)
+                    setattr(m, f"{part}_alpha", init_alpha(w, m._per_channel(d)))
+
+
+def _tiny_int8_model(state):
+    """The tiny UNet on the host, exported by ``export_serving_int8`` with an
+    f32 carrier, and a seeded input (quant states: ``_set_quant_state``)."""
+    from eda_dm_tpu_torch.models.ddpm_unet import DDPMConfig, DDPMUNet
+    from eda_dm_tpu_torch.quant import QuantConfig
+    from eda_dm_tpu_torch.quant.export import export_serving_int8
+    qc = QuantConfig()
+    model = DDPMUNet(DDPMConfig(**TINY), qc, device="cpu")
+    x = torch.randn(2, 16, 16, 3, generator=torch.Generator().manual_seed(0))
+    t = torch.full((2,), 50.0)
+    _set_quant_state(model, x, t, state)
     export_serving_int8(model, qc, torch.float32)
     return model, x, t
 
 
-@pytest.mark.parametrize("state", ["uniform", "minmax"])
-def test_tiny_model_on_the_card_matches_the_host(gen, state):
-    """DEPLOY_INT8 through the kernels on the card against the plain
-    versions on the host.
-
-    Each module on the host's input (teacher forcing, ``parity.tap``): the
-    int8 convs and denses give the host's output bit for bit; GroupNorm,
-    the folded layers (cuDNN / cuBLAS) and the ops between modules differ
-    by f32 association only (rtol = atol = 2e-5).  Run freely, the first
-    act code that differs sits on a rounding tie: its quantizer's input is
-    within that same bound of the host's.  The flip then spreads through
-    GroupNorm and attention, so the whole output keeps the flip-aware
-    median / max bounds.  The ``uniform`` state puts activations on ties
-    by construction (every weight Δ is 0.02 and every act Δ is equal, so a
-    residual sum of int8-layer outputs is a multiple of Δ/50 and every
-    25th multiple is a .5 tie): there the median drift is 8.5e-4 on the
-    card, well above the 2e-4 bound, and only the max bound is held."""
+def _card_against_host(model, x, t, tag):
+    """DEPLOY_INT8 of one model on the host (plain versions) and then on the
+    card (kernels).  Each module on the host's input: the int8 convs and
+    denses bit for bit, GroupNorm, the folded layers and the ops between
+    modules within rtol = atol = 2e-5; run freely, the first act code that
+    differs sits on a tie.  Returns the whole-output |Δ|."""
     from eda_dm_tpu_torch.nn.layers import ActQuantizer, GNorm, QConv, QDense
     from eda_dm_tpu_torch.ops.int8_einsum import tf32_off
     from eda_dm_tpu_torch.ops.serving_policy import int8_conv_serving
     from eda_dm_tpu_torch.parity import act_code_flips, tap
     from eda_dm_tpu_torch.quant import DEPLOY_INT8
-    model, x, t = _tiny_int8_model(state)
     kinds = (QConv, QDense, GNorm)
     with torch.no_grad(), tf32_off():
         with tap(model, ActQuantizer) as host_q, tap(model, kinds) as host:
-            ref = model(x, t, DEPLOY_INT8)
+            ref = model(x, t, mode=DEPLOY_INT8)
         model.to("cuda")
         with tap(model, ActQuantizer) as card_q:
-            out = model(x.cuda(), t.cuda(), DEPLOY_INT8).cpu()
+            out = model(x.cuda(), t.cuda(), mode=DEPLOY_INT8).cpu()
         with tap(model, kinds, replace=host) as forced:
-            model(x.cuda(), t.cuda(), DEPLOY_INT8)
+            model(x.cuda(), t.cuda(), mode=DEPLOY_INT8)
     mods = dict(model.named_modules())
     n_int8, worst_in, worst_out = 0, (0.0, ""), (0.0, "")
     for name, calls in forced.items():
@@ -195,17 +234,55 @@ def test_tiny_model_on_the_card_matches_the_host(gen, state):
     first = next((r for r in rows if r[2]), None)
     assert first is None or first[3] <= 2e-5, first
     d = (out - ref).abs()
-    print(f"\n[{state}] on the host's inputs: {n_int8} int8 modules bit-equal;"
+    print(f"\n[{tag}] on the host's inputs: {n_int8} int8 modules bit-equal;"
           f" worst other module output {worst_out}, worst input {worst_in}\n"
-          f"[{state}] free run: {sum(r[2] for r in rows)} act codes of "
+          f"[{tag}] free run: {sum(r[2] for r in rows)} act codes of "
           f"{sum(r[1] for r in rows)} differ, the first in {first}; whole "
           f"model: median {float(d.median()):.3g} max {float(d.max()):.3g} "
           f"mean {float(d.mean()):.3g} share<2e-4 "
           f"{float((d < 2e-4).float().mean()):.4f}")
     assert torch.isfinite(out).all()
+    return d
+
+
+@pytest.mark.parametrize("state", ["uniform", "minmax"])
+def test_tiny_model_on_the_card_matches_the_host(gen, state):
+    """DEPLOY_INT8 through the kernels on the card against the plain
+    versions on the host, module by module (``_card_against_host``).  The
+    flip then spreads through GroupNorm and attention, so the whole output
+    keeps the flip-aware median / max bounds.  The ``uniform`` state puts
+    activations on ties by construction (every weight Δ is 0.02 and every
+    act Δ is equal, so a residual sum of int8-layer outputs is a multiple
+    of Δ/50 and every 25th multiple is a .5 tie): there the median drift is
+    8.5e-4 on the card, well above the 2e-4 bound, and only the max bound
+    is held.  At batch 2 the attention runs K4 on the card."""
+    model, x, t = _tiny_int8_model(state)
+    d = _card_against_host(model, x, t, state)
     assert float(d.max()) < 0.15
     if state == "minmax":
         assert float(d.median()) < 2e-4
+
+
+def test_tiny_ldm_on_the_card_matches_the_host(gen):
+    """The tiny LDM UNet (attention at both levels, 8-channel heads, K4 on
+    the card at batch 2) in DEPLOY_INT8, ``minmax`` state, module by module
+    as above; the whole output median < 2e-4, max < 0.15."""
+    from eda_dm_tpu_torch.models.ldm_unet import LDMUNet, LDMUNetConfig
+    from eda_dm_tpu_torch.quant import QuantConfig
+    from eda_dm_tpu_torch.quant.export import export_serving_int8
+    cfg = LDMUNetConfig(image_size=16, model_channels=32, channel_mult=(1, 2),
+                        num_res_blocks=1, attention_resolutions=(1, 2),
+                        num_head_channels=8)
+    qc = QuantConfig()
+    model = LDMUNet(cfg, qc, device="cpu")
+    x = torch.randn(2, 16, 16, 3, generator=torch.Generator().manual_seed(0))
+    # small t, as above: the card's and the host's sin/cos of t·freq differ
+    # by more than 2e-5 at t = 600
+    t = torch.tensor([50.0, 20.0])
+    _set_quant_state(model, x, t, "minmax")
+    export_serving_int8(model, qc, torch.float32)
+    d = _card_against_host(model, x, t, "ldm")
+    assert float(d.max()) < 0.15 and float(d.median()) < 2e-4
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):

@@ -2,16 +2,18 @@
 
 The JAX tree goes CALIB_W → CALIB_A → export once per module; the port gets
 it through ``models/bridge.py`` and runs on the CPU (the kernels' plain
-versions).  ``EDM_FUSED_ATTN=0`` puts JAX on the same einsum +
-softmax-codes attention branch as the port at this small batch.
+versions).  Both packages take their default attention branch: at this
+small batch the fused attention (K4's plain version, JAX's Pallas kernel in
+interpret mode); the einsum + softmax-codes branch is held too, forced on
+both sides (``EDM_FUSED_ATTN=0`` in JAX, ``attention_impl`` in the port).
 
 Tolerances: the FP forward atol 1e-4; single blocks on a shared input
 rtol = atol = 2e-5 (f32 association only).  The quantized whole-model
 paths are held in three ways:
 
-* every GroupNorm, conv and dense on JAX's input (teacher forcing,
-  ``eda_dm_tpu_torch.parity.tap``), and the ops between them, within
-  rtol = atol = 2e-5 of JAX;
+* every act quantizer, GroupNorm, conv and dense on JAX's input (teacher
+  forcing, ``eda_dm_tpu_torch.parity.tap``), and the ops between them,
+  within rtol = atol = 2e-5 of JAX;
 * run freely, the first act code that differs from JAX's sits on a
   rounding tie: its quantizer's input is within 2e-5 of JAX's;
 * the whole output: the flip-aware median / max bounds of
@@ -67,21 +69,27 @@ def _np(tree):
 
 @pytest.fixture(scope="module")
 def calibrated():
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("EDM_FUSED_ATTN", "0")
-        model = JUNet(cfg=JCFG, qc=JQC_)
-        rng = np.random.default_rng(0)
-        x = jnp.asarray(rng.standard_normal((4, 16, 16, 3)), jnp.float32)
-        t = jnp.full((4,), 20.0)
-        v = model.init(jax.random.PRNGKey(0), x, t, JFP)
-        _, upd = jax.jit(lambda v: model.apply(v, x, t, CALIB_W,
-                                               mutable=["quant"]))(v)
-        v = {**v, "quant": upd["quant"]}
-        _, upd = jax.jit(lambda v: model.apply(v, x, t, CALIB_A,
-                                               mutable=["quant"]))(v)
-        v = {**v, "quant": upd["quant"]}
-        yield dict(model=model, v=v, x=x, t=t,
-                   int8=jexport.export_serving_int8(v, JQC_, dtype=jnp.float32))
+    model = JUNet(cfg=JCFG, qc=JQC_)
+    rng = np.random.default_rng(0)
+    x = jnp.asarray(rng.standard_normal((4, 16, 16, 3)), jnp.float32)
+    t = jnp.full((4,), 20.0)
+    v = model.init(jax.random.PRNGKey(0), x, t, JFP)
+    _, upd = jax.jit(lambda v: model.apply(v, x, t, CALIB_W,
+                                           mutable=["quant"]))(v)
+    v = {**v, "quant": upd["quant"]}
+    _, upd = jax.jit(lambda v: model.apply(v, x, t, CALIB_A,
+                                           mutable=["quant"]))(v)
+    v = {**v, "quant": upd["quant"]}
+    return dict(model=model, v=v, x=x, t=t,
+                int8=jexport.export_serving_int8(v, JQC_, dtype=jnp.float32))
+
+
+@pytest.fixture
+def einsum_attention(monkeypatch):
+    """Both packages on the einsum + softmax-codes attention branch."""
+    import eda_dm_tpu_torch.models.ddpm_unet as port_unet
+    monkeypatch.setenv("EDM_FUSED_ATTN", "0")
+    monkeypatch.setattr(port_unet, "attention_impl", lambda *a: "einsum")
 
 
 def _flip_gate(out, ref, max_abs, share=True):
@@ -118,32 +126,56 @@ def _jax_tapped(model, tree, x, t, mode):
         return out
 
     with fnn.intercept_methods(keep):
-        out = model.apply(tree, jnp.asarray(x), jnp.asarray(t), mode)
+        out = model.apply(tree, jnp.asarray(x), jnp.asarray(t), mode=mode)
     return np.asarray(out), rec
 
 
-def _against_jax(model, tree, port, x, t, jmode, mode):
+def _against_jax(model, tree, port, x, t, jmode, mode,
+                 attn_code_flips=False):
     """JAX's and the port's output on one input.  On the way, every module
     of the port computed on JAX's input must give JAX's output, and the
     ops between modules JAX's input of the next (rtol = atol = 2e-5); and
     in the free run the first act code that differs from JAX's must sit on
-    a rounding tie.  Returns (JAX out, port out, codes that differ)."""
+    a rounding tie.  Returns (JAX out, port out, codes that differ).
+
+    ``attn_code_flips``: in DEPLOY_INT8 the softmax codes are computed
+    inside the attention kernels, where no module can be forced onto JAX's
+    input, and at S = 256 a code or two sits on a tie of the two ``exp``s.
+    A flipped code W[i, j] moves the head's output at query i by about
+    dw·v̂_j, so the input of ``proj_out`` may then differ beyond 2e-5 on at
+    most 0.1 % of its elements, by at most 1 % of its largest value, and
+    the first act code to differ in the free run may be that of a
+    ``proj_out``."""
     ref, jrec = _jax_tapped(model, tree, x, t, jmode)
     xt, tt = torch.from_numpy(np.array(x)), torch.from_numpy(np.array(t))
     with torch.no_grad():
-        with tap(port, (GNorm, QConv, QDense), replace=jrec) as forced:
-            port(xt, tt, mode)
+        with tap(port, (ActQuantizer, GNorm, QConv, QDense),
+                 replace=jrec) as forced:
+            port(xt, tt, mode=mode)
         with tap(port, ActQuantizer) as free:
-            out = port(xt, tt, mode).numpy()
+            out = port(xt, tt, mode=mode).numpy()
     for name, calls in forced.items():
         for (x_port, o_port), (x_jax, o_jax) in zip(calls, jrec[name]):
+            if attn_code_flips and name.endswith(".proj_out"):
+                d = (x_port - x_jax).abs()
+                off = d > 2e-5 + 2e-5 * x_jax.abs()
+                print(f"\n  input of {name}: {int(off.sum())} of {d.numel()}"
+                      f" beyond 2e-5, max |d| {float(d.max()):.3g}")
+                assert float(off.float().mean()) <= 1e-3, name
+                assert float(d.max()) <= 0.01 * float(x_jax.abs().max()), name
+                continue
             torch.testing.assert_close(x_port, x_jax, rtol=2e-5, atol=2e-5,
                                        msg=f"input of {name}")
-            torch.testing.assert_close(o_port, o_jax, rtol=2e-5, atol=2e-5,
-                                       msg=f"output of {name}")
+            if o_jax is not None:          # not a quantizer's params_only call
+                torch.testing.assert_close(o_port, o_jax, rtol=2e-5,
+                                           atol=2e-5, msg=f"output of {name}")
     rows = act_code_flips(port, free, jrec)
     first = next((r for r in rows if r[2]), None)
-    assert first is None or first[3] <= 2e-5, first
+    # a softmax code flipped inside the attention kernel shows first at the
+    # quantizer of the proj_out it feeds (held by the forced run above)
+    after_attn = (attn_code_flips and first is not None
+                  and first[0].endswith(".proj_out.act_quantizer"))
+    assert first is None or first[3] <= 2e-5 or after_attn, first
     d = np.abs(out - ref)
     print(f"\n  t={float(t[0]):g}: {sum(r[2] for r in rows)} act codes differ, "
           f"the first in {first}; median {np.median(d):.3g} max {d.max():.3g}"
@@ -179,8 +211,7 @@ def test_deploy_forward(calibrated):
     assert np.abs(out - ref).mean() <= d.mean()
 
 
-def test_deploy_int8_forward(calibrated):
-    c = calibrated
+def _deploy_int8_forward(c):
     port = from_jax_variables(_np(c["int8"]), CFG, QC, device="cpu")
     ref, out, flips = _against_jax(c["model"], c["int8"], port, c["x"],
                                    c["t"], jexport.DEPLOY_INT8, DEPLOY_INT8)
@@ -189,14 +220,27 @@ def test_deploy_int8_forward(calibrated):
     _flip_gate(out, ref, 0.15)
 
 
-@pytest.mark.parametrize("which", ["resnet_block", "attn_block"])
-def test_single_block_int8(calibrated, which):
-    """One block on a shared input, int8 serving, exported state."""
+def test_deploy_int8_forward(calibrated):
+    """Batch 4: both packages serve attention with the fused kernel."""
+    _deploy_int8_forward(calibrated)
+
+
+def test_deploy_int8_forward_einsum(calibrated, einsum_attention):
+    _deploy_int8_forward(calibrated)
+
+
+@pytest.mark.parametrize("which", ["resnet_block", "attn_block",
+                                   "attn_block_einsum"])
+def test_single_block_int8(calibrated, which, request):
+    """One block on a shared input, int8 serving, exported state; the
+    attention block on its default (fused) branch and on the einsum one."""
     c = calibrated
     rng = np.random.default_rng(11)
     x = rng.standard_normal((2, 8, 8, 32 if which == "resnet_block" else 64)
                             ).astype(np.float32)
     sub = "block_0" if which == "resnet_block" else "attn_0"
+    if which == "attn_block_einsum":
+        request.getfixturevalue("einsum_attention")
     tree = {k: c["int8"][k]["down_1"][sub] for k in ("params", "quant")}
     if which == "resnet_block":
         temb = rng.standard_normal((2, CFG.temb_ch)).astype(np.float32)
@@ -207,10 +251,8 @@ def test_single_block_int8(calibrated, which):
         args = (torch.from_numpy(x), torch.from_numpy(temb))
     else:
         aq_w = JQC_.aq_softmax(always_zero=False)
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setenv("EDM_FUSED_ATTN", "0")
-            ref = JAttn(JQC_.wq, JQC_.aq, aq_w).apply(tree, jnp.asarray(x),
-                                                      jexport.DEPLOY_INT8)
+        ref = JAttn(JQC_.wq, JQC_.aq, aq_w).apply(tree, jnp.asarray(x),
+                                                  jexport.DEPLOY_INT8)
         blk = AttnBlockD(64, QC.wq, QC.aq, QC.aq_softmax(always_zero=False))
         args = (torch.from_numpy(x),)
     load_jax_variables(blk, _np(tree))
