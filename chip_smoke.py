@@ -15,11 +15,15 @@ exits non-zero before the last line:
    LSUN-Bedroom ones: the symmetric-pad stride-2 conv of ``DownsampleL``, a
    concatenated input, the heads-layout einsums), outputs within the stated
    tolerance (K1's bf16 output, the serving carrier, equal); softmax codes
-   within ±1 and ≥ 99.9 % equal (K3 at the CIFAR shapes and the bedroom
-   8x8 site's, and K4 at its four main-path shapes, whose outputs agree
-   within rtol = atol = 1e-5 on the rows whose codes agree); median times of kernel, plain version, one library call where
-   one computes the same function (for K4 the port's own einsum chain
-   K2 → K3 → K2 instead), and the bound;
+   within ±1 and ≥ 99.9 % equal (K3 at the CIFAR shapes, the bedroom
+   8x8 site's and SD's cross-attention, K4 at its bedroom, CIFAR and SD
+   shapes and K5 at SD's 64×64 shapes, a query length other than the key
+   length and a 16-level softmax quantizer, whose outputs agree within
+   rtol = atol = 1e-5 on the rows whose codes agree); K2 at SD's K = 77
+   tail, K1 at SD's 1×1 ``proj_in``; median times of kernel, plain
+   version, one library call where one computes the same function (for
+   K4 and K5 the port's own einsum chain K2 → K3 → K2 instead), and the
+   bound;
 4. the full CIFAR-10 ``DDPMConfig()`` UNet with seeded random weights and a
    smoke quant state (below), exported by the port's
    ``export_serving_int8``, in DEPLOY_INT8 through the kernels and through
@@ -32,14 +36,31 @@ exits non-zero before the last line:
    f32 carrier; its attention sites take the branches of batch 50): the
    same flip-aware gate, then K3 and K4 on each call's input from the
    plain run, held as in phase 3;
-7. bedroom serving, this slice's main path: ``LDMPipeline.sample_batch``
+7. bedroom serving: ``LDMPipeline.sample_batch``
    at batch 50, 10 DDIM steps at eta 1.0 (the task's eta; the cost of a
    step does not depend on their number), bf16 carrier, DEPLOY_INT8, then
    the VQ-f4 decode to (50, 256, 256, 3) images in [0, 1] — launch counts
    set to 0 just before and read just after, and printed per forward;
    ms per denoise step of int8 W4A8, bf16-FP and fp32-FP (each warmed up
    at batch 50 and timed twice), the decode ms, img/s, peak memory and one
-   profiled int8 forward.
+   profiled int8 forward;
+8. the full Stable Diffusion v1.4 UNet (``sd_v1_config()``), smoke quant
+   state, DEPLOY_INT8 through the kernels and the plain versions (one
+   prompt under CFG, 2 rows, f32 carrier; its attention sites take the
+   branches of the 8 rows of 4 prompts: K5 at the five 64×64 sites, K4 at
+   the eleven others, K2 → K3 → K2 for every cross-attention): the
+   flip-aware gate, then K3, K4 and K5 on each call's input from the
+   plain run;
+9. SD serving, this slice's main path: ``LDMPipeline.sample_batch`` for
+   the coco task, 4 prompts through the stand-in text encoder, CFG 7.5
+   (8 UNet rows), 10 PLMS steps (11 UNet forwards: the first step looks
+   ahead), bf16 carrier, DEPLOY_INT8, then the KL-f8 decode to
+   (4, 512, 512, 3) images in [0, 1] — launch counts set to 0 just before
+   and read just after; ms per UNet forward at 8 rows of int8 W4A8, folded
+   W4A8 (DEPLOY on the bf16 export: what the JAX package serves this
+   family with), bf16-FP and fp32-FP (each warmed up at 8 rows and timed
+   twice), the decode ms, img/s, peak memory and one profiled int8
+   forward.
 
 The smoke quant state stands in for calibration (a later slice): weight
 scales from the per-output-channel symmetric range ``[-max|w|, max|w|]``
@@ -61,6 +82,7 @@ import torch
 
 BATCH, STEPS = 500, 10
 LDM_BATCH = 50                         # the bedroom task's batch
+SD_ROWS = 8                            # 4 prompts under classifier-free guidance
 INT8_PEAK, F32_PEAK, HBM = 1979e12, 67e12, 3.35e12     # H100 SXM data sheet
 SFU_PER_CLOCK = 16                     # exponentials per SM per clock, sm_90
 
@@ -137,8 +159,10 @@ def check_conv(g):
              (LDM_BATCH, "bedroom DownsampleL 64x64x224 3x3 s2 pad ((1,1),(1,1))",
               64, 224, 224, 3, 2, ((1, 1), (1, 1))),
              (LDM_BATCH, "bedroom concat 32x32x(448+224)->448 3x3", 32, 672, 448,
-              3, 1, None)]
-    err, timing = 0.0, None
+              3, 1, None),
+             (SD_ROWS, "SD proj_in 64x64x320->320 1x1", 64, 320, 320, 1, 1,
+              ((0, 0), (0, 0)))]
+    err, timing, sd = 0.0, None, {}
     for batch, name, hw, cin, cout, k, s, pads in cases:
         pads = pads or same_pads(hw, hw, k, k, s, s)
         x = codes(g, (batch, hw, hw, cin))
@@ -170,6 +194,8 @@ def check_conv(g):
         check(torch.equal(int8_conv(*args, torch.bfloat16),
                           int8_conv_plain(*args, torch.bfloat16)),
               f"K1 {name}: bf16 output equal")
+        if name.startswith(f"batch {SD_ROWS} SD"):
+            sd[name] = cuda_ms(lambda: int8_conv(*args, torch.bfloat16))
         if timing is None:                 # the most frequent conv shape
             ho, wo = out_size(hw, hw, k, k, (s, s), pads)
             nbytes = (x.numel() + w.numel() + BATCH * ho * wo * cout * 2
@@ -186,7 +212,8 @@ def check_conv(g):
                 **dict(zip(("bound_ms", "bound_by"), bound(nbytes, ops, INT8_PEAK))))
     return dict(name="int8_conv", route="cuda",
                 source="eda_dm_tpu_torch/csrc/int8_conv.cu",
-                replaces="eda_dm_tpu/nn/layers.py:471", max_abs_err=err, **timing)
+                replaces="eda_dm_tpu/nn/layers.py:471", max_abs_err=err, sd_ms=sd,
+                **timing)
 
 
 def check_bmm(g):
@@ -198,8 +225,14 @@ def check_bmm(g):
              ("W.V (500,256,256)x(500,256,256)", (BATCH, 256, 256), (BATCH, 256, 256), "nij,njc->nic"),
              ("mid q.k (500,16,256)x(500,16,256)^T", (BATCH, 16, 256), (BATCH, 16, 256), "nic,njc->nij"),
              ("mid W.V (500,16,16)x(500,16,256)", (BATCH, 16, 16), (BATCH, 16, 256), "nij,njc->nic"),
-             ("dense (500,512)x(512,512)", (1, BATCH, 512), (1, 512, 512), None)]
-    err, timing = 0.0, None
+             ("dense (500,512)x(512,512)", (1, BATCH, 512), (1, 512, 512), None),
+             ("SD cross q.k (64,4096,40)x(64,77,40)^T", (64, 4096, 40), (64, 77, 40),
+              "nic,njc->nij"),
+             ("SD cross W.V, K = 77: (64,4096,77)x(64,77,40)", (64, 4096, 77),
+              (64, 77, 40), "nij,njc->nic"),
+             ("SD GEGLU dense (32768,320)x(320,2560)", (1, SD_ROWS * 4096, 320),
+              (1, 2560, 320), None)]
+    err, timing, sd = 0.0, None, {}
     for name, sa, sb, eq in cases:
         A = codes(g, sa)
         B = codes(g, sb, *((-8, 7) if eq is None else (-128, 127)))
@@ -224,6 +257,9 @@ def check_bmm(g):
         check(torch.allclose(out_k, out_p, rtol=1e-5, atol=1e-5),
               f"K2 {name}: f32 epilogue within 1e-5 (max |d| {e:.3g})")
         err = max(err, e)
+        if name.startswith("SD"):
+            sd[name] = (cuda_ms(lambda: int8_bmm_nt(A, Bt, **kw)) if eq is None else
+                        cuda_ms(lambda: int8_code_einsum(eq, A, ca, da, B, cb, db)))
         if timing is None:
             m, k = A.shape[1:]
             n = Bt.shape[1]
@@ -261,7 +297,8 @@ def check_bmm(g):
         err = max(err, e)
     return dict(name="int8_bmm", route="cuda",
                 source="eda_dm_tpu_torch/csrc/int8_bmm.cu",
-                replaces="eda_dm_tpu/ops/int8_einsum.py:79", max_abs_err=err, **timing)
+                replaces="eda_dm_tpu/ops/int8_einsum.py:79", max_abs_err=err, sd_ms=sd,
+                **timing)
 
 
 def _plain_bmm(A, B, row_add=None, col_add=None, k_add=None, scale=None,
@@ -276,15 +313,20 @@ def check_softmax(g):
     from eda_dm_tpu_torch.ops.softmax_codes import (softmax_int8_codes,
                                                     softmax_int8_codes_plain)
     d, z = torch.tensor(1.0 / 255.0, device="cuda"), torch.tensor(0.0, device="cuda")
-    err, timing = 0.0, None
+    err, timing, sd = 0.0, None, {}
     # CIFAR at batch 500 (256 and 16 tokens); the bedroom 8x8 site at batch
-    # 50 (28 heads of 64 tokens)
-    for n, s in ((BATCH, 256), (BATCH, 16), (LDM_BATCH * 28, 64)):
-        logits = 6.0 * torch.randn(n * s, s, generator=g, device="cuda")
+    # 50 (28 heads of 64 tokens); SD's cross-attention at 8 rows (8 heads of
+    # 4096 queries over the 77 text tokens)
+    for n, s, q in ((BATCH, 256, 256), (BATCH, 16, 16), (LDM_BATCH * 28, 64, 64),
+                    (SD_ROWS * 8, 77, 4096)):
+        logits = 6.0 * torch.randn(n * q, s, generator=g, device="cuda")
         ck, _ = softmax_int8_codes(logits, d, z, 256)
         diff = codes_gate(ck, softmax_int8_codes_plain(logits, d, z, 256),
-                          f"K3 ({n}*{s}, {s})")
+                          f"K3 ({n}*{q}, {s})")
         err = max(err, float(diff.max()))
+        if s == 77:
+            sd[f"SD cross-attention ({n}*{q}, {s}) f32 -> int8"] = cuda_ms(
+                lambda: softmax_int8_codes(logits, d, z, 256))
         if timing is None:
             nel = logits.numel()
             timing = dict(
@@ -297,19 +339,21 @@ def check_softmax(g):
     return dict(name="softmax_codes", route="triton",
                 source="eda_dm_tpu_torch/ops/softmax_codes.py",
                 replaces="eda_dm_tpu/ops/pallas_softmax.py:50", max_abs_err=err,
-                **timing)
+                sd_ms=sd, **timing)
 
 
 def check_attention(g, sms, clock_hz):
-    """K4 against its plain version at the four main-path shapes: the two
+    """K4 against its plain version at its main-path shapes: the two
     fused LSUN-Bedroom sites at batch 50 (32x32 and 16x16, 32-channel
-    heads) and the two CIFAR sites at batch 8."""
+    heads), the two CIFAR sites at batch 8 and SD's three fused sites at
+    8 rows (32x32, 16x16, 8x8)."""
     from eda_dm_tpu_torch.ops.int8_attention import (
         _int8_fused_attention_cuda, attention_scalars, int8_fused_attention_plain)
     from eda_dm_tpu_torch.ops.int8_einsum import int8_code_einsum
     from eda_dm_tpu_torch.ops.softmax_codes import softmax_int8_codes
-    err, timing = 0.0, None
-    for n, s, c in ((700, 1024, 32), (1050, 256, 32), (8, 256, 256), (8, 16, 256)):
+    err, timing, sd = 0.0, None, {}
+    for n, s, c in ((700, 1024, 32), (1050, 256, 32), (8, 256, 256), (8, 16, 256),
+                    (64, 1024, 80), (64, 256, 160), (64, 64, 160)):
         Q, K, V = (codes(g, (n, s, c)) for _ in range(3))
         cq, ck, cv = 3.0, -5.0, 1.0
         dq, dk, dv, dw, zw = 0.021, 0.017, 0.025, 1.0 / 255.0, 0.0
@@ -319,6 +363,9 @@ def check_attention(g, sms, clock_hz):
         out_p, W_p = int8_fused_attention_plain(Q, K, V, sc, 256, True)
         err = max(err, attention_gate(out_k, W_k, out_p, W_p, f"K4 ({n}, {s}, {c})"))
         del W_k, W_p, out_p
+        if n == SD_ROWS * 8:
+            sd[f"SD ({n}, {s}, {c})"] = cuda_ms(
+                lambda: _int8_fused_attention_cuda(Q, K, V, sc, 256, False))
         if timing is None:                 # the bedroom 32x32 site
             tq, tk, tv, tdq, tdk, tdv, tdw, tzw = (
                 torch.tensor(v, device="cuda") for v in (cq, ck, cv, dq, dk, dv, dw, zw))
@@ -342,7 +389,58 @@ def check_attention(g, sms, clock_hz):
     return dict(name="int8_attention", route="cuda",
                 source="eda_dm_tpu_torch/csrc/int8_attention.cu",
                 replaces="eda_dm_tpu/ops/pallas_attention.py:115",
-                max_abs_err=err, **timing)
+                max_abs_err=err, sd_ms=sd, **timing)
+
+
+def check_flash(g, sms, clock_hz):
+    """K5 against its plain version: SD's 64x64 self-attention at 8 rows
+    (64 batch-heads) and at 2 (16), a query length other than the key
+    length, and a 16-level softmax quantizer; timed at the 8-row shape
+    beside the bound and the port's einsum chain K2 -> K3 -> K2."""
+    from eda_dm_tpu_torch.ops.int8_attention import (
+        _int8_flash_attention_cuda, attention_scalars, int8_flash_attention_plain)
+    from eda_dm_tpu_torch.ops.int8_einsum import int8_code_einsum
+    from eda_dm_tpu_torch.ops.softmax_codes import softmax_int8_codes
+    err, timing = 0.0, None
+    for n, sq, skv, c, levels in ((SD_ROWS * 8, 4096, 4096, 40, 256),
+                                  (16, 4096, 4096, 40, 256), (8, 256, 512, 32, 256),
+                                  (16, 4096, 4096, 40, 16)):
+        Q, K, V = codes(g, (n, sq, c)), codes(g, (n, skv, c)), codes(g, (n, skv, c))
+        cq, ck, cv = 3.0, -5.0, 1.0
+        dq, dk, dv, dw, zw = 0.021, 0.017, 0.025, 1.0 / (levels - 1), 0.0
+        sc = attention_scalars(cq, dq, ck, dk, cv, dv, c ** -0.5, dw, zw, "cuda")
+        out_k, W_k = _int8_flash_attention_cuda(Q, K, V, sc, levels, True)
+        torch.cuda.synchronize()
+        out_p, W_p = int8_flash_attention_plain(Q, K, V, sc, levels, True)
+        err = max(err, attention_gate(out_k, W_k, out_p, W_p,
+                                      f"K5 ({n}, {sq}, {skv}, {c}), {levels} levels"))
+        del W_k, W_p, out_p
+        if timing is None:                 # SD 64x64, 4 prompts under CFG
+            tq, tk, tv, tdq, tdk, tdv, tdw, tzw = (
+                torch.tensor(v, device="cuda") for v in (cq, ck, cv, dq, dk, dv, dw, zw))
+
+            def chain():
+                w = int8_code_einsum("nic,njc->nij", Q, tq, tdq, K, tk, tdk) * (c ** -0.5)
+                W, cw = softmax_int8_codes(w, tdw, tzw, levels)
+                return int8_code_einsum("nij,njc->nic", W, cw, tdw, V, tv, tdv)
+            logits = n * sq * skv
+            exp_ms = logits / (sms * SFU_PER_CLOCK * clock_hz) * 1e3
+            nbytes = n * (sq * c + 2 * skv * c + 4 * sq * c)
+            timing = dict(
+                shape=f"({n}, {sq}, {skv}, {c}) int8 -> f32 (SD 64x64, {SD_ROWS} rows)",
+                ms=cuda_ms(lambda: _int8_flash_attention_cuda(Q, K, V, sc, levels, False)),
+                plain_ms=cuda_ms(lambda: int8_flash_attention_plain(Q, K, V, sc, levels),
+                                 reps=5, warmup=1),
+                library_ms=None, chain_ms=cuda_ms(chain, reps=5, warmup=1),
+                **dict(zip(("bound_ms", "bound_by"),
+                           bound(nbytes, 4 * logits * c, INT8_PEAK, exp_ms))))
+            print(f"    K5 bound parts: bytes {nbytes / HBM * 1e3:.4f} ms, int8 ops "
+                  f"{4 * logits * c / INT8_PEAK * 1e3:.4f} ms, exponentials "
+                  f"{exp_ms:.4f} ms ({sms} SMs at {clock_hz / 1e6:.0f} MHz)")
+    return dict(name="int8_flash_attention", route="cuda",
+                source="eda_dm_tpu_torch/csrc/int8_flash_attention.cu",
+                replaces="eda_dm_tpu/ops/pallas_attention.py:260",
+                max_abs_err=err, sd_ms={}, **timing)
 
 
 # --------------------------------------------------------------------------
@@ -361,10 +459,10 @@ def swapped(module, name, value):
 
 @contextlib.contextmanager
 def plain_versions(record=None):
-    """Route the models' four kernel call sites to the plain versions, on
+    """Route the models' five kernel call sites to the plain versions, on
     the card, for the comparison only.  With ``record`` (a dict), the
-    inputs of every softmax-codes and fused-attention call are kept there
-    under the kernel's name."""
+    inputs of every softmax-codes, fused- and flash-attention call are
+    kept there under the kernel's name."""
     import eda_dm_tpu_torch.models.ddpm_unet as unet
     import eda_dm_tpu_torch.models.ldm_unet as ldm
     import eda_dm_tpu_torch.nn.layers as layers
@@ -386,21 +484,27 @@ def plain_versions(record=None):
         keep("int8_attention", Q, K, V, sc, n_levels_w)
         return attn.int8_fused_attention_plain(Q, K, V, sc, n_levels_w, return_codes)
 
+    def flash_plain(Q, K, V, sc, n_levels_w, return_codes):
+        keep("int8_flash_attention", Q, K, V, sc, n_levels_w)
+        return attn.int8_flash_attention_plain(Q, K, V, sc, n_levels_w, return_codes)
+
     with swapped(layers, "int8_conv", int8_conv_plain), \
             swapped(ein, "int8_bmm_nt", _plain_bmm), \
             swapped(unet, "softmax_int8_codes", softmax_plain), \
             swapped(ldm, "softmax_int8_codes", softmax_plain), \
-            swapped(attn, "_int8_fused_attention_cuda", attention_plain):
+            swapped(attn, "_int8_fused_attention_cuda", attention_plain), \
+            swapped(attn, "_int8_flash_attention_cuda", flash_plain):
         yield
 
 
 def check_recorded(record):
-    """K3 and K4 on the inputs that one run of the plain versions gave each
-    of their calls, against the plain versions on the same inputs: a code
-    that flips on a rounding tie shows here as a ±1 code, apart from what
-    it does downstream."""
+    """K3, K4 and K5 on the inputs that one run of the plain versions gave
+    each of their calls, against the plain versions on the same inputs: a
+    code that flips on a rounding tie shows here as a ±1 code, apart from
+    what it does downstream."""
     from eda_dm_tpu_torch.ops.int8_attention import (
-        _int8_fused_attention_cuda, int8_fused_attention_plain)
+        _int8_flash_attention_cuda, _int8_fused_attention_cuda,
+        int8_flash_attention_plain, int8_fused_attention_plain)
     from eda_dm_tpu_torch.ops.softmax_codes import (softmax_int8_codes,
                                                     softmax_int8_codes_plain)
     for i, (logits, d, z, n_levels) in enumerate(record.get("softmax_codes", [])):
@@ -411,12 +515,17 @@ def check_recorded(record):
         out_k, W_k = _int8_fused_attention_cuda(Q, K, V, sc, n_levels, True)
         out_p, W_p = int8_fused_attention_plain(Q, K, V, sc, n_levels, True)
         attention_gate(out_k, W_k, out_p, W_p, f"K4 call {i} {tuple(Q.shape)}")
+    for i, (Q, K, V, sc, n_levels) in enumerate(record.get("int8_flash_attention", [])):
+        out_k, W_k = _int8_flash_attention_cuda(Q, K, V, sc, n_levels, True)
+        out_p, W_p = int8_flash_attention_plain(Q, K, V, sc, n_levels, True)
+        attention_gate(out_k, W_k, out_p, W_p, f"K5 call {i} {tuple(Q.shape)}")
 
 
 @torch.no_grad()
-def smoke_quant_state(model, x, t):
+def smoke_quant_state(model, x, t, *context):
     """Stand-in for calibration: symmetric per-channel weight ranges with
-    round-to-nearest alphas; act ranges from one FP forward."""
+    round-to-nearest alphas; act ranges from one FP forward (on ``x``,
+    ``t`` and, for a text-conditioned UNet, its context)."""
     from eda_dm_tpu_torch.nn.layers import ActQuantizer, QConv, QDense
     from eda_dm_tpu_torch.quant import FP
     from eda_dm_tpu_torch.quant.adaround import init_alpha
@@ -438,7 +547,7 @@ def smoke_quant_state(model, x, t):
                 lo, hi = ranges.get(mod, (v.min(), v.max()))
                 ranges[mod] = (torch.minimum(lo, v.min()), torch.maximum(hi, v.max()))
             hooks.append(m.register_forward_hook(hook))
-    model(x, t, mode=FP)
+    model(x, t, *context, mode=FP)
     for h in hooks:
         h.remove()
     for m, (lo, hi) in ranges.items():
@@ -560,10 +669,11 @@ def bedroom(kernels, smi):
           f"(mean {float(imgs.mean()):.4f}, std {float(imgs.std()):.4f})")
     print(f"    launches per UNet forward: "
           + ", ".join(f"{k} {v / STEPS:g}" for k, v in sorted(launches.items())))
-    for k in kernels:
-        k["launches"] = launches.get(k["name"], 0)
-        check(k["launches"] > 0, f"{k['name']} launched {k['launches']} times "
-              f"({k['launches'] / STEPS:g} per forward) on the bedroom path")
+    for k in kernels[:4]:                        # K1-K4; K5 serves SD only
+        k["bedroom_launches"] = launches.get(k["name"], 0)
+        check(k["bedroom_launches"] > 0, f"{k['name']} launched "
+              f"{k['bedroom_launches']} times ({k['bedroom_launches'] / STEPS:g} per "
+              f"forward) on the bedroom path")
     z, int8_s = timed(lambda: pipe.sample_batch(DEPLOY_INT8, generator=g, decode=False))
     _, decode_s = timed(lambda: pipe.ld.decode_first_stage(z))
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -593,6 +703,115 @@ def bedroom(kernels, smi):
                 steps=STEPS, batch=LDM_BATCH, peak_gib=peak)
 
 
+def sd(kernels, smi):
+    """Phases 8 and 9: Stable Diffusion v1.4 at full width and depth."""
+    from eda_dm_tpu_torch.models.ldm_unet import LDMUNet
+    from eda_dm_tpu_torch.ops import _build
+    from eda_dm_tpu_torch.pipelines.latent import LDMPipeline, task_config
+    from eda_dm_tpu_torch.quant import DEPLOY, DEPLOY_INT8, FP
+    from eda_dm_tpu_torch.quant.export import export_serving_int8
+
+    print("[8] SD v1.4 UNet DEPLOY_INT8, kernels vs plain versions (1 prompt under "
+          "CFG: 2 rows, f32)")
+    pipe = LDMPipeline(task_config("coco", custom_steps=STEPS), device="cuda", seed=0)
+    unet, cfg, qc = pipe.ld.unet, pipe.mc.unet, pipe.qc
+    print(f"    UNet {sum(p.numel() for p in unet.parameters()):,} params; text encoder "
+          f"{sum(p.numel() for p in pipe.ld.cond_stage.parameters()):,}; schedule "
+          f"{pipe.sched.num_steps} {pipe.cfg.sampler.upper()} steps, eta {pipe.cfg.eta}, "
+          f"guidance scale {pipe.cfg.scale}")
+    g = torch.Generator(device="cuda").manual_seed(3)
+    prompts = ["a photograph of an astronaut riding a horse", "a red bus in the snow",
+               "two dogs playing on a beach at sunset", "an oil painting of a lighthouse"]
+    ctx = pipe.ld.get_learned_conditioning(prompts)
+    unc = pipe.ld.get_learned_conditioning([""] * len(prompts))
+    check(tuple(ctx.shape) == (4, 77, 768) and bool(torch.isfinite(ctx).all()),
+          f"text contexts {tuple(ctx.shape)}, finite")
+    # one prompt under CFG: rows [x; x], [t; t], [uncond; cond]
+    x2 = torch.randn(1, 64, 64, 4, generator=g, device="cuda").repeat(2, 1, 1, 1)
+    t2 = torch.full((2,), 500.0, device="cuda")
+    c2 = torch.cat([unc[:1], ctx[:1]])
+    n_aq = smoke_quant_state(unet, x2, t2, c2)
+    export_serving_int8(unet, qc, torch.float32)
+    record = {}
+    with torch.no_grad():
+        _build.launch_counts.clear()
+        out_k = unet(x2, t2, c2, mode=DEPLOY_INT8)
+        launches = dict(_build.launch_counts)
+        with plain_versions(record):
+            out_p = unet(x2, t2, c2, mode=DEPLOY_INT8)
+    check(bool(torch.isfinite(out_k).all()) and out_k.shape == (2, 64, 64, 4),
+          f"int8 output finite, shape {tuple(out_k.shape)} ({n_aq} act quantizers set)")
+    check(launches.get("int8_flash_attention") == 5 and launches.get("int8_attention") == 11
+          and launches.get("softmax_codes") == 16,
+          f"2 rows serve the five 64x64 self-attention sites with K5, the other "
+          f"eleven with K4 and all 16 cross-attention sites with K2 -> K3 -> K2, as "
+          f"{SD_ROWS} rows do (launches {launches})")
+    flip_gate(out_k, out_p, "SD")
+    check_recorded(record)
+    del record, out_k, out_p
+    torch.cuda.empty_cache()
+
+    n_fwd = STEPS + 1                            # PLMS: the first step looks ahead
+    print(f"[9] SD serving: sample_batch, coco, {len(prompts)} prompts, CFG "
+          f"{pipe.cfg.scale} ({SD_ROWS} UNet rows), {STEPS} PLMS steps ({n_fwd} "
+          f"forwards), bf16 carrier DEPLOY_INT8, KL-f8 decode")
+    for p in unet.parameters():                  # the export's carrier cast
+        p.data = p.data.to(torch.bfloat16)
+    x8 = torch.randn(SD_ROWS, 64, 64, 4, generator=g, device="cuda")
+    t8 = torch.full((SD_ROWS,), 500.0, device="cuda")
+    c8 = torch.cat([unc, ctx])
+
+    def fwd_ms(model, mode, dtype):
+        """Two synchronised forwards at the serving rows, after a warm-up."""
+        f = lambda: model(x8.to(dtype), t8, c8.to(dtype), mode=mode)
+        with torch.no_grad():
+            f()
+            return [timed(f)[1] * 1e3 for _ in range(2)]
+    ms = {"int8": fwd_ms(unet, DEPLOY_INT8, torch.bfloat16)}
+    torch.cuda.reset_peak_memory_stats()
+    _build.launch_counts.clear()
+    imgs, wall = timed(lambda: pipe.sample_batch(DEPLOY_INT8, generator=g, context=ctx,
+                                                 uncond=unc))       # the main path
+    launches = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(bool(torch.isfinite(imgs).all()) and imgs.shape == (len(prompts), 512, 512, 3)
+          and float(imgs.min()) >= 0.0 and float(imgs.max()) <= 1.0,
+          f"images finite, shape {tuple(imgs.shape)}, in [0, 1] "
+          f"(mean {float(imgs.mean()):.4f}, std {float(imgs.std()):.4f})")
+    per_fwd = {k: v / n_fwd for k, v in sorted(launches.items())}
+    print("    launches per UNet forward: " + ", ".join(f"{k} {v:g}" for k, v in per_fwd.items()))
+    for k in kernels:
+        k["launches"] = launches.get(k["name"], 0)
+        check(k["launches"] > 0, f"{k['name']} launched {k['launches']} times "
+              f"({k['launches'] / n_fwd:g} per forward) on the SD path")
+    check(per_fwd.get("int8_flash_attention") == 5,
+          "K5 serves the five 64x64 self-attention sites of every forward")
+    z, _ = timed(lambda: pipe.sample_batch(DEPLOY_INT8, generator=g, context=ctx,
+                                           uncond=unc, decode=False))
+    _, decode_s = timed(lambda: pipe.ld.decode_first_stage(z))
+    ms["folded"] = fwd_ms(unet, DEPLOY, torch.bfloat16)
+    print(f"    profile, DEPLOY_INT8 forward at {SD_ROWS} rows, bf16 carrier:")
+    with torch.no_grad():
+        profile_forward(lambda: unet(x8.to(torch.bfloat16), t8,
+                                     c8.to(torch.bfloat16), mode=DEPLOY_INT8))
+    del pipe.ld.unet, unet
+    for arm, dtype in (("bf16_fp", torch.bfloat16), ("fp32_fp", torch.float32)):
+        model = LDMUNet(cfg, qc, device="cuda", seed=0).to(dtype)
+        ms[arm] = fwd_ms(model, FP, dtype)
+        del model
+    both = lambda arm: " / ".join(f"{v:.3f}" for v in ms[arm])
+    print(f"    on {smi}: ms per UNet forward at {SD_ROWS} rows (two runs each): int8 "
+          f"W4A8 {both('int8')} | folded W4A8 {both('folded')} | bf16-FP "
+          f"{both('bf16_fp')} | fp32-FP {both('fp32_fp')}; decode "
+          f"{decode_s * 1e3:.1f} ms; sample_batch {wall:.3f} s = "
+          f"{len(prompts) / wall:.4f} img/s ({STEPS} steps + decode); peak memory "
+          f"{peak:.2f} GiB")
+    return dict(ms_per_forward=ms, decode_ms=decode_s * 1e3,
+                img_per_s=len(prompts) / wall, steps=STEPS, forwards=n_fwd,
+                prompts=len(prompts), rows=SD_ROWS, peak_gib=peak,
+                launches_per_forward=per_fwd)
+
+
 # --------------------------------------------------------------------------
 
 
@@ -607,6 +826,7 @@ def main():
     from eda_dm_tpu_torch.quant.export import export_serving_int8
     from eda_dm_tpu_torch.samplers.schedules import get_beta_schedule, skip_sequence
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     query = lambda q: subprocess.run(
@@ -632,12 +852,15 @@ def main():
     g = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     kernels = [check_conv(g), check_bmm(g), check_softmax(g),
-               check_attention(g, sms, clock_mhz * 1e6)]
+               check_attention(g, sms, clock_mhz * 1e6),
+               check_flash(g, sms, clock_mhz * 1e6)]
     for k in kernels:
         print(f"    {k['name']}: {k['shape']}: {k['ms']:.4f} ms (plain "
               f"{k['plain_ms']:.4f}, library {k['library_ms']}"
               + (f", einsum chain {k['chain_ms']:.4f}" if "chain_ms" in k else "")
               + f", bound {k['bound_ms']:.4f} by {k['bound_by']})")
+        for shape, t in k["sd_ms"].items():
+            print(f"      {shape}: {t:.4f} ms")
     print(f"    phase 3: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
@@ -698,16 +921,19 @@ def main():
     torch.cuda.empty_cache()
 
     serving = bedroom(kernels, smi)
+    torch.cuda.empty_cache()
+    sd_serving = sd(kernels, smi)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
-    extra = ("cifar_launches", "chain_ms")
+    extra = ("cifar_launches", "bedroom_launches", "chain_ms", "sd_ms")
+    print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{**{k: kern[k] for k in keys},
                                    **{k: kern[k] for k in extra if k in kern},
                                    "check": "pass"} for kern in kernels]}))
     print(json.dumps({"cifar_serving_steps_per_s": {
         "int8": int8_sps, "bf16_fp": bf16_sps, "fp32_fp": fp32_sps, "batch": BATCH},
-        "bedroom_serving": serving}))
+        "bedroom_serving": serving, "sd_serving": sd_serving}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -18,8 +18,24 @@
 // tensor-core int8 rate bounds it.  This first version runs on the CUDA
 // cores (__dp4a) with a shared-memory tile: simple and exact; moving it to
 // mma/wgmma is later work.
+//
+// K tail: where K % 4 != 0 (the SD cross-attention's W·V contracts over
+// the 77 context tokens) the rows are not word-aligned, so each 32-bit
+// word is gathered from bytes and the bytes past K are zero codes; the
+// epilogue's terms come from the caller with the true K.
 #include "int8_tile.cuh"
 
+// word kw (codes 4·kw .. 4·kw + 3) of one K-contiguous row
+template <bool ALIGNED>
+__device__ __forceinline__ int row_word(const int8_t* row, int kw, int K) {
+  if (ALIGNED) return __ldg(reinterpret_cast<const int*>(row) + kw);
+  const int k = 4 * kw;
+  return pack4(__ldg(row + k), k + 1 < K ? __ldg(row + k + 1) : (int8_t)0,
+               k + 2 < K ? __ldg(row + k + 2) : (int8_t)0,
+               k + 3 < K ? __ldg(row + k + 3) : (int8_t)0);
+}
+
+template <bool ALIGNED>
 __global__ void __launch_bounds__(TILE_THREADS)
 int8_bmm_nt_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
                    float* __restrict__ out, int M, int N, int K,
@@ -33,9 +49,9 @@ int8_bmm_nt_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
   __shared__ int Bs[BKW][BN + SPAD];
   const int b = blockIdx.z;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int Kw = K >> 2;
-  const int* A32 = reinterpret_cast<const int*>(A + (long long)b * a_bs);
-  const int* B32 = reinterpret_cast<const int*>(B + (long long)b * b_bs);
+  const int Kw = (K + 3) >> 2;
+  const int8_t* Ab = A + (long long)b * a_bs;
+  const int8_t* Bb = B + (long long)b * b_bs;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int kk_ld = tid & 7, r_ld = tid >> 3;
 
@@ -51,8 +67,10 @@ int8_bmm_nt_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
     for (int l = 0; l < LOADS_PER_THREAD; ++l) {
       const int r = r_ld + 32 * l;
       const int gm = m0 + r, gn = n0 + r;
-      As[kk_ld][r] = (gm < M && gk < Kw) ? __ldg(A32 + (long long)gm * Kw + gk) : 0;
-      Bs[kk_ld][r] = (gn < N && gk < Kw) ? __ldg(B32 + (long long)gn * Kw + gk) : 0;
+      As[kk_ld][r] = (gm < M && gk < Kw)
+          ? row_word<ALIGNED>(Ab + (long long)gm * K, gk, K) : 0;
+      Bs[kk_ld][r] = (gn < N && gk < Kw)
+          ? row_word<ALIGNED>(Bb + (long long)gn * K, gk, K) : 0;
     }
     __syncthreads();
     dp4a_tile(As, Bs, acc, tx, ty);
@@ -87,7 +105,9 @@ extern "C" int edm_int8_bmm_nt(const void* A, const void* B, void* out,
                                const void* scale, int scale_stride,
                                const void* bias, void* stream) {
   dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN, batch);
-  int8_bmm_nt_kernel<<<grid, TILE_THREADS, 0, (cudaStream_t)stream>>>(
+  const bool aligned = K % 4 == 0 && (uintptr_t)A % 4 == 0 && (uintptr_t)B % 4 == 0;
+  auto kernel = aligned ? int8_bmm_nt_kernel<true> : int8_bmm_nt_kernel<false>;
+  kernel<<<grid, TILE_THREADS, 0, (cudaStream_t)stream>>>(
       (const int8_t*)A, (const int8_t*)B, (float*)out, M, N, K,
       (long long)M * K, (long long)N * K, (const float*)row_add,
       (const float*)col_add, col_batched ? (long long)N : 0LL,

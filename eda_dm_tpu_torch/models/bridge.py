@@ -5,15 +5,19 @@ numpy arrays (a calibrated tree or an ``export_serving(_int8)`` tree, after
 ``jax.tree.map(np.asarray, ...)``) and loads it into a ``DDPMUNet``;
 :func:`load_jax_variables` does the same for any port module whose
 submodules mirror the tree (``LDMUNet``: ``input_blocks_3_0``,
-``middle_block_1``, ``time_embed_0``, ``out_2``); :func:`first_stage_from_jax`
-loads the decode part of a ``FirstStage`` tree.  :func:`to_jax_variables`
-is the inverse, so the port's own export can be compared with the JAX
-export leaf by leaf.
+``middle_block_1``, ``time_embed_0``, ``out_2``, and in the SD UNet
+``input_blocks_1_1/transformer_blocks_0/attn2/to_k``, ``.../norm1``;
+``TinyTextEncoder``: ``attn_0/query``, ``ln_f``); :func:`first_stage_from_jax`
+loads the decode part of a ``FirstStage`` tree (VQ or KL).
+:func:`to_jax_variables` is the inverse, so the port's own export can be
+compared with the JAX export leaf by leaf.
 
-Path rule: a flax list entry ``down_0`` / ``up_1`` / ``block_0`` /
-``attn_2`` is ``down[0]`` ... here; every other name is the attribute name.
-A parameter ``weight`` is the tree's ``kernel``; every other parameter
-(``bias``, ``scale``, ``codebook``) keeps its name.
+Path rule: a name is the attribute's name; where no attribute has it, a
+flax list entry ``down_0`` / ``up_1`` / ``block_0`` / ``attn_2`` is
+``down[0]`` ... here.  A parameter ``weight`` is the tree's ``kernel``;
+every other parameter (``bias``, ``scale``, ``codebook``, ``embedding``,
+and the text encoder's ``kernel``, kept in the flax layout) keeps its
+name; a bias-free dense (``to_q``) has no ``bias`` on either side.
 Layouts: conv kernels HWIO ↔ ``[Cout, Cin, kh, kw]``, dense kernels
 ``[in, out]`` ↔ ``[out, in]``, weight codes HWIO ↔ ``[Cout, kh, kw, Cin]``,
 per-channel ``(1, 1, 1, Cout)`` / ``(1, Cout)`` ↔ ``(Cout,)``.  The act
@@ -39,13 +43,13 @@ _ACT_CALIB_STATE = ("running_min", "running_max", "one_side", "inited")
 
 
 def _child(module: nn.Module, name: str) -> nn.Module:
-    m = _LIST.fullmatch(name)
-    if m:
-        return getattr(module, m.group(1))[int(m.group(2))]
     child = getattr(module, name, None)
-    if not isinstance(child, nn.Module):
-        raise KeyError(f"{type(module).__name__} has no submodule {name!r}")
-    return child
+    if isinstance(child, nn.Module):
+        return child
+    m = _LIST.fullmatch(name)
+    if m and isinstance(getattr(module, m.group(1), None), nn.ModuleList):
+        return getattr(module, m.group(1))[int(m.group(2))]
+    raise KeyError(f"{type(module).__name__} has no submodule {name!r}")
 
 
 def _tensor(v, device) -> torch.Tensor:

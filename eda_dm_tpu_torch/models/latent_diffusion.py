@@ -1,9 +1,12 @@
-"""LatentDiffusion: quantized LDM UNet + float32 first stage (port of
-``eda_dm_tpu/models/latent_diffusion.py``, the unconditional serving part).
+"""LatentDiffusion: quantized LDM UNet + float32 first stage + text
+conditioner (port of ``eda_dm_tpu/models/latent_diffusion.py``, the
+serving part of the unconditional and text-conditioned models).
 
 The JAX package holds flax module definitions and passes variable trees;
-here the object holds the two modules.  Class and text conditioning, the
-checkpoint loader and the other task configs come with later slices.
+here the object holds the modules.  Text conditioning runs through the
+weightless stand-in ``TinyTextEncoder`` (the CLIP weights are not in the
+repository).  Class conditioning, the checkpoint loader and the church and
+ImageNet configs come with later slices.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import dataclasses
 import torch
 
 from ..quant.config import FP, QuantConfig, QuantMode
+from .encoders import TinyTextEncoder
 from .ldm_unet import LDMUNet, LDMUNetConfig
 from .vae import FirstStage, VAEConfig
 
@@ -25,30 +29,40 @@ class LatentDiffusionConfig:
     linear_start: float = 0.0015
     linear_end: float = 0.0195
     scale_factor: float = 1.0
-    cond: str = "none"
+    cond: str = "none"            # 'none' | 'text'
 
 
 class LatentDiffusion:
-    """The UNet and the first stage on ``device`` (the card unless the
-    caller passes ``"cpu"``), random weights from ``seed``."""
+    """The UNet, the first stage and (``cond="text"``) the stand-in text
+    encoder on ``device`` (the card unless the caller passes ``"cpu"``),
+    random weights from ``seed``."""
 
     def __init__(self, cfg: LatentDiffusionConfig, qc: QuantConfig,
                  device=None, seed: int = 0):
-        if cfg.cond != "none":
+        if cfg.cond not in ("none", "text"):
             raise NotImplementedError(
                 f"conditioning {cfg.cond!r} is not ported yet")
         self.cfg, self.qc = cfg, qc
         self.unet = LDMUNet(cfg.unet, qc, device=device, seed=seed)
         self.first_stage = FirstStage(cfg.vae, device=device, seed=seed)
+        self.cond_stage = (TinyTextEncoder(cfg.unet.context_dim, device=device,
+                                           seed=seed)
+                           if cfg.cond == "text" else None)
 
     def apply_model(self, x: torch.Tensor, t: torch.Tensor, context=None,
                     mode: QuantMode = FP) -> torch.Tensor:
         return self.unet(x, t, context=context, mode=mode)
 
+    def get_learned_conditioning(self, prompts) -> torch.Tensor:
+        """Text prompts → (B, 77, context_dim) float32 context rows."""
+        if self.cond_stage is None:
+            raise ValueError("this model takes no text conditioning")
+        return self.cond_stage.encode(prompts)
+
     def decode_first_stage(self, z: torch.Tensor,
                            force_not_quantize: bool = False) -> torch.Tensor:
         """z / scale_factor → first-stage decode (VQ through the codebook
-        unless forced)."""
+        unless forced; KL straight through the decoder)."""
         return self.first_stage.decode(z / self.cfg.scale_factor,
                                        force_not_quantize)
 
@@ -65,3 +79,21 @@ def bedroom_config() -> LatentDiffusionConfig:
                       z_channels=3, double_z=False, embed_dim=3,
                       n_embed=8192),
         linear_start=0.0015, linear_end=0.0195)
+
+
+def sd_v1_config() -> LatentDiffusionConfig:
+    """Stable Diffusion v1.4 (configs/stable-diffusion/v1-inference.yaml):
+    the 860 M-parameter spatial-transformer UNet on 64×64×4 latents, text
+    context 77×768, the KL-f8 first stage to 512×512."""
+    return LatentDiffusionConfig(
+        unet=LDMUNetConfig(image_size=64, in_channels=4, model_channels=320,
+                           out_channels=4, num_res_blocks=2,
+                           attention_resolutions=(4, 2, 1),
+                           channel_mult=(1, 2, 4, 4), num_heads=8,
+                           use_spatial_transformer=True, transformer_depth=1,
+                           context_dim=768, legacy=False),
+        vae=VAEConfig(ch=128, out_ch=3, ch_mult=(1, 2, 4, 4), num_res_blocks=2,
+                      attn_resolutions=(), in_channels=3, resolution=256,
+                      z_channels=4, double_z=True, embed_dim=4, n_embed=None),
+        linear_start=0.00085, linear_end=0.0120, scale_factor=0.18215,
+        cond="text")

@@ -1,16 +1,28 @@
-"""LDM UNet (openai architecture, legacy attention), serving part (port of
+"""LDM / Stable-Diffusion UNet (openai architecture), serving part (port of
 ``eda_dm_tpu/models/ldm_unet.py``).
 
 Module names are the JAX package's flax names: a dict entry
 ``input_blocks["3_0"]`` of the flax module is the attribute
 ``input_blocks_3_0`` here, as are ``middle_block_1``, ``output_blocks_5_2``,
 ``time_embed_0`` and ``out_2``; inside the blocks every name is kept
-(``in_layers_2``, ``emb_layers_1``, ``qkv``, ``act_quantizer_w``).  Layout
-is NHWC; dropout is omitted (inference only).
+(``in_layers_2``, ``emb_layers_1``, ``qkv``, ``act_quantizer_w``,
+``transformer_blocks_0``, ``attn1``, ``to_q``, ``net_0_proj``).  Layout is
+NHWC; dropout is omitted (inference only).
 
-Modes: FP, DEPLOY, DEPLOY_INT8.  The spatial-transformer family
-(``use_spatial_transformer``) and class conditioning are a later slice
-and raise ``NotImplementedError``.
+Modes: FP, DEPLOY, DEPLOY_INT8.  Both attention families are ported: the
+legacy ``AttentionBlockL`` (bedroom, church) and the spatial transformer
+(SD v1.4: ``SpatialTransformerL`` → ``BasicTransformerBlockL`` with self-
+and cross-attention and a GEGLU feed-forward).  Each int8 attention site
+takes the branch ``attention_impl`` gives it: K4 (fused), K5 (flash) or
+K2 → K3 → K2 (einsum).  Class conditioning (ImageNet) is a later slice and
+raises ``NotImplementedError``.
+
+flax's ``nn.LayerNorm`` returns the promotion of its input's and its
+parameters' dtypes, so in the transformer blocks a bf16 input with float32
+norm parameters (the FP model fed a bf16 input) is carried in float32 from
+the first norm on, through ``attn(norm(x)) + x``; after
+``export_serving(..., bf16)`` the norm parameters are bf16 too and the
+blocks stay bf16.  ``LayerNorm`` here does the same.
 
 The first/last policy: ``time_embed_0`` and ``out_2`` are 8-bit (so they
 serve on the folded path), ``out_2``'s act quant is disabled, and the
@@ -28,9 +40,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..nn.layers import (ActQuantizer, GNorm, QConv, QDense, lecun_normal_,
-                         swish, timestep_embedding)
-from ..ops.int8_attention import int8_fused_attention_heads
+from ..nn.layers import (ActQuantizer, GNorm, LayerNorm, QConv, QDense,
+                         gelu_tanh, lecun_normal_, swish, timestep_embedding)
+from ..ops.int8_attention import (int8_flash_attention_heads,
+                                  int8_fused_attention_heads)
 from ..ops.int8_einsum import (int8_act_einsum, int8_code_einsum,
                                quantize_act_int8)
 from ..ops.serving_policy import attention_impl, int8_serving
@@ -41,7 +54,7 @@ from ..quant.config import FP, QuantConfig, QuantizerSpec, QuantMode
 @dataclasses.dataclass(frozen=True)
 class LDMUNetConfig:
     """UNetModel constructor args (openaimodel.py:477-503) that the ported
-    legacy-attention UNet reads; resampling is always by conv."""
+    UNet reads; resampling is always by conv."""
     image_size: int = 64
     in_channels: int = 3
     model_channels: int = 224
@@ -55,6 +68,8 @@ class LDMUNetConfig:
     use_scale_shift_norm: bool = False
     resblock_updown: bool = False
     use_spatial_transformer: bool = False
+    transformer_depth: int = 1
+    context_dim: Optional[int] = None
     legacy: bool = True
 
     @property
@@ -201,7 +216,59 @@ class ResBlockL(nn.Module):
         return x + h
 
 
-class AttentionBlockL(nn.Module):
+class _QKVAttention(nn.Module):
+    """The q/k/w/v quantizers of one attention site and its three int8
+    serving branches.  ``attend`` takes q (B, Sq, H, C) and k, v
+    (B, Skv, H, C) and returns (B, Sq, H, C): through K4 (``'fused'``), K5
+    (``'flash'``), whose kernels fold ``attn_scale`` into dq·dk, or
+    K2 → K3 → K2 (``'einsum'``), which scales the epilogue's f32 logits
+    afterwards, as the float path does (a scale of 1.0 is skipped)."""
+
+    def _init_quantizers(self, aq: QuantizerSpec, aq_w: QuantizerSpec):
+        self.aq, self.aq_w = aq, aq_w
+        self.act_quantizer_q = ActQuantizer(aq)
+        self.act_quantizer_k = ActQuantizer(aq)
+        self.act_quantizer_w = ActQuantizer(aq_w)
+        self.act_quantizer_v = ActQuantizer(aq)
+
+    def attend(self, q, k, v, attn_scale: float, mode: QuantMode, dtype):
+        b, sq, heads, c = q.shape
+        L, Lw = self.aq.n_levels, self.aq_w.n_levels
+        if int8_serving(mode) and L <= 256 and Lw <= 256:
+            dq, zq = self.act_quantizer_q(q, mode, params_only=True)
+            dk, zk = self.act_quantizer_k(k, mode, params_only=True)
+            dw, zw = self.act_quantizer_w(None, mode, params_only=True)
+            dv, zv = self.act_quantizer_v(v, mode, params_only=True)
+            impl = attention_impl(b, heads, sq, k.shape[1], c)
+            if impl in ("fused", "flash"):
+                # the (b, h, i, j) logits never reach device memory
+                Qc, cq = quantize_act_int8(q, dq, zq, L)
+                Kc, ck = quantize_act_int8(k, dk, zk, L)
+                V, cv = quantize_act_int8(v, dv, zv, L)
+                fn = (int8_fused_attention_heads if impl == "fused"
+                      else int8_flash_attention_heads)
+                return fn(Qc, cq, dq, Kc, ck, dk, V, cv, dv, attn_scale, dw,
+                          zw, Lw)
+            # K2 → K3 → K2 on the heads layout
+            w = int8_act_einsum("bthc,bshc->bhts", q, (dq, zq, L),
+                                k, (dk, zk, L))
+            if attn_scale != 1.0:
+                w = w * attn_scale
+            W, cw = softmax_int8_codes(w, dw, zw, Lw)
+            V, cv = quantize_act_int8(v, dv, zv, L)
+            return int8_code_einsum("bhts,bshc->bthc", W, cw, dw, V, cv, dv)
+        q = self.act_quantizer_q(q, mode)
+        k = self.act_quantizer_k(k, mode)
+        w = torch.einsum("bthc,bshc->bhts", q.float(), k.float())
+        if attn_scale != 1.0:
+            w = w * attn_scale
+        w = torch.softmax(w, dim=-1).to(dtype)
+        w = self.act_quantizer_w(w, mode)
+        v = self.act_quantizer_v(v, mode)
+        return torch.einsum("bhts,bshc->bthc", w.float(), v.float())
+
+
+class AttentionBlockL(_QKVAttention):
     """LDM AttentionBlock with legacy QKV attention: q·C^-¼ and k·C^-¼
     quantized before the logits product (so the logit scale is 1); the
     softmax output (sm_abit, always_zero) and v before the value product.
@@ -212,13 +279,10 @@ class AttentionBlockL(nn.Module):
                  aq: QuantizerSpec, aq_w: QuantizerSpec,
                  aq_last: Optional[QuantizerSpec] = None):
         super().__init__()
-        self.num_heads, self.aq, self.aq_w = num_heads, aq, aq_w
+        self.num_heads = num_heads
         self.norm = GNorm(ch)
         self.qkv = QDense(ch, 3 * ch, wq=wq, aq=aq)
-        self.act_quantizer_q = ActQuantizer(aq)
-        self.act_quantizer_k = ActQuantizer(aq)
-        self.act_quantizer_w = ActQuantizer(aq_w)
-        self.act_quantizer_v = ActQuantizer(aq)
+        self._init_quantizers(aq, aq_w)
         self.proj_out = QDense(ch, ch, wq=wq, aq=aq_last or aq)
 
     def forward(self, x, mode: QuantMode):
@@ -229,41 +293,106 @@ class AttentionBlockL(nn.Module):
         qkv = self.qkv(xs, mode).reshape(b, t_len, heads, 3, ch)
         scale = 1.0 / torch.sqrt(torch.sqrt(torch.tensor(float(ch))))
         q, k, v = qkv[..., 0, :] * scale, qkv[..., 1, :] * scale, qkv[..., 2, :]
-        L, Lw = self.aq.n_levels, self.aq_w.n_levels
-        if int8_serving(mode) and L <= 256 and Lw <= 256:
-            dq, zq = self.act_quantizer_q(q, mode, params_only=True)
-            dk, zk = self.act_quantizer_k(k, mode, params_only=True)
-            dw, zw = self.act_quantizer_w(None, mode, params_only=True)
-            dv, zv = self.act_quantizer_v(v, mode, params_only=True)
-            impl = attention_impl(b, heads, t_len, t_len, ch)
-            if impl == "flash":
-                raise NotImplementedError(
-                    "K5 (int8_flash_attention) is not ported: this attention "
-                    f"site (batch {b}, {heads} heads, S {t_len}, C {ch}) needs it")
-            if impl == "fused":
-                # the (b, h, t, s) logits never reach device memory (K4)
-                Qc, cq = quantize_act_int8(q, dq, zq, L)
-                Kc, ck = quantize_act_int8(k, dk, zk, L)
-                V, cv = quantize_act_int8(v, dv, zv, L)
-                a = int8_fused_attention_heads(Qc, cq, dq, Kc, ck, dk, V, cv,
-                                               dv, 1.0, dw, zw, Lw)
-            else:
-                # K2 → K3 → K2 on the heads layout
-                w = int8_act_einsum("bthc,bshc->bhts", q, (dq, zq, L),
-                                    k, (dk, zk, L))
-                W, cw = softmax_int8_codes(w, dw, zw, Lw)
-                V, cv = quantize_act_int8(v, dv, zv, L)
-                a = int8_code_einsum("bhts,bshc->bthc", W, cw, dw, V, cv, dv)
-        else:
-            q = self.act_quantizer_q(q, mode)
-            k = self.act_quantizer_k(k, mode)
-            w = torch.einsum("bthc,bshc->bhts", q.float(), k.float())
-            w = torch.softmax(w, dim=-1).to(x.dtype)
-            w = self.act_quantizer_w(w, mode)
-            v = self.act_quantizer_v(v, mode)
-            a = torch.einsum("bhts,bshc->bthc", w.float(), v.float())
+        a = self.attend(q, k, v, 1.0, mode, x.dtype)
         a = a.to(x.dtype).reshape(b, t_len, c)
         return (xs + self.proj_out(a, mode)).reshape(b, hh, ww, c)
+
+
+class CrossAttentionL(_QKVAttention):
+    """CrossAttention with the SD quantizers: bias-free ``to_q/to_k/to_v``,
+    q/k/v quantized unscaled after the head split, the softmax output at
+    sm_abit (always_zero), logits scaled by dim_head^-½.  ``context=None``
+    attends to ``x`` itself (``attn1``)."""
+
+    def __init__(self, query_dim: int, context_dim: int, heads: int,
+                 dim_head: int, out_dim: int, wq: QuantizerSpec,
+                 aq: QuantizerSpec, aq_w: QuantizerSpec):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        inner = heads * dim_head
+        self.to_q = QDense(query_dim, inner, wq=wq, aq=aq, use_bias=False)
+        self.to_k = QDense(context_dim, inner, wq=wq, aq=aq, use_bias=False)
+        self.to_v = QDense(context_dim, inner, wq=wq, aq=aq, use_bias=False)
+        self._init_quantizers(aq, aq_w)
+        self.to_out_0 = QDense(inner, out_dim, wq=wq, aq=aq)
+
+    def forward(self, x, context, mode: QuantMode):
+        ctx = x if context is None else context
+        q = self.to_q(x, mode)
+        k, v = self.to_k(ctx, mode), self.to_v(ctx, mode)
+        b, n, _ = q.shape
+        m, h, d = k.shape[1], self.heads, self.dim_head
+        out = self.attend(q.reshape(b, n, h, d), k.reshape(b, m, h, d),
+                          v.reshape(b, m, h, d), d ** -0.5, mode, x.dtype)
+        return self.to_out_0(out.to(x.dtype).reshape(b, n, h * d), mode)
+
+
+class FeedForwardL(nn.Module):
+    """GEGLU feed-forward: ``net_2(a · gelu(gate))`` with ``a, gate`` the
+    halves of ``net_0_proj(x)``; ``jax.nn.gelu``'s default, the tanh form,
+    rounded as JAX rounds it (``gelu_tanh``)."""
+
+    def __init__(self, dim: int, wq: QuantizerSpec, aq: QuantizerSpec,
+                 mult: int = 4):
+        super().__init__()
+        inner = dim * mult
+        self.net_0_proj = QDense(dim, 2 * inner, wq=wq, aq=aq)
+        self.net_2 = QDense(inner, dim, wq=wq, aq=aq)
+
+    def forward(self, x, mode: QuantMode):
+        a, gate = self.net_0_proj(x, mode).chunk(2, dim=-1)
+        return self.net_2(a * gelu_tanh(gate), mode)
+
+
+class BasicTransformerBlockL(nn.Module):
+    """attn1 (self) → attn2 (cross) → ff, each after its LayerNorm and
+    with a residual add."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int,
+                 context_dim: Optional[int], wq: QuantizerSpec,
+                 aq: QuantizerSpec, aq_w: QuantizerSpec):
+        super().__init__()
+        self.attn1 = CrossAttentionL(dim, dim, heads, dim_head, dim, wq, aq, aq_w)
+        self.norm1 = LayerNorm(dim)
+        self.attn2 = CrossAttentionL(dim, context_dim or dim, heads, dim_head,
+                                     dim, wq, aq, aq_w)
+        self.norm2 = LayerNorm(dim)
+        self.ff = FeedForwardL(dim, wq, aq)
+        self.norm3 = LayerNorm(dim)
+
+    def forward(self, x, context, mode: QuantMode):
+        x = self.attn1(self.norm1(x), None, mode) + x
+        x = self.attn2(self.norm2(x), context, mode) + x
+        return self.ff(self.norm3(x), mode) + x
+
+
+class SpatialTransformerL(nn.Module):
+    """GroupNorm → 1×1 ``proj_in`` → ``depth`` transformer blocks over the
+    H·W tokens → 1×1 ``proj_out`` (the registration-last act quantizer,
+    ``aq_last``), plus the input."""
+
+    def __init__(self, ch: int, heads: int, dim_head: int, depth: int,
+                 context_dim: Optional[int], wq: QuantizerSpec,
+                 aq: QuantizerSpec, aq_w: QuantizerSpec,
+                 aq_last: Optional[QuantizerSpec] = None):
+        super().__init__()
+        self.inner = inner = heads * dim_head
+        self.depth = depth
+        self.norm = GNorm(ch)
+        self.proj_in = QConv(ch, inner, (1, 1), padding="VALID", wq=wq, aq=aq)
+        for d in range(depth):
+            setattr(self, f"transformer_blocks_{d}", BasicTransformerBlockL(
+                inner, heads, dim_head, context_dim, wq, aq, aq_w))
+        self.proj_out = QConv(inner, ch, (1, 1), padding="VALID", wq=wq,
+                              aq=aq_last or aq)
+
+    def forward(self, x, context, mode: QuantMode):
+        b, hh, ww, _ = x.shape
+        h = self.proj_in(self.norm(x), mode).reshape(b, hh * ww, self.inner)
+        for d in range(self.depth):
+            h = getattr(self, f"transformer_blocks_{d}")(h, context, mode)
+        h = self.proj_out(h.reshape(b, hh, ww, self.inner), mode)
+        return x + h
 
 
 class DownsampleL(nn.Module):
@@ -298,10 +427,9 @@ class LDMUNet(nn.Module):
     def __init__(self, cfg: LDMUNetConfig = LDMUNetConfig(),
                  qc: QuantConfig = QuantConfig(), device=None, seed: int = 0):
         super().__init__()
-        if cfg.use_spatial_transformer or cfg.num_classes is not None:
+        if cfg.num_classes is not None:
             raise NotImplementedError(
-                "the spatial-transformer / class-conditional LDM UNet is not "
-                "ported yet")
+                "the class-conditional LDM UNet is not ported yet")
         device = resolve_device(device)
         self.cfg, self.qc = cfg, qc
         wq, aq = qc.wq, qc.aq
@@ -322,6 +450,11 @@ class LDMUNet(nn.Module):
             if it.kind == "attn":
                 return AttentionBlockL(it.out_ch, it.heads, wq, aq, aq_w,
                                        aq_last)
+            if it.kind == "tx":
+                return SpatialTransformerL(it.out_ch, it.heads, it.dim_head,
+                                           cfg.transformer_depth,
+                                           cfg.context_dim, wq, aq, aq_w,
+                                           aq_last)
             if it.kind == "down":
                 return DownsampleL(it.out_ch, wq, aq)
             if it.kind == "up":
@@ -348,10 +481,16 @@ class LDMUNet(nn.Module):
             if isinstance(m, (QConv, QDense)):
                 lecun_normal_(m.weight, g)
 
-    def _run(self, prefix: str, items: List[LayerItem], h, emb, mode):
+    def _run(self, prefix: str, items: List[LayerItem], h, emb, context,
+             mode):
         for it in items:
             m = getattr(self, f"{prefix}_{it.key}")
-            h = m(h, emb, mode) if it.kind == "res" else m(h, mode)
+            if it.kind == "res":
+                h = m(h, emb, mode)
+            elif it.kind == "tx":
+                h = m(h, context, mode)
+            else:
+                h = m(h, mode)
         return h
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, context=None, y=None,
@@ -367,10 +506,11 @@ class LDMUNet(nn.Module):
         emb = self.time_embed_2(swish(emb), mode)
         hs, h = [], x
         for _, items in sorted(_group(self.layout.input_blocks).items()):
-            h = self._run("input_blocks", items, h, emb, mode)
+            h = self._run("input_blocks", items, h, emb, context, mode)
             hs.append(h)
-        h = self._run("middle_block", self.layout.middle_block, h, emb, mode)
+        h = self._run("middle_block", self.layout.middle_block, h, emb,
+                      context, mode)
         for _, items in sorted(_group(self.layout.output_blocks).items()):
             h = self._run("output_blocks", items, torch.cat([h, hs.pop()], -1),
-                          emb, mode)
+                          emb, context, mode)
         return self.out_2(swish(self.out_0(h)), mode)

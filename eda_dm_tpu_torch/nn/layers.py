@@ -72,6 +72,46 @@ class GNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm()`` over the last axis, as flax computes it:
+    epsilon 1e-6; mean and variance in float32, the variance E[x²] − E[x]²
+    clipped at 0; the scale folded into the reciprocal deviation before the
+    product; the output in the promotion of the input's and the
+    parameters' dtypes (so a bf16 input with float32 parameters gives a
+    float32 output, and with bf16 parameters a bf16 one).  PyTorch's
+    ``F.layer_norm`` keeps the input dtype and computes the variance in
+    two passes."""
+
+    eps = 1e-6
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp_min((xf * xf).mean(-1, keepdim=True) - mean * mean,
+                              0.0)
+        mul = torch.rsqrt(var + self.eps) * self.scale.float()
+        y = (xf - mean) * mul + self.bias.float()
+        dtype = torch.promote_types(torch.promote_types(
+            x.dtype, self.scale.dtype), self.bias.dtype)
+        return y.to(dtype)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its default, the tanh form) as JAX computes it:
+    ``x·½(1 + tanh(√(2/π)(x + 0.044715·x³)))`` with every constant and
+    every step in the input's dtype.  On a bf16 carrier JAX rounds each
+    step to bf16; ``F.gelu(approximate="tanh")``, which rounds once, gives
+    another bf16 value for 43 % of inputs."""
+    k = lambda v: torch.tensor(v, dtype=x.dtype, device=x.device)
+    return x * (k(0.5) * (k(1.0) + torch.tanh(
+        k(math.sqrt(2.0 / math.pi)) * (x + k(0.044715) * x ** 3))))
+
+
 def swish(x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(x)."""
     return x * torch.sigmoid(x)
@@ -234,17 +274,18 @@ class QConv(_WeightQuantMixin, nn.Module):
 
 
 class QDense(_WeightQuantMixin, nn.Module):
-    """Quantization-aware dense layer."""
+    """Quantization-aware dense layer; ``use_bias=False`` has no bias
+    parameter (the JAX tree has no leaf for it)."""
 
     def __init__(self, in_features: int, features: int,
                  wq: QuantizerSpec = QuantizerSpec(),
                  aq: QuantizerSpec = QuantizerSpec(),
-                 disable_act_quant: bool = False):
+                 disable_act_quant: bool = False, use_bias: bool = True):
         super().__init__()
         self.wq, self.aq, self.features = wq, aq, features
         self.disable_act_quant = disable_act_quant
         self.weight = nn.Parameter(torch.empty(features, in_features))
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self.act_quantizer = ActQuantizer(aq)
         self._init_weight_quant(features, in_features, (), 0)
 
@@ -256,12 +297,13 @@ class QDense(_WeightQuantMixin, nn.Module):
             codes, c = quantize_act_int8(x, d, zp, self.aq.n_levels)
             out = int8_dense(codes.reshape(-1, x.shape[-1]), self.w0_int,
                              c * self.w0_isum, d * self.w0_delta,
-                             self.bias.float())
+                             None if self.bias is None else self.bias.float())
             return out.reshape(*x.shape[:-1], self.features).to(x.dtype)
         if not self.disable_act_quant:
             x = self.act_quantizer(x, mode)
         x, w = _promote(x, self.weight)
-        return x @ w.t() + self.bias
+        out = x @ w.t()
+        return out if self.bias is None else out + self.bias
 
 
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:

@@ -25,7 +25,8 @@ from typing import Dict, Iterable
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-CUDA_SOURCES = ("int8_conv", "int8_bmm", "int8_attention")
+CUDA_SOURCES = ("int8_conv", "int8_bmm", "int8_attention",
+                "int8_flash_attention")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

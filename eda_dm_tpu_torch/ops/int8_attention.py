@@ -1,6 +1,7 @@
-"""Fused int8 attention (kernel K4) and the applicability gates (port of
-``eda_dm_tpu/ops/pallas_attention.py``: ``int8_fused_attention``,
-``int8_fused_attention_heads``, ``fused_attention_applicable``,
+"""Fused int8 attention (kernels K4 and K5) and the applicability gates
+(port of ``eda_dm_tpu/ops/pallas_attention.py``: ``int8_fused_attention``,
+``int8_fused_attention_heads``, ``int8_flash_attention``,
+``int8_flash_attention_heads``, ``fused_attention_applicable``,
 ``flash_attention_applicable``).
 
 Semantics, in ``_kernel``'s operation order (each f32 step rounded):
@@ -20,8 +21,19 @@ sums of two orders straddle an f32 rounding boundary (under S·2⁻³⁰ of
 rows).  So a kernel may add its rows in any order, and still a
 probability on a rounding tie of its code takes the plain version's code.
 
+K5 (:func:`int8_flash_attention`, ``csrc/int8_flash_attention.cu``)
+computes the same function for a query length other than the key length
+and for key lengths whose (S, S) logits K4 cannot hold: it sweeps the key
+tiles three times (row max, f64 row sum, codes and W·V), each sweep
+independent of the tile order, so its plain version is K4's plain
+function chunked over query rows, and the two agree bit for bit.  (The
+JAX kernel keeps a running f32 max and rescaled normalizer instead, whose
+sum depends on the tile order.)
+
 On a CUDA tensor :func:`int8_fused_attention` launches
-``csrc/int8_attention.cu``; on a CPU tensor it runs the plain version.
+``csrc/int8_attention.cu`` and :func:`int8_flash_attention`
+``csrc/int8_flash_attention.cu``; on a CPU tensor each runs its plain
+version.
 """
 
 from __future__ import annotations
@@ -35,6 +47,14 @@ from .int8_einsum import int8_bmm_acc_plain
 
 _ATTN_SIG = {"edm_int8_fused_attention": [ctypes.c_void_p] * 6
              + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
+_FLASH_SIG = {"edm_int8_flash_attention": [ctypes.c_void_p] * 6
+              + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
+# query rows per chunk of K5's plain version: bounds its (N, rows, Skv)
+# temporaries (1 GiB of f32 logits at the SD 64×64 shape)
+FLASH_PLAIN_ROWS = 1024
+# the widest head K5 takes: its query and key tiles (64 rows of C codes
+# each) live in shared memory
+FLASH_MAX_C = 1024
 
 # the gates' working-set budget (bytes), as the TPU kernels' VMEM budget
 GATE_BYTES = 6 * 1024 * 1024
@@ -70,9 +90,10 @@ def attention_scalars(cq, dq, ck, dk, cv, dv, attn_scale: float, dw, zw,
 def int8_fused_attention_plain(Q, K, V, sc: torch.Tensor, n_levels_w: int,
                                return_codes: bool = False):
     """K4's arithmetic in plain PyTorch, in ``_kernel``'s operation order,
-    the softmax row sums in float64 as in the kernel (module docstring)."""
+    the softmax row sums in float64 as in the kernel (module docstring).
+    Q is (N, Sq, C), K and V (N, Skv, C); Sq = Skv for K4."""
     cq, ck, cv, lsc, dw, zw, dwdv = sc.unbind()
-    s, c = Q.shape[1], Q.shape[2]
+    s, c = K.shape[1], Q.shape[2]
     acc = int8_bmm_acc_plain(Q, K).float()
     sum_q = Q.sum(-1, dtype=torch.int32).float()[..., None]
     sum_k = K.sum(-1, dtype=torch.int32).float()[:, None, :]
@@ -136,6 +157,66 @@ def int8_fused_attention(Q: torch.Tensor, cq, dq, K: torch.Tensor, ck, dk,
     return int8_fused_attention_plain(Q, K, V, sc, n_levels_w, return_codes)
 
 
+def int8_flash_attention_plain(Q, K, V, sc: torch.Tensor, n_levels_w: int,
+                               return_codes: bool = False,
+                               rows: int = FLASH_PLAIN_ROWS):
+    """K5's function in plain PyTorch: K4's plain function over
+    ``rows`` query rows at a time (each row's result does not depend on
+    the others)."""
+    parts = [int8_fused_attention_plain(Q[:, r:r + rows], K, V, sc,
+                                        n_levels_w, return_codes)
+             for r in range(0, Q.shape[1], rows)]
+    if not return_codes:
+        return torch.cat(parts, 1)
+    return (torch.cat([p[0] for p in parts], 1),
+            torch.cat([p[1] for p in parts], 1))
+
+
+def _int8_flash_attention_cuda(Q, K, V, sc, n_levels_w, return_codes):
+    dev = Q.device
+    if any(t.dtype != torch.int8 or t.device != dev for t in (Q, K, V)):
+        raise ValueError("int8_flash_attention takes int8 Q/K/V on one device")
+    if (Q.dim() != 3 or K.dim() != 3 or V.shape != K.shape
+            or K.shape[0] != Q.shape[0] or K.shape[2] != Q.shape[2]):
+        raise ValueError(f"Q must be (N, Sq, C) and K/V (N, Skv, C), got "
+                         f"{tuple(Q.shape)}, {tuple(K.shape)}, {tuple(V.shape)}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (Q, K, V)):
+        raise ValueError("int8_flash_attention takes contiguous, aligned operands")
+    n, sq, c = Q.shape
+    skv = K.shape[1]
+    if c % 4 or c > FLASH_MAX_C or min(n, sq, skv) == 0:
+        raise ValueError(f"int8_flash_attention: C={c} must be a multiple of 4 "
+                         f"and at most {FLASH_MAX_C}, N, Sq, Skv positive")
+    if n_levels_w > 256:
+        raise ValueError("int8 codes require sm_abit <= 8")
+    out = torch.empty((n, sq, c), dtype=torch.float32, device=dev)
+    codes = (torch.empty((n, sq, skv), dtype=torch.int8, device=dev)
+             if return_codes else None)
+    lib = cuda_lib("int8_flash_attention", _FLASH_SIG)
+    err = lib.edm_int8_flash_attention(
+        ptr(Q), ptr(K), ptr(V), ptr(sc.contiguous()), ptr(out), ptr(codes),
+        n, sq, skv, c, n_levels_w, stream_ptr(dev))
+    check_launch(lib, err, "int8_flash_attention")
+    launch_counts["int8_flash_attention"] += 1
+    return (out, codes) if return_codes else out
+
+
+def int8_flash_attention(Q: torch.Tensor, cq, dq, K: torch.Tensor, ck, dk,
+                         V: torch.Tensor, cv, dv, attn_scale: float, dw, zw,
+                         n_levels_w: int, return_codes: bool = False):
+    """Tiled int8 attention: Q (N, Sq, C), K/V (N, Skv, C) centered int8
+    codes, the rest as :func:`int8_fused_attention`.  Returns f32
+    (N, Sq, C), and with ``return_codes`` also the codes W (N, Sq, Skv).
+    On a CUDA tensor this launches kernel K5; on a CPU tensor it runs the
+    plain version."""
+    sc = attention_scalars(cq, dq, ck, dk, cv, dv, attn_scale, dw, zw, Q.device)
+    if Q.is_cuda:
+        return _int8_flash_attention_cuda(Q, K, V, sc, n_levels_w, return_codes)
+    if Q.device.type != "cpu":
+        raise ValueError(f"int8_flash_attention: unsupported device {Q.device}")
+    return int8_flash_attention_plain(Q, K, V, sc, n_levels_w, return_codes)
+
+
 def heads_to_batched(x: torch.Tensor) -> torch.Tensor:
     """(B, S, H, C) → (B·H, S, C), contiguous."""
     b, s, h, c = x.shape
@@ -152,3 +233,16 @@ def int8_fused_attention_heads(Q: torch.Tensor, cq, dq, K: torch.Tensor, ck,
                                ck, dk, heads_to_batched(V), cv, dv, attn_scale,
                                dw, zw, n_levels_w)
     return out.reshape(b, h, s, c).permute(0, 2, 1, 3)
+
+
+def int8_flash_attention_heads(Q: torch.Tensor, cq, dq, K: torch.Tensor, ck,
+                               dk, V: torch.Tensor, cv, dv, attn_scale: float,
+                               dw, zw, n_levels_w: int) -> torch.Tensor:
+    """Heads layout: Q (B, Sq, H, C), K/V (B, Skv, H, C) codes → f32
+    (B, Sq, H, C); heads are flattened into the batch, one attention per
+    (b, h)."""
+    b, sq, h, c = Q.shape
+    out = int8_flash_attention(heads_to_batched(Q), cq, dq, heads_to_batched(K),
+                               ck, dk, heads_to_batched(V), cv, dv, attn_scale,
+                               dw, zw, n_levels_w)
+    return out.reshape(b, h, sq, c).permute(0, 2, 1, 3)

@@ -111,8 +111,6 @@ def _int8_bmm_nt_cuda(A, B, row_add, col_add, k_add, scale, bias):
     batch, m, k = A.shape
     if B.shape[0] != batch or B.shape[2] != k:
         raise ValueError(f"shape mismatch {tuple(A.shape)} x {tuple(B.shape)}")
-    if k % 4 or A.data_ptr() % 16 or B.data_ptr() % 16:
-        raise ValueError("int8_bmm_nt needs K % 4 == 0 and aligned operands")
     if batch > 65535:
         raise ValueError("int8_bmm_nt takes at most 65535 batches")
     n = B.shape[1]
@@ -149,7 +147,8 @@ def int8_bmm_nt(A: torch.Tensor, B: torch.Tensor,
     """Batched int8 GEMM with int32 accumulation and the f32 epilogue
     ``((((acc + row_add[b,m]) + col_add[b,n]) + k_add) · scale[n]) + bias[n]``.
 
-    A: (batch, M, K) int8; B: (batch, N, K) int8 (both K-contiguous);
+    A: (batch, M, K) int8; B: (batch, N, K) int8 (both K-contiguous; any
+    K: where K % 4 != 0 the kernel gathers the tail bytes);
     returns (batch, M, N) float32.  On a CUDA tensor this launches kernel
     K2; on a CPU tensor it runs the plain version.
     """
@@ -165,14 +164,20 @@ def int8_bmm_nt(A: torch.Tensor, B: torch.Tensor,
 # --------------------------------------------------------------------------
 # callers
 
+_HEADS_ALIASES = {"bihd,bjhd->bhij": "bthc,bshc->bhts",
+                  "bhij,bjhd->bihd": "bhts,bshc->bthc"}
+
 
 def int8_code_einsum(eq: str, A: torch.Tensor, ca, da,
                      B: torch.Tensor, cb, db) -> torch.Tensor:
     """einsum over precomputed centered int8 codes (the ``(codes, c)``
     contract of :func:`quantize_act_int8` / ``softmax_int8_codes``), for the
     attention equations: the (n, ·, ·) forms and the LDM heads layout
-    (``bthc,bshc->bhts``, ``bhts,bshc->bthc``), whose heads become K2's
-    batch.  Returns float32."""
+    (``bthc,bshc->bhts``, ``bhts,bshc->bthc``; the SD cross-attention's
+    ``bihd,bjhd->bhij`` and ``bhij,bjhd->bihd`` are the same products, with
+    other key and query lengths), whose heads become K2's batch.  Returns
+    float32."""
+    eq = _HEADS_ALIASES.get(eq, eq)
     if eq in ("bthc,bshc->bhts", "bhts,bshc->bthc"):
         b, h = B.shape[0], B.shape[2]
         Bh = B.permute(0, 2, 1, 3).reshape(b * h, B.shape[1], B.shape[3])

@@ -38,7 +38,10 @@ def int8_conv_serving(mode, wq, aq, disable_act_quant: bool = False,
 
 def attention_impl(batch: int, heads: int, sq: int, skv: int, c: int) -> str:
     """The int8 serving branch of one attention site: ``'einsum'`` (K2 →
-    K3 → K2), ``'fused'`` (K4) or ``'flash'`` (K5, not ported yet)."""
+    K3 → K2), ``'fused'`` (K4: self-attention whose (S, S) logits fit the
+    gate) or ``'flash'`` (K5: the tiled kernel, SD's 4096-token
+    self-attention; the 77-token text context is not tileable and keeps
+    the einsum branch)."""
     can_fuse = sq == skv and fused_attention_applicable(sq, c)
     bh = batch * heads
     if bh >= BATCH_HEADS_EINSUM_MIN and 4 * bh * sq * skv <= LOGITS_BYTES_MAX:

@@ -1,10 +1,10 @@
-"""Latent-diffusion DDIM (port of ``eda_dm_tpu/samplers/latent.py``: the
-schedules, classifier-free guidance and the DDIM loop).
+"""Latent-diffusion DDIM and PLMS (port of ``eda_dm_tpu/samplers/latent.py``:
+the schedules, classifier-free guidance, the DDIM loop and the PLMS loop).
 
 The JAX ``lax.scan`` is a Python step loop here.  Noise comes from an
 explicit ``torch.Generator`` or is passed in per step: JAX's PRNG and
 torch's give different numbers from one seed.  A step whose σ is 0 adds no
-noise and draws none.  PLMS and DPM-Solver come with a later slice.
+noise and draws none.  DPM-Solver comes with a later slice.
 """
 
 from __future__ import annotations
@@ -118,4 +118,53 @@ def ldm_ddim_sample(x_T: torch.Tensor, sched: LDMSchedule, model_fn: Callable,
                              dtype=x.dtype))
         x, _ = ddim_update(x, e_t, al[index], al_prev[index], sig[index],
                            som[index], z)
+    return x
+
+
+@torch.no_grad()
+def ldm_plms_sample(x_T: torch.Tensor, sched: LDMSchedule, model_fn: Callable,
+                    generator: Optional[torch.Generator] = None,
+                    noise: Optional[Sequence[torch.Tensor]] = None,
+                    device=None) -> torch.Tensor:
+    """PLMS (plms.py:155-280): Adams-Bashforth over ε with a window of the
+    last three model outputs; the first step is a pseudo improved Euler,
+    which calls the model a second time, at the next timestep, on the
+    DDIM update's x.  Orders 1, 2, 3, 4 at steps 0, 1, 2 and later.  The
+    noise of step k is ``noise[k]`` when given, else drawn from
+    ``generator`` where σ is not 0 (the order-1 step's look-ahead and its
+    update share it).  Returns the final latents."""
+    device = resolve_device(device)
+    x = x_T.to(device)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    al, al_prev = f32(sched.ddim_alphas), f32(sched.ddim_alphas_prev)
+    sig, som = f32(sched.ddim_sigmas), f32(sched.ddim_sqrt_one_minus_alphas)
+    steps = sched.ddim_timesteps[::-1].tolist()
+    n, S = x.shape[0], len(steps)
+    old_eps = []                                  # newest last
+    for i, step in enumerate(steps):
+        index = S - 1 - i
+        t = torch.full((n,), float(step), dtype=torch.float32, device=device)
+        e_t = model_fn(x, t)
+        z = None
+        if sched.ddim_sigmas[index] != 0:
+            z = (noise[i].to(device) if noise is not None else
+                 torch.randn(x.shape, generator=generator, device=device,
+                             dtype=x.dtype))
+
+        def update(e):
+            return ddim_update(x, e, al[index], al_prev[index], sig[index],
+                               som[index], z)[0]
+        if i == 0:
+            t_next = torch.full((n,), float(steps[min(1, S - 1)]),
+                                dtype=torch.float32, device=device)
+            e_prime = (e_t + model_fn(update(e_t), t_next)) / 2.0
+        elif i == 1:
+            e_prime = (3.0 * e_t - old_eps[-1]) / 2.0
+        elif i == 2:
+            e_prime = (23.0 * e_t - 16.0 * old_eps[-1] + 5.0 * old_eps[-2]) / 12.0
+        else:
+            e_prime = (55.0 * e_t - 59.0 * old_eps[-1] + 37.0 * old_eps[-2]
+                       - 9.0 * old_eps[-3]) / 24.0
+        x = update(e_prime)
+        old_eps = (old_eps + [e_t])[-3:]
     return x

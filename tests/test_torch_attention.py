@@ -3,8 +3,8 @@ version) against the JAX package on the CPU.
 
 * ``attention_impl``: the same branch as JAX's at every shape of the grid
   (the three LSUN-Bedroom sites at batch 50, the CIFAR sites at batch 8 to
-  500, SD's 4096 tokens); ``'flash'`` raises in the models (K5 is not
-  ported).
+  500, SD's 4096 tokens, where ``'flash'`` (K5, held in
+  ``tests/test_torch_flash.py``) serves).
 * ``int8_fused_attention`` against the Pallas kernel in interpret mode:
   the softmax codes within ±1 and ≥ 99.9 % identical (the exponentials and
   the row sums may round differently in the last bit), the output within

@@ -7,13 +7,15 @@ machine (no JAX there, so without the JAX conftest):
 
 Shapes are the ragged ones the CIFAR path does not reach: M, N not
 multiples of the 128 tile, Cin not a multiple of 32 (the byte-gather path
-of K1), softmax rows that are not a power of two.  Integer accumulators
+of K1), K not a multiple of 4 (K2's tail, SD's 77 context tokens), softmax
+rows that are not a power of two, query and key lengths that are not
+multiples of K5's 64-row tiles.  Integer accumulators
 must be bit-equal; the f32 epilogues run the same operations in the same
 order, so outputs must be equal too; softmax codes may flip by one where
 a kernel's float64 row sum rounds to another float32 than the plain
 version's (≥ 99.9 % equal).  Last,
-the tiny DDPM and LDM UNets in DEPLOY_INT8 on the card against the same
-model on the host, module by module and as a whole.
+the tiny DDPM, LDM and SD UNets in DEPLOY_INT8 on the card against the
+same model on the host, module by module and as a whole.
 """
 
 import pytest
@@ -64,7 +66,8 @@ def test_int8_conv_kernel(gen, case, out_dtype):
 
 
 @pytest.mark.parametrize("batch,m,n,k", [(3, 17, 130, 20), (1, 5, 48, 512),
-                                         (2, 200, 64, 256)])
+                                         (2, 200, 64, 256), (16, 300, 40, 77),
+                                         (5, 64, 77, 40), (3, 9, 10, 6)])
 def test_int8_bmm_kernel(gen, batch, m, n, k):
     from eda_dm_tpu_torch.ops.int8_einsum import int8_bmm_nt, int8_bmm_nt_plain
     A, B = _codes(gen, (batch, m, k)), _codes(gen, (batch, n, k))
@@ -122,6 +125,45 @@ def test_int8_attention_kernel(gen, s, c):
     torch.testing.assert_close(out[rows], ref[rows], rtol=1e-5, atol=1e-5)
 
 
+FLASH = [  # n, sq, skv, c: ragged tiles, Sq != Skv, wide heads, SD's 4096
+    (3, 64, 64, 40), (4, 100, 77, 40), (2, 256, 512, 32), (5, 33, 300, 8),
+    (2, 130, 4096, 40), (2, 64, 128, 160), (2, 40, 200, 384), (1, 1, 1, 4)]
+
+
+@pytest.mark.parametrize("case", FLASH, ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("levels", [256, 16])
+def test_int8_flash_attention_kernel(gen, case, levels):
+    """K5 against its plain version: codes within ±1 and ≥ 99.9 % equal,
+    the output within rtol = atol = 1e-5 on the rows whose codes agree."""
+    from eda_dm_tpu_torch.ops.int8_attention import (
+        _int8_flash_attention_cuda, attention_scalars, int8_flash_attention_plain)
+    n, sq, skv, c = case
+    Q = _codes(gen, (n, sq, c))
+    K, V = _codes(gen, (n, skv, c)), _codes(gen, (n, skv, c))
+    dw = 1.0 / (levels - 1)
+    sc = attention_scalars(3.0, 0.021, -5.0, 0.017, 1.0, 0.025,
+                           float(c) ** -0.5, dw, 0.0, "cuda")
+    out, codes = _int8_flash_attention_cuda(Q, K, V, sc, levels, True)
+    torch.cuda.synchronize()
+    ref, ref_codes = int8_flash_attention_plain(Q, K, V, sc, levels, True)
+    diff = (codes.int() - ref_codes.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.999
+    rows = (diff == 0).all(-1)
+    torch.testing.assert_close(out[rows], ref[rows], rtol=1e-5, atol=1e-5)
+
+
+def test_int8_flash_attention_kernel_past_the_grid_limit(gen):
+    """More (b·h) elements than a grid's y/z dimension holds (65,535)."""
+    from eda_dm_tpu_torch.ops.int8_attention import (
+        _int8_flash_attention_cuda, int8_flash_attention_plain)
+    Q, K, V, sc = _attention_case(gen, 70_000, 8, 8)
+    out = _int8_flash_attention_cuda(Q, K, V, sc, 256, False)
+    torch.cuda.synchronize()
+    ref = int8_flash_attention_plain(Q, K, V, sc, 256)
+    close = ((out - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all(-1)
+    assert float(close.float().mean()) >= 0.999
+
+
 def test_int8_attention_kernel_past_the_grid_limit(gen):
     """More (b·h) elements than a grid's y/z dimension holds (65,535)."""
     from eda_dm_tpu_torch.ops.int8_attention import (
@@ -138,7 +180,7 @@ TINY = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(8,),
             resolution=16)
 
 
-def _set_quant_state(model, x, t, state):
+def _set_quant_state(model, x, t, state, context=None):
     """Quant state ``uniform``: every act range [-3, 3], every weight Δ 0.02
     with zp 8; ``minmax``: act ranges from the min/max one FP forward
     records, weights on their symmetric per-channel range with
@@ -161,7 +203,7 @@ def _set_quant_state(model, x, t, state):
                     p.fill_(8.0)
             return
         with tap(model, ActQuantizer) as rec:
-            model(x, t, mode=FP)
+            model(x, t, *(() if context is None else (context,)), mode=FP)
         for name, calls in rec.items():
             q, v = model.get_submodule(name), calls[0][0]
             q.delta, q.zero_point = calculate_qparams(
@@ -192,31 +234,34 @@ def _tiny_int8_model(state):
     return model, x, t
 
 
-def _card_against_host(model, x, t, tag):
+def _card_against_host(model, x, t, tag, context=None):
     """DEPLOY_INT8 of one model on the host (plain versions) and then on the
     card (kernels).  Each module on the host's input: the int8 convs and
     denses bit for bit, GroupNorm, the folded layers and the ops between
     modules within rtol = atol = 2e-5; run freely, the first act code that
     differs sits on a tie.  Returns the whole-output |Δ|."""
-    from eda_dm_tpu_torch.nn.layers import ActQuantizer, GNorm, QConv, QDense
+    from eda_dm_tpu_torch.nn.layers import (ActQuantizer, GNorm, LayerNorm,
+                                            QConv, QDense)
     from eda_dm_tpu_torch.ops.int8_einsum import tf32_off
     from eda_dm_tpu_torch.ops.serving_policy import int8_conv_serving
     from eda_dm_tpu_torch.parity import act_code_flips, tap
     from eda_dm_tpu_torch.quant import DEPLOY_INT8
-    kinds = (QConv, QDense, GNorm)
+    kinds = (QConv, QDense, GNorm, LayerNorm)
+    inputs = (x, t) if context is None else (x, t, context)
+    args = lambda dev: [a.to(dev) for a in inputs]
     with torch.no_grad(), tf32_off():
         with tap(model, ActQuantizer) as host_q, tap(model, kinds) as host:
-            ref = model(x, t, mode=DEPLOY_INT8)
+            ref = model(*args("cpu"), mode=DEPLOY_INT8)
         model.to("cuda")
         with tap(model, ActQuantizer) as card_q:
-            out = model(x.cuda(), t.cuda(), mode=DEPLOY_INT8).cpu()
+            out = model(*args("cuda"), mode=DEPLOY_INT8).cpu()
         with tap(model, kinds, replace=host) as forced:
-            model(x.cuda(), t.cuda(), mode=DEPLOY_INT8)
+            model(*args("cuda"), mode=DEPLOY_INT8)
     mods = dict(model.named_modules())
     n_int8, worst_in, worst_out = 0, (0.0, ""), (0.0, "")
     for name, calls in forced.items():
         m = mods[name]
-        int8 = not isinstance(m, GNorm) and int8_conv_serving(
+        int8 = isinstance(m, (QConv, QDense)) and int8_conv_serving(
             DEPLOY_INT8, m.wq, m.aq, m.disable_act_quant, getattr(m, "split", 0))
         for (x_card, o_card), (x_host, o_host) in zip(calls, host[name]):
             torch.testing.assert_close(x_card, x_host, rtol=2e-5, atol=2e-5,
@@ -285,10 +330,57 @@ def test_tiny_ldm_on_the_card_matches_the_host(gen):
     assert float(d.max()) < 0.15 and float(d.median()) < 2e-4
 
 
+def test_tiny_sd_on_the_card_matches_the_host(gen, monkeypatch):
+    """The tiny SD UNet (spatial transformer at 4×4 with 4 heads of 16,
+    text context of 6 × 24, ``legacy=False``) in DEPLOY_INT8, ``minmax``
+    state, 2 prompts under CFG (4 rows), module by module as above: K4
+    serves the self-attention, K2 → K3 → K2 (K = 6, K2's tail) the
+    cross-attention; and again with every self-attention site forced onto
+    K5.  The whole output median < 2e-4, max < 0.15."""
+    import eda_dm_tpu_torch.models.ldm_unet as ldm
+    from eda_dm_tpu_torch.models.ldm_unet import LDMUNet, LDMUNetConfig
+    from eda_dm_tpu_torch.ops._build import launch_counts
+    from eda_dm_tpu_torch.quant import QuantConfig
+    from eda_dm_tpu_torch.quant.export import export_serving_int8
+    cfg = LDMUNetConfig(image_size=8, in_channels=4, model_channels=32,
+                        out_channels=4, num_res_blocks=1,
+                        attention_resolutions=(2,), channel_mult=(1, 2),
+                        num_heads=4, use_spatial_transformer=True,
+                        transformer_depth=1, context_dim=24, legacy=False)
+    qc = QuantConfig()
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 8, 8, 4, generator=g).repeat(2, 1, 1, 1)
+    ctx = torch.randn(4, 6, 24, generator=g)
+    t = torch.tensor([50.0, 20.0, 50.0, 20.0])
+    for impl in ("policy", "flash"):
+        if impl == "flash":
+            policy = ldm.attention_impl
+            monkeypatch.setattr(ldm, "attention_impl", lambda b, h, sq, skv, c:
+                                "flash" if sq == skv else policy(b, h, sq, skv, c))
+        model = LDMUNet(cfg, qc, device="cpu")
+        _set_quant_state(model, x, t, "minmax", context=ctx)
+        export_serving_int8(model, qc, torch.float32)
+        launch_counts.clear()
+        d = _card_against_host(model, x, t, f"sd {impl}", context=ctx)
+        assert launch_counts["int8_flash_attention" if impl == "flash"
+                             else "int8_attention"] > 0, dict(launch_counts)
+        assert launch_counts["softmax_codes"] > 0, dict(launch_counts)
+        assert float(d.max()) < 0.15 and float(d.median()) < 2e-4
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
+    """K2 takes any K now (K % 4 != 0 through the tail path, checked
+    above); it refuses float operands.  K5 refuses a C that is not a
+    multiple of 4 and K/V of different shapes."""
+    from eda_dm_tpu_torch.ops.int8_attention import (
+        _int8_flash_attention_cuda, attention_scalars)
     from eda_dm_tpu_torch.ops.int8_einsum import int8_bmm_nt
-    A = _codes(gen, (2, 8, 6))                     # K % 4 != 0
-    with pytest.raises(ValueError, match="K % 4"):
-        int8_bmm_nt(A, A)
+    A = _codes(gen, (2, 8, 6))
     with pytest.raises(ValueError, match="int8"):
         int8_bmm_nt(A.float(), A)
+    sc = attention_scalars(0.0, 0.1, 0.0, 0.1, 0.0, 0.1, 1.0, 0.1, 0.0, "cuda")
+    with pytest.raises(ValueError, match="multiple of 4"):
+        _int8_flash_attention_cuda(A, A, A, sc, 256, False)
+    Q = _codes(gen, (2, 8, 8))
+    with pytest.raises(ValueError, match="Skv"):
+        _int8_flash_attention_cuda(Q, Q, _codes(gen, (2, 9, 8)), sc, 256, False)

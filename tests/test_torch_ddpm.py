@@ -50,7 +50,8 @@ from eda_dm_tpu_torch.models.bridge import (from_jax_variables,
                                             load_jax_variables, to_jax_variables)
 from eda_dm_tpu_torch.models.ddpm_unet import (AttnBlockD, DDPMConfig,
                                                ResnetBlockD)
-from eda_dm_tpu_torch.nn.layers import ActQuantizer, GNorm, QConv, QDense
+from eda_dm_tpu_torch.nn.layers import ActQuantizer, GNorm, LayerNorm, QConv, QDense
+from eda_dm_tpu_torch.ops.serving_policy import int8_conv_serving
 from eda_dm_tpu_torch.parity import act_code_flips, tap
 from eda_dm_tpu_torch.quant import DEPLOY, DEPLOY_INT8, FP, QuantConfig
 from eda_dm_tpu_torch.quant.export import export_serving_int8
@@ -100,7 +101,12 @@ def _flip_gate(out, ref, max_abs, share=True):
         assert (d < 2e-4).mean() > 0.7, (d < 2e-4).mean()
 
 
-_JAX_KINDS = (jlayers.ActQuantizer, jlayers.GNorm, jlayers.QConv, jlayers.QDense)
+_JAX_KINDS = (jlayers.ActQuantizer, jlayers.GNorm, jlayers.QConv, jlayers.QDense,
+              fnn.LayerNorm)
+_PORT_KINDS = (ActQuantizer, GNorm, QConv, QDense, LayerNorm)
+# the modules that take an attention kernel's output (the LDM and DDPM
+# blocks' proj_out, the transformer's to_out_0)
+_AFTER_ATTN = (".proj_out", ".to_out_0")
 
 
 def _port_name(path):
@@ -109,10 +115,11 @@ def _port_name(path):
                     for p in path)
 
 
-def _jax_tapped(model, tree, x, t, mode):
-    """``model.apply`` recording, as ``parity.tap`` does for the port, the
-    first input and the output of every act quantizer, GroupNorm, conv and
-    dense call, under the port's module names."""
+def _jax_tapped(model, tree, args, mode):
+    """``model.apply(tree, *args)`` recording, as ``parity.tap`` does for
+    the port, the first input and the output of every act quantizer,
+    GroupNorm, LayerNorm, conv and dense call, under the port's module
+    names."""
     rec = {}
 
     def keep(next_fun, args, kwargs, ctx):
@@ -126,15 +133,34 @@ def _jax_tapped(model, tree, x, t, mode):
         return out
 
     with fnn.intercept_methods(keep):
-        out = model.apply(tree, jnp.asarray(x), jnp.asarray(t), mode=mode)
+        out = model.apply(tree, *[None if a is None else jnp.asarray(a)
+                                  for a in args], mode=mode)
     return np.asarray(out), rec
 
 
 def _against_jax(model, tree, port, x, t, jmode, mode,
-                 attn_code_flips=False):
+                 attn_code_flips=False, context=None):
+    """:func:`_against_jax_args` on a UNet's ``(x, t[, context])``."""
+    args = (x, t) if context is None else (x, t, context)
+    return _against_jax_args(model, tree, port, args, jmode, mode,
+                             attn_code_flips, tag=f"t={float(np.asarray(t)[0]):g}")
+
+
+def _torch(a):
+    """A numpy / JAX array (bf16 included) as a CPU tensor."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _against_jax_args(model, tree, port, args, jmode, mode,
+                      attn_code_flips=False, tag="", tol=2e-5,
+                      int8_exact=False):
     """JAX's and the port's output on one input.  On the way, every module
     of the port computed on JAX's input must give JAX's output, and the
-    ops between modules JAX's input of the next (rtol = atol = 2e-5); and
+    ops between modules JAX's input of the next (rtol = atol = ``tol``,
+    2e-5; with ``int8_exact`` the int8 convs and denses bit for bit); and
     in the free run the first act code that differs from JAX's must sit on
     a rounding tie.  Returns (JAX out, port out, codes that differ).
 
@@ -145,18 +171,18 @@ def _against_jax(model, tree, port, x, t, jmode, mode,
     dw·v̂_j, so the input of ``proj_out`` may then differ beyond 2e-5 on at
     most 0.1 % of its elements, by at most 1 % of its largest value, and
     the first act code to differ in the free run may be that of a
-    ``proj_out``."""
-    ref, jrec = _jax_tapped(model, tree, x, t, jmode)
-    xt, tt = torch.from_numpy(np.array(x)), torch.from_numpy(np.array(t))
+    ``proj_out`` (``to_out_0`` in the transformer blocks)."""
+    ref, jrec = _jax_tapped(model, tree, args, jmode)
+    targs = [None if a is None else _torch(a) for a in args]
+    mods = dict(port.named_modules())
     with torch.no_grad():
-        with tap(port, (ActQuantizer, GNorm, QConv, QDense),
-                 replace=jrec) as forced:
-            port(xt, tt, mode=mode)
+        with tap(port, _PORT_KINDS, replace=jrec) as forced:
+            port(*targs, mode=mode)
         with tap(port, ActQuantizer) as free:
-            out = port(xt, tt, mode=mode).numpy()
+            out = port(*targs, mode=mode).float().numpy()
     for name, calls in forced.items():
         for (x_port, o_port), (x_jax, o_jax) in zip(calls, jrec[name]):
-            if attn_code_flips and name.endswith(".proj_out"):
+            if attn_code_flips and f".{name}".endswith(_AFTER_ATTN):
                 d = (x_port - x_jax).abs()
                 off = d > 2e-5 + 2e-5 * x_jax.abs()
                 print(f"\n  input of {name}: {int(off.sum())} of {d.numel()}"
@@ -164,20 +190,26 @@ def _against_jax(model, tree, port, x, t, jmode, mode,
                 assert float(off.float().mean()) <= 1e-3, name
                 assert float(d.max()) <= 0.01 * float(x_jax.abs().max()), name
                 continue
-            torch.testing.assert_close(x_port, x_jax, rtol=2e-5, atol=2e-5,
+            torch.testing.assert_close(x_port, x_jax, rtol=tol, atol=tol,
                                        msg=f"input of {name}")
-            if o_jax is not None:          # not a quantizer's params_only call
-                torch.testing.assert_close(o_port, o_jax, rtol=2e-5,
-                                           atol=2e-5, msg=f"output of {name}")
+            m = mods[name]
+            if (int8_exact and isinstance(m, (QConv, QDense))
+                    and int8_conv_serving(mode, m.wq, m.aq, m.disable_act_quant,
+                                          getattr(m, "split", 0))):
+                assert torch.equal(o_port, o_jax), f"output of {name}"
+            elif o_jax is not None:        # not a quantizer's params_only call
+                torch.testing.assert_close(o_port, o_jax, rtol=tol,
+                                           atol=tol, msg=f"output of {name}")
     rows = act_code_flips(port, free, jrec)
     first = next((r for r in rows if r[2]), None)
     # a softmax code flipped inside the attention kernel shows first at the
     # quantizer of the proj_out it feeds (held by the forced run above)
     after_attn = (attn_code_flips and first is not None
-                  and first[0].endswith(".proj_out.act_quantizer"))
-    assert first is None or first[3] <= 2e-5 or after_attn, first
-    d = np.abs(out - ref)
-    print(f"\n  t={float(t[0]):g}: {sum(r[2] for r in rows)} act codes differ, "
+                  and f".{first[0]}".endswith(tuple(f"{a}.act_quantizer"
+                                                    for a in _AFTER_ATTN)))
+    assert first is None or first[3] <= tol or after_attn, first
+    d = np.abs(out - ref.astype(np.float32))
+    print(f"\n  {tag}: {sum(r[2] for r in rows)} act codes differ, "
           f"the first in {first}; median {np.median(d):.3g} max {d.max():.3g}"
           f" mean {d.mean():.3g} share<2e-4 {(d < 2e-4).mean():.4f}")
     return ref, out, sum(r[2] for r in rows)

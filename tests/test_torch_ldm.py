@@ -169,15 +169,31 @@ def test_bridge_round_trip(calibrated):
             state[name].float(), t.float()), name
 
 
-def test_misplaced_mode_and_flash_site_raise(monkeypatch):
+def test_misplaced_mode_and_flash_site_raise(calibrated, monkeypatch):
+    """A QuantMode passed where ``context`` goes raises.  A site forced onto
+    K5 (``'flash'``, whose plain version is K4's plain function chunked
+    over query rows) gives the fused branch's output bit for bit."""
     model = tldm.LDMUNet(CFG, QC, device="cpu")
     x, t = torch.zeros(1, 16, 16, 3), torch.zeros(1)
     with pytest.raises(TypeError, match="positional order"):
         model(x, t, DEPLOY_INT8)
-    export_serving_int8(model, QC, torch.float32)
-    monkeypatch.setattr(tldm, "attention_impl", lambda *a: "flash")
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="K5"):
-        model(x, t, mode=DEPLOY_INT8)
+    port = _port(calibrated["int8"])
+    x = torch.from_numpy(np.array(calibrated["x"]))
+    t = torch.from_numpy(np.array(calibrated["t"]))
+    seen = []
+
+    def forced(impl):
+        def spy(*site):
+            seen.append(impl)
+            return impl
+        return spy
+    with torch.no_grad():
+        monkeypatch.setattr(tldm, "attention_impl", forced("fused"))
+        fused = port(x, t, mode=DEPLOY_INT8)
+        monkeypatch.setattr(tldm, "attention_impl", forced("flash"))
+        flash = port(x, t, mode=DEPLOY_INT8)
+    assert seen.count("flash") == seen.count("fused") == 7
+    assert torch.equal(flash, fused)
 
 
 def test_bedroom_layout():
@@ -197,3 +213,35 @@ def test_bedroom_layout():
              for it in getattr(lay, part) if it.kind == "attn"]
     branches = [tldm.attention_impl(50, h, r * r, r * r, d) for h, r, d in sites]
     assert branches.count("fused") == 10 and branches.count("einsum") == 6
+
+
+def test_sd_layout():
+    """The full SD v1.4 UNet's layout, built without weights: its 16
+    spatial-transformer sites against the JAX layout, and their self-
+    attention branches at the CFG batch of 8 rows (4 prompts): K5 at the
+    five 64×64 sites, K4 at the 32×32, 16×16 and 8×8 ones; every
+    cross-attention over the 77 text tokens takes K2 → K3 → K2, in both
+    packages' policies."""
+    from eda_dm_tpu.models.latent_diffusion import sd_v1_config as jsd
+    from eda_dm_tpu.ops import serving_policy as jpolicy
+    from eda_dm_tpu_torch.models.latent_diffusion import sd_v1_config
+    cfg = sd_v1_config().unet
+    assert cfg == tldm.LDMUNetConfig(**{
+        f: getattr(jsd().unet, f) for f in cfg.__dataclass_fields__})
+    lay = tldm.build_layout(cfg, True)
+    jlay = jldm.build_layout(jsd().unet, True)
+    for part in ("input_blocks", "middle_block", "output_blocks"):
+        assert ([vars(i) for i in getattr(lay, part)]
+                == [vars(i) for i in getattr(jlay, part)])
+    res = {320: 64, 640: 32, 1280: 16}
+    sites = [(it.heads, it.dim_head, 8 if part == "middle_block" else res[it.out_ch])
+             for part in ("input_blocks", "middle_block", "output_blocks")
+             for it in getattr(lay, part) if it.kind == "tx"]
+    assert len(sites) == 16 and all(h == 8 for h, _, _ in sites)
+    self_attn = [tldm.attention_impl(8, h, r * r, r * r, d) for h, d, r in sites]
+    assert self_attn == [jpolicy.attention_impl(8, h, r * r, r * r, d)
+                         for h, d, r in sites]
+    assert self_attn.count("flash") == 5 and self_attn.count("fused") == 11
+    assert {tldm.attention_impl(8, h, r * r, 77, d) for h, d, r in sites} \
+        == {jpolicy.attention_impl(8, h, r * r, 77, d) for h, d, r in sites} \
+        == {"einsum"}
