@@ -21,7 +21,7 @@ import torch.nn as nn
 
 from ..device import resolve_device
 from ..nn.layers import (ActQuantizer, GNorm, QConv, QDense, lecun_normal_,
-                         swish, timestep_embedding)
+                         norm_act, norm_conv, swish, timestep_embedding)
 from ..ops.int8_attention import int8_fused_attention
 from ..ops.int8_einsum import (int8_act_einsum, int8_code_einsum,
                                quantize_act_int8)
@@ -67,9 +67,9 @@ class ResnetBlockD(nn.Module):
                              if in_ch != out_ch else None)
 
     def forward(self, x, temb, mode: QuantMode):
-        h = self.conv1(swish(self.GroupNorm_0(x)), mode)
+        h = norm_conv(self.GroupNorm_0, self.conv1, x, mode)
         h = h + self.temb_proj(swish(temb), mode)[:, None, None, :]
-        h = self.conv2(swish(self.GroupNorm_1(h)), mode)
+        h = norm_conv(self.GroupNorm_1, self.conv2, h, mode)
         if self.nin_shortcut is not None:
             x = self.nin_shortcut(x, mode)
         return x + h
@@ -96,7 +96,7 @@ class AttnBlockD(nn.Module):
 
     def forward(self, x, mode: QuantMode):
         n, hh, ww, c = x.shape
-        h = self.GroupNorm_0(x)
+        h = norm_act(self.GroupNorm_0, x, mode)
         q = self.q(h, mode).reshape(n, hh * ww, c)
         k = self.k(h, mode).reshape(n, hh * ww, c)
         v = self.v(h, mode).reshape(n, hh * ww, c)
@@ -287,4 +287,4 @@ class DDPMUNet(nn.Module):
         h = self.mid_block_2(h, temb, mode)
         for i in reversed(range(self.cfg.num_resolutions)):
             h = self.up[i](h, hs, temb, mode)
-        return self.conv_out(swish(self.norm_out(h)), mode)
+        return self.conv_out(norm_act(self.norm_out, h, mode, act=True), mode)

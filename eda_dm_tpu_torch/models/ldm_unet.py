@@ -9,12 +9,13 @@ Module names are the JAX package's flax names: a dict entry
 ``transformer_blocks_0``, ``attn1``, ``to_q``, ``net_0_proj``).  Layout is
 NHWC; dropout is omitted (inference only).
 
-Modes: FP, DEPLOY, DEPLOY_INT8.  Both attention families are ported: the
-legacy ``AttentionBlockL`` (bedroom, church) and the spatial transformer
-(SD v1.4: ``SpatialTransformerL`` → ``BasicTransformerBlockL`` with self-
-and cross-attention and a GEGLU feed-forward).  Each int8 attention site
-takes the branch ``attention_impl`` gives it: K4 (fused), K5 (flash) or
-K2 → K3 → K2 (einsum).  Class conditioning (ImageNet) is a later slice and
+Modes: FP, DEPLOY, DEPLOY_FUSED, DEPLOY_INT8.  Both attention families
+are ported: the legacy ``AttentionBlockL`` (bedroom, church) and the
+spatial transformer (SD v1.4: ``SpatialTransformerL`` →
+``BasicTransformerBlockL`` with self- and cross-attention and a GEGLU
+feed-forward).  Each int8 attention site takes the branch
+``attention_impl`` gives it: K4 (fused), K5 (flash) or K2 → K3 → K2
+(einsum).  Class conditioning (ImageNet) is a later slice and
 raises ``NotImplementedError``.
 
 flax's ``nn.LayerNorm`` returns the promotion of its input's and its
@@ -41,12 +42,14 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..nn.layers import (ActQuantizer, GNorm, LayerNorm, QConv, QDense,
-                         gelu_tanh, lecun_normal_, swish, timestep_embedding)
+                         gelu_tanh, lecun_normal_, norm_act, norm_conv, swish,
+                         timestep_embedding)
+from ..ops.gn_int8 import gn_norm
 from ..ops.int8_attention import (int8_flash_attention_heads,
                                   int8_fused_attention_heads)
 from ..ops.int8_einsum import (int8_act_einsum, int8_code_einsum,
                                quantize_act_int8)
-from ..ops.serving_policy import attention_impl, int8_serving
+from ..ops.serving_policy import attention_impl, int8_serving, use_fused_gn
 from ..ops.softmax_codes import softmax_int8_codes
 from ..quant.config import FP, QuantConfig, QuantizerSpec, QuantMode
 
@@ -202,7 +205,12 @@ class ResBlockL(nn.Module):
         return _avg_pool2(x) if self.updown == "down" else x
 
     def forward(self, x, emb, mode: QuantMode):
-        h = self.in_layers_2(self._resample(swish(self.in_layers_0(x))), mode)
+        # a resample between the norm and the conv keeps the norm unfused
+        if self.updown:
+            h = self.in_layers_2(self._resample(swish(self.in_layers_0(x))),
+                                 mode)
+        else:
+            h = norm_conv(self.in_layers_0, self.in_layers_2, x, mode)
         x = self._resample(x)
         emb_out = self.emb_layers_1(swish(emb), mode)[:, None, None, :]
         if self.use_scale_shift_norm:
@@ -210,7 +218,8 @@ class ResBlockL(nn.Module):
             h = swish(self.out_layers_0(h) * (1 + scale) + shift)
             h = self.out_layers_3(h, mode)
         else:
-            h = self.out_layers_3(swish(self.out_layers_0(h + emb_out)), mode)
+            h = norm_conv(self.out_layers_0, self.out_layers_3, h + emb_out,
+                          mode)
         if self.skip_connection is not None:
             x = self.skip_connection(x, mode)
         return x + h
@@ -288,7 +297,12 @@ class AttentionBlockL(_QKVAttention):
     def forward(self, x, mode: QuantMode):
         b, hh, ww, c = x.shape
         t_len, heads = hh * ww, self.num_heads
-        xs = self.norm(x.reshape(b, t_len, c))
+        if int8_serving(mode) and use_fused_gn(hh, ww, c):
+            # K6 on the 4-D view (GroupNorm ignores the spatial layout)
+            xs = gn_norm(x, *self.norm(x, params_only=True)).reshape(
+                b, t_len, c)
+        else:
+            xs = self.norm(x.reshape(b, t_len, c))
         ch = c // heads
         qkv = self.qkv(xs, mode).reshape(b, t_len, heads, 3, ch)
         scale = 1.0 / torch.sqrt(torch.sqrt(torch.tensor(float(ch))))
@@ -388,7 +402,8 @@ class SpatialTransformerL(nn.Module):
 
     def forward(self, x, context, mode: QuantMode):
         b, hh, ww, _ = x.shape
-        h = self.proj_in(self.norm(x), mode).reshape(b, hh * ww, self.inner)
+        h = norm_conv(self.norm, self.proj_in, x, mode, act=False).reshape(
+            b, hh * ww, self.inner)
         for d in range(self.depth):
             h = getattr(self, f"transformer_blocks_{d}")(h, context, mode)
         h = self.proj_out(h.reshape(b, hh, ww, self.inner), mode)
@@ -513,4 +528,4 @@ class LDMUNet(nn.Module):
         for _, items in sorted(_group(self.layout.output_blocks).items()):
             h = self._run("output_blocks", items, torch.cat([h, hs.pop()], -1),
                           emb, context, mode)
-        return self.out_2(swish(self.out_0(h)), mode)
+        return self.out_2(norm_act(self.out_0, h, mode, act=True), mode)

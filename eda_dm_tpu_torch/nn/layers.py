@@ -11,7 +11,11 @@ state is buffers:
   layers): ``w{i}_delta``, ``w{i}_zp`` (Cout,), ``w{i}_alpha`` (weight
   shaped), and after ``export_serving_int8`` ``w{i}_int``, ``w{i}_isum``.
 
-Modes: FP, DEPLOY (folded weights + act fake-quant) and DEPLOY_INT8.
+Modes: FP, DEPLOY (folded weights + act fake-quant), DEPLOY_FUSED (DEPLOY
+with the act fake-quant of 1×1 convs and denses inside the matmul, K7) and
+DEPLOY_INT8.  On the int8 path a GroupNorm (+ swish) in front of a conv can
+run fused with the conv's input quantize and pad (K6, :func:`norm_conv`),
+and a norm with several consumers in one pass (:func:`norm_act`).
 """
 
 from __future__ import annotations
@@ -23,9 +27,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.gn_int8 import NO_PADS, gn_norm, gn_swish_int8
 from ..ops.int8_conv import border_map, int8_conv, same_pads
 from ..ops.int8_einsum import int8_dense, quantize_act_int8
-from ..ops.serving_policy import int8_conv_serving
+from ..ops.quant_matmul import fakequant_matmul
+from ..ops.serving_policy import int8_conv_serving, int8_serving, use_fused_gn
 from ..quant.adaround import adaround_fake_quant, adaround_int
 from ..quant.affine import fake_quant
 from ..quant.config import QuantizerSpec, QuantMode
@@ -52,7 +58,8 @@ class ActQuantizer(nn.Module):
 class GNorm(nn.Module):
     """GroupNorm(32, eps=1e-6) over NHWC with the JAX package's explicit
     two-pass float32 variance; the output keeps the input dtype.
-    (``F.group_norm``'s variance differs and flips borderline act codes.)"""
+    (``F.group_norm``'s variance differs and flips borderline act codes.)
+    ``params_only=True`` returns ``(scale, bias)`` for the fused kernel."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-6):
         super().__init__()
@@ -60,7 +67,9 @@ class GNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, params_only: bool = False):
+        if params_only:
+            return self.scale, self.bias
         c = x.shape[-1]
         xg = x.float().reshape(*x.shape[:-1], self.num_groups,
                                c // self.num_groups)
@@ -217,10 +226,26 @@ class QConv(_WeightQuantMixin, nn.Module):
             return ((0, 0), (0, 0))
         return tuple(tuple(p) for p in self.padding)
 
-    def forward(self, x: torch.Tensor, mode: QuantMode) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mode: QuantMode,
+                pre_gn=None) -> torch.Tensor:
+        """``pre_gn = (scale, bias, swish)``: x is the input of the producer
+        GroupNorm, which runs fused with the int8 quantize and pad (K6);
+        only on the int8 serving path (callers: :func:`norm_conv`)."""
         if int8_conv_serving(mode, self.wq, self.aq, self.disable_act_quant,
                              self.split):
-            return self._int8_forward(x, mode)
+            return self._int8_forward(x, mode, pre_gn)
+        if pre_gn is not None:
+            raise ValueError("pre_gn requires the int8 serving path")
+        if (mode.fused and mode.a_quant and not self.disable_act_quant
+                and self.kernel_size == (1, 1) and self.strides == (1, 1)):
+            # a 1×1 conv is a matmul over channels (K7); a split layer's
+            # two quantizers give per-input-channel rows over their ranges
+            c = x.shape[-1]
+            parts = ([(self.act_quantizer, self.split),
+                      (self.act_quantizer_1, c - self.split)] if self.split
+                     else [(self.act_quantizer, c)])
+            return _fused_matmul(x, self.weight.reshape(self.features, c).t(),
+                                 parts, mode, self.aq.n_levels, self.bias)
         if not self.disable_act_quant:
             if self.split > 0:
                 x = torch.cat([self.act_quantizer(x[..., :self.split], mode),
@@ -257,17 +282,28 @@ class QConv(_WeightQuantMixin, nn.Module):
                 self.w0_int, h, w, self.strides, pads)
         return b
 
-    def _int8_forward(self, x: torch.Tensor, mode: QuantMode) -> torch.Tensor:
+    def _int8_forward(self, x: torch.Tensor, mode: QuantMode,
+                      pre_gn=None) -> torch.Tensor:
         """Quantize the unpadded input to int8 codes, run the int8 conv with
-        int32 accumulation and the fused f32 epilogue (kernel K1)."""
+        int32 accumulation and the fused f32 epilogue (kernel K1).  With
+        ``pre_gn`` the fused GroupNorm (K6) writes the codes already padded
+        with the code of 0, and K1 runs VALID over them, with no border
+        correction."""
         if self.w0_int is None:
             raise RuntimeError("DEPLOY_INT8 needs export_serving_int8 weights")
+        if pre_gn is not None and self.split:
+            raise ValueError("pre_gn takes no split layer")
         h, w = x.shape[1], x.shape[2]
         pads = self.pads(h, w)
         d, zp = self.act_quantizer(x, mode, params_only=True)
-        codes, c = quantize_act_int8(x, d, zp, self.aq.n_levels)
-        border = (self.border(h, w, pads) if pads != ((0, 0), (0, 0))
-                  else None)
+        if pre_gn is not None:
+            gn_scale, gn_bias, act = pre_gn
+            codes, c = gn_swish_int8(x, gn_scale, gn_bias, d, zp,
+                                     self.aq.n_levels, pads, swish=act)
+            pads, border = NO_PADS, None
+        else:
+            codes, c = quantize_act_int8(x, d, zp, self.aq.n_levels)
+            border = self.border(h, w, pads) if pads != NO_PADS else None
         return int8_conv(codes.contiguous(), self.w0_int, self.w0_isum, c,
                          d * self.w0_delta, self.bias.float(), self.strides,
                          pads, border, x.dtype)
@@ -299,11 +335,52 @@ class QDense(_WeightQuantMixin, nn.Module):
                              c * self.w0_isum, d * self.w0_delta,
                              None if self.bias is None else self.bias.float())
             return out.reshape(*x.shape[:-1], self.features).to(x.dtype)
+        if mode.fused and mode.a_quant and not self.disable_act_quant:
+            return _fused_matmul(x, self.weight.t(),
+                                 [(self.act_quantizer, x.shape[-1])], mode,
+                                 self.aq.n_levels, self.bias)
         if not self.disable_act_quant:
             x = self.act_quantizer(x, mode)
         x, w = _promote(x, self.weight)
         out = x @ w.t()
         return out if self.bias is None else out + self.bias
+
+
+def _fused_matmul(x, w, parts, mode, n_levels, bias):
+    """``fake_quant(x) @ w + bias`` over x's last axis through K7, for w
+    (K, N); ``parts`` lists (act quantizer, channels) over consecutive
+    input-channel ranges, whose (Δ, zp) become per-channel rows."""
+    pairs = [q(x, mode, params_only=True) for q, _ in parts]
+    delta_k = torch.cat([d.expand(n) for (d, _), (_, n) in zip(pairs, parts)])
+    zp_k = torch.cat([z.expand(n) for (_, z), (_, n) in zip(pairs, parts)])
+    out = fakequant_matmul(x.reshape(-1, x.shape[-1]), w, delta_k, zp_k,
+                           n_levels, bias)
+    return out.reshape(*x.shape[:-1], w.shape[1])
+
+
+def norm_conv(norm: GNorm, conv: QConv, x: torch.Tensor, mode: QuantMode,
+              act: bool = True) -> torch.Tensor:
+    """``conv(swish(norm(x)))`` (``act=False``: ``conv(norm(x))``).  On the
+    int8 serving path, where ``use_fused_gn`` admits x's shape, the norm
+    (+ swish) runs fused with the conv's input quantize and pad (K6), as
+    the JAX package's blocks choose it."""
+    if (int8_conv_serving(mode, conv.wq, conv.aq, conv.disable_act_quant,
+                          conv.split)
+            and use_fused_gn(*x.shape[1:])):
+        return conv(x, mode, pre_gn=(*norm(x, params_only=True), act))
+    y = norm(x)
+    return conv(swish(y) if act else y, mode)
+
+
+def norm_act(norm: GNorm, x: torch.Tensor, mode: QuantMode,
+             act: bool = False) -> torch.Tensor:
+    """``norm(x)`` (``act``: ``swish(norm(x))``) of an NHWC x, for a norm
+    with several consumers; on the int8 serving path, where
+    ``use_fused_gn`` admits the shape, in one pass (K6's ``gn_norm``)."""
+    if int8_serving(mode) and use_fused_gn(*x.shape[1:]):
+        return gn_norm(x, *norm(x, params_only=True), swish=act)
+    y = norm(x)
+    return swish(y) if act else y
 
 
 def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:

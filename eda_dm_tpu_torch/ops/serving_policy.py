@@ -1,14 +1,22 @@
 """Serving gates for the quantized deployment path (port of
 ``eda_dm_tpu/ops/serving_policy.py`` and the int8 gates beside it).
 
-With the serving slice's modes (FP, DEPLOY, DEPLOY_INT8) the JAX package's
-``int8_serving`` and ``int8_attention_serving`` are the same predicate.
-``attention_impl`` keeps the JAX package's default thresholds and reads no
-environment switch, so the port takes the branch JAX takes at every shape;
-retuning them for the card is measured work of its own.
+With the serving modes (FP, DEPLOY, DEPLOY_FUSED, DEPLOY_INT8) the JAX
+package's ``int8_serving`` and ``int8_attention_serving`` are the same
+predicate.  ``attention_impl`` keeps the JAX package's default thresholds
+and reads no environment switch, so the port takes the branch JAX takes at
+every shape; retuning them for the card is measured work of its own.
+
+The fused GroupNorm (kernel K6) is chosen as the JAX package chooses it,
+from the same environment switches, so that one setting puts both packages
+on the same branch: ``EDM_FUSED_GN=1`` turns it on where
+:func:`fused_gn_applicable` admits the shape (default off), and
+``EDM_FUSED_GN_NARROW=1`` admits widths that are not multiples of 128.
 """
 
 from __future__ import annotations
+
+import os
 
 from .int8_attention import (flash_attention_applicable,
                              fused_attention_applicable)
@@ -51,3 +59,28 @@ def attention_impl(batch: int, heads: int, sq: int, skv: int, c: int) -> str:
     if flash_attention_applicable(sq, skv, c):
         return "flash"
     return "einsum"
+
+
+def fused_gn_applicable(h: int, w: int, c: int, num_groups: int = 32) -> bool:
+    """The JAX package's shape gate of the fused GroupNorm: whole groups,
+    widths that are multiples of 128 (narrower multiples of 8 behind
+    ``EDM_FUSED_GN_NARROW=1``), ``h·w`` a multiple of 8, and one batch
+    element under 5 MiB at 12 bytes an element.  On the card the last
+    clause bounds one (batch, group) slice at 13,653 elements, 54.6 KB in
+    float32: K6 holds it in one block's shared memory."""
+    if c % num_groups != 0:
+        return False
+    if c % 128 != 0 and not (
+            os.environ.get("EDM_FUSED_GN_NARROW", "0") == "1" and c % 8 == 0):
+        return False
+    if (h * w) % 8 != 0:
+        return False
+    return h * w * c * 12 <= 5 * 1024 * 1024
+
+
+def use_fused_gn(h: int, w: int, c: int) -> bool:
+    """The fused GroupNorm(+swish)(+quantize) kernel at one norm site: only
+    where ``EDM_FUSED_GN=1`` and the shape passes the gate."""
+    if os.environ.get("EDM_FUSED_GN") != "1":
+        return False
+    return fused_gn_applicable(h, w, c)

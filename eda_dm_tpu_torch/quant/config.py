@@ -30,16 +30,22 @@ class QuantizerSpec:
 
 @dataclasses.dataclass(frozen=True)
 class QuantMode:
-    """Which forward runs: FP (both False), DEPLOY (act fake-quant on
-    folded weights) or DEPLOY_INT8 (native int8 on exported codes)."""
+    """Which forward runs: FP (all False), DEPLOY (act fake-quant on
+    folded weights), DEPLOY_FUSED (DEPLOY with the act fake-quant of every
+    1×1 conv and dense fused into its matmul, kernel K7) or DEPLOY_INT8
+    (native int8 on exported codes)."""
 
     a_quant: bool = False
+    fused: bool = False
     int8: bool = False
 
 
 FP = QuantMode()
 # serving after folding: activations quantize, weights are pre-baked
 DEPLOY = QuantMode(a_quant=True)
+# folded weights; 1×1 convs and denses quantize their input inside the
+# matmul's tile load (requires export_serving)
+DEPLOY_FUSED = QuantMode(a_quant=True, fused=True)
 # native int8 path: integer weight codes + int8 act codes feed the int8
 # conv / matmul kernels (requires export_serving_int8)
 DEPLOY_INT8 = QuantMode(a_quant=True, int8=True)

@@ -15,7 +15,8 @@ model's ``QConv``/``QDense`` modules in place and return the model:
 
 Weight widths come from each layer's spec (the bridge checks them against
 the JAX tree's ``w{i}_bits``).  The serving modes DEPLOY / DEPLOY_INT8 are
-in ``quant/config.py``.
+in ``quant/config.py``; DEPLOY_FUSED, which serves the ``export_serving``
+weights, is re-exported here, where the JAX package defines it.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..nn.layers import QConv, QDense
-from .config import QuantConfig
+from .config import DEPLOY_FUSED, QuantConfig  # noqa: F401  (re-export)
 
 
 def _quant_layers(model: torch.nn.Module):
