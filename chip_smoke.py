@@ -31,6 +31,20 @@ exits non-zero before the last line:
    chain K2 → K3 → K2 instead, for K6 the unfused GNorm → swish →
    quantize chain, for K7 the DEPLOY chain fake_quant → matmul → bias),
    and the bound;
+3b. K8 (int8 quantized matmul) against its plain version: int32
+   accumulators and outputs bit-equal at the JAX test's shapes, ragged
+   ones, SD's GEGLU dense and K7's CIFAR shape, float32 and bf16 x; timed
+   beside the bound, the plain version, ``torch._int_mm`` on the same codes
+   and the chain quantize → ``_int_mm`` → epilogue; then K8's path as its
+   test drives it (``weight_qparams`` → ``pack_dense_weights`` →
+   ``quantized_matmul`` at SD's GEGLU width, launch counts set to 0 just
+   before and read just after, the output within 1e-4 of the fake-quant
+   product).  P1 (the tensor-core rate probe): int8 chains bit-equal to
+   the plain chains after 40 steps, bf16 chains within the probe's stated
+   tolerance, one_mm exact, at the probe's three shapes; then the probe's
+   own ``main()`` as its path (counts set to 0 just before, read just
+   after): int8 and bf16 rates beside the data sheet, the library chains,
+   one library product and the library's own rate at 8192³;
 4. the full CIFAR-10 ``DDPMConfig()`` UNet with seeded random weights and a
    smoke quant state (below), exported by the port's
    ``export_serving_int8``, in DEPLOY_INT8 through the kernels and through
@@ -609,6 +623,185 @@ def check_fq(g):
 
 
 # --------------------------------------------------------------------------
+# phase 3b: K8 and P1, each against its plain version, then its own path
+
+
+def check_quantized_matmul(g):
+    """K8 against its plain version: int32 accumulators bit-equal and
+    outputs equal (the epilogue runs the plain version's float32 operations
+    in its order) at the JAX test's shapes, ragged shapes and the two timed
+    ones, in float32 and bf16; timed (bf16 x) beside the bound, the plain
+    version, ``torch._int_mm`` on the same codes (library) and the chain
+    quantize → ``_int_mm`` → epilogue."""
+    from eda_dm_tpu_torch.ops.quant_matmul import (
+        pack_dense_weights, quantize_x_int8, quantized_matmul, quantized_matmul_acc,
+        quantized_matmul_acc_plain, quantized_matmul_epilogue, quantized_matmul_plain)
+    from eda_dm_tpu_torch.quant import calculate_qparams, weight_qparams
+    timed_shapes = {(SD_ROWS * 4096, 320, 2560): "SD GEGLU dense (32768, 320)x(320, 2560)",
+                    (BATCH * 256, 256, 256): "CIFAR attention 1x1 (128000, 256)x(256, 256)"}
+    shapes = {}
+    for m, k, n in [(16, 32, 64), (8, 128, 128), (1000, 200, 72), (37, 130, 300),
+                    *timed_shapes]:
+        x = 1.3 * torch.randn(m, k, generator=g, device="cuda") + 0.2
+        w = 0.1 * torch.randn(k, n, generator=g, device="cuda")
+        bias = torch.randn(n, generator=g, device="cuda")
+        pk = pack_dense_weights(w, *weight_qparams(w, 256, symmetric=True, channel_axis=1))
+        for xx in (x, x.to(torch.bfloat16)):
+            s_x, z_x = calculate_qparams(xx.float().min(), xx.float().max(), 256)
+            tag = f"K8 ({m}, {k})x({k}, {n}), {str(xx.dtype)[6:]}"
+            acc_k = quantized_matmul_acc(xx, pk["w_q"], s_x, z_x)
+            bad = acc_k != quantized_matmul_acc_plain(xx, pk["w_q"], s_x, z_x)
+            check(not bool(bad.any()), f"{tag}: int32 accumulators bit-equal "
+                  f"({int(bad.sum())} differ)")
+            args = (xx, pk["w_q"], s_x, z_x, pk["s_w"], pk["w_colsum"], pk["w_deq_off"], bias)
+            out_k, out_p = quantized_matmul(*args), quantized_matmul_plain(*args)
+            check(torch.equal(out_k, out_p), f"{tag}: output equal to the plain version "
+                  f"(max |d| {float((out_k.float() - out_p.float()).abs().max()):.3g})")
+            if (m, k, n) not in timed_shapes or xx.dtype != torch.bfloat16:
+                continue
+            codes = quantize_x_int8(xx, s_x, z_x).to(torch.int8)
+
+            def chain():
+                xq = quantize_x_int8(xx, s_x, z_x)
+                return quantized_matmul_epilogue(
+                    torch._int_mm(xq.to(torch.int8), pk["w_q"]), xq, z_x, s_x, pk["s_w"],
+                    pk["w_colsum"], pk["w_deq_off"], bias, xx.dtype)
+            check(torch.equal(chain(), out_k), f"{tag}: the chain through torch._int_mm "
+                  f"gives the same output")
+            nbytes = 2 * m * k + k * n + 4 * 4 * n + 2 * m * n
+            shapes[timed_shapes[(m, k, n)]] = dict(
+                ms=cuda_ms(lambda: quantized_matmul(*args)),
+                plain_ms=cuda_ms(lambda: quantized_matmul_plain(*args), reps=5),
+                library_ms=cuda_ms(lambda: torch._int_mm(codes, pk["w_q"])),
+                chain_ms=cuda_ms(chain, reps=5),
+                **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 2 * m * n * k, INT8_PEAK))))
+        del x, w
+    main = next(iter(timed_shapes.values()))
+    return dict(name="quantized_matmul", route="cuda",
+                source="eda_dm_tpu_torch/csrc/quantized_matmul.cu",
+                replaces="eda_dm_tpu/ops/pallas_quant.py:57", max_abs_err=0.0,
+                shape=f"{main}, bf16 x", sd_ms={}, shapes_ms=shapes, **shapes[main])
+
+
+def check_mma_chain(g):
+    """P1 against its plain version at the probe's three shapes: the int8
+    chain bit-equal after 40 steps, the bf16 chain within the probe's
+    stated tolerance; one_mm exact; the plain chains timed."""
+    from eda_dm_tpu_torch.ops.int8_einsum import int8_matmul_acc_plain
+    from eda_dm_tpu_torch.probes import mma_int8 as probe
+    err, plain = 0.0, {}
+    for m, k in probe.PROBE_SHAPES:
+        x = probe.probe_inputs(m, k, g)
+        out, ref = probe.mma_chain(x["a8"], x["b8"]), probe.mma_chain_plain(x["a8"], x["b8"])
+        check(torch.equal(out, ref), f"P1 int8 chain ({m}, {k})x({k}, {k}), {probe.CHAIN} "
+              f"steps: bit-equal to the plain chain ({int((out != ref).sum())} differ)")
+        out, ref = probe.mma_chain(x["a16"], x["b16"]), probe.mma_chain_plain(x["a16"], x["b16"])
+        rel_l2, rel_max = probe.bf16_errors(out, ref)
+        check(bool(torch.isfinite(out.float()).all()) and rel_l2 <= probe.BF16_REL_L2
+              and rel_max <= probe.BF16_REL_MAX,
+              f"P1 bf16 chain ({m}, {k}): finite, relative L2 {rel_l2:.3g} <= "
+              f"{probe.BF16_REL_L2}, max |d| {rel_max:.3g} of max|ref| <= {probe.BF16_REL_MAX}")
+        err = max(err, float((out.float() - ref.float()).abs().max()))
+        plain[(m, k)] = cuda_ms(lambda: probe.mma_chain_plain(x["a8"], x["b8"]), reps=5)
+    x = probe.probe_inputs(512, 128, g)
+    check(torch.equal(probe.one_mm(x["a8"], x["b8"]), int8_matmul_acc_plain(x["a8"], x["b8"])),
+          "P1 one_mm (512, 128)x(128, 128): int32 product exact")
+    return dict(name="mma_chain", route="cuda", source="eda_dm_tpu_torch/csrc/mma_chain.cu",
+                replaces="scripts/probes/mosaic_int8.py:60", max_abs_err=err, sd_ms={},
+                plain_by_shape=plain)
+
+
+def k8_path(kernel):
+    """K8's path, as its test drives it: a weight quantizer from the MSE
+    search (``weight_qparams``, per output channel, symmetric),
+    ``pack_dense_weights``, an activation quantizer from the input's
+    range, then ``quantized_matmul`` — at SD's GEGLU dense width, float32
+    x.  Launch counts set to 0 just before and read just after; the output
+    held to the test's reference (both operands fake-quantized, a float32
+    product, rtol = atol = 1e-4)."""
+    from eda_dm_tpu_torch.ops import _build
+    from eda_dm_tpu_torch.ops.quant_matmul import pack_dense_weights, quantized_matmul
+    from eda_dm_tpu_torch.quant import calculate_qparams, fake_quant_nograd, weight_qparams
+    gp = torch.Generator(device="cuda").manual_seed(5)
+    m, k, n = SD_ROWS * 4096, 320, 2560
+    x = torch.randn(m, k, generator=gp, device="cuda")
+    w = 0.1 * torch.randn(k, n, generator=gp, device="cuda")
+    bias = torch.randn(n, generator=gp, device="cuda")
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    d_w, z_w = weight_qparams(w, 256, symmetric=True, channel_axis=1)
+    s_x, z_x = calculate_qparams(x.min(), x.max(), 256)
+    pk = pack_dense_weights(w, d_w, z_w)
+    out = quantized_matmul(x, pk["w_q"], s_x, z_x, pk["s_w"], pk["w_colsum"],
+                           pk["w_deq_off"], bias)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    ref = fake_quant_nograd(x, s_x, z_x, 256) @ fake_quant_nograd(w, d_w, z_w, 256) + bias
+    e = float((out - ref).abs().max())
+    check(out.shape == (m, n) and bool(torch.isfinite(out).all())
+          and torch.allclose(out, ref, rtol=1e-4, atol=1e-4),
+          f"K8 path ({m}, {k})x({k}, {n}): within rtol = atol = 1e-4 of the fake-quant "
+          f"float32 product (max |d| {e:.3g})")
+    kernel["launches"] = launches.get("quantized_matmul", 0)
+    check(launches == {"quantized_matmul": 1}, f"K8 launched once on its path, nothing "
+          f"else (launches {launches})")
+
+
+def p1_path(kernel, smi):
+    """P1's path: the probe's own ``main()`` at its three shapes, launch
+    counts set to 0 just before and read just after; its results held
+    (int8 chains bit-equal, bf16 within tolerance, one_mm exact)."""
+    from eda_dm_tpu_torch.ops import _build
+    from eda_dm_tpu_torch.probes import mma_int8 as probe
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    results = probe.main()
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    shapes = [r for r in results if "k" in r]
+    check(all(r["int8_equal"] and r["bf16_ok"] for r in shapes) and results[-1]["one_mm_exact"],
+          "the probe's own checks: int8 chains bit-equal, bf16 chains within tolerance, "
+          "one_mm exact")
+    kernel["launches"] = launches.get("mma_chain", 0)
+    check(kernel["launches"] > 0 and set(launches) == {"mma_chain"},
+          f"P1 launched {kernel['launches']} times by the probe (launches {launches})")
+    peaks = {r["library_peak"]: r for r in results if "library_peak" in r}
+    check(set(peaks) == {"int8", "bf16"}, "the library's own rates measured")
+    rates = {}
+    name = lambda arm, m, k: f"{arm} ({m}, {k})x({k}, {k}) x{probe.CHAIN}"
+    for r in shapes:
+        for arm in ("int8", "bf16"):
+            t = r[arm]
+            rates[name(arm, r["m"], r["k"])] = dict(
+                ms=t["ms"], tops=t["rate"] / 1e12, peak_share=t["rate"] / t["peak"],
+                library_ms=t["library_ms"], library_tops=t["library_rate"] / 1e12,
+                library_mm_ms=t["library_mm_ms"],
+                library_mm_tops=t["library_mm_rate"] / 1e12,
+                library_peak_share=t["rate"] / peaks[arm]["rate"],
+                **dict(zip(("bound_ms", "bound_by"),
+                           bound(0, r["ops"], INT8_PEAK if arm == "int8" else BF16_PEAK))))
+    m, k = probe.PROBE_SHAPES[1]           # K = 256, as K1's 16x16x256 convs
+    main_shape = name("int8", m, k)
+    main = rates[main_shape]
+    kernel.update(shape=f"{main_shape}, on {smi}", ms=main["ms"],
+                  plain_ms=kernel["plain_by_shape"][(m, k)], library_ms=main["library_ms"],
+                  bound_ms=main["bound_ms"], bound_by=main["bound_by"], rates=rates)
+    kernel["plain_by_shape"] = {f"{m}x{k}": v for (m, k), v in kernel["plain_by_shape"].items()}
+    kernel["library_peak"] = {arm: dict(n=p["n"], ms=p["ms"], tops=p["rate"] / 1e12,
+                                        peak_share=p["rate"] / p["peak"])
+                              for arm, p in peaks.items()}
+    for name, r in rates.items():
+        print(f"    P1 {name}: {r['ms']:.4f} ms = {r['tops']:.1f} T/s ({r['peak_share']:.1%} "
+              f"of the data sheet), bound {r['bound_ms']:.4f} ms; library chain "
+              f"{r['library_ms']:.4f} ms = {r['library_tops']:.1f} T/s; one library "
+              f"product {r['library_mm_ms']:.4f} ms = {r['library_mm_tops']:.1f} T/s; "
+              f"{r['library_peak_share']:.1%} of the library's own rate")
+    for arm, p in kernel["library_peak"].items():
+        print(f"    library {arm} product {p['n']}^3: {p['ms']:.4f} ms = {p['tops']:.1f} T/s "
+              f"({p['peak_share']:.1%} of the data sheet)")
+
+
+# --------------------------------------------------------------------------
 # phase 4-7 helpers
 
 
@@ -1140,6 +1333,22 @@ def main():
     print(f"    phase 3: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
+    print("[3b] K8 (int8 quantized matmul) and P1 (tensor-core rate probe) vs plain "
+          "versions, then each one's own path")
+    t0 = time.perf_counter()
+    kernels.append(check_quantized_matmul(g))
+    k8 = kernels[-1]
+    for shape, t in k8["shapes_ms"].items():
+        print(f"    K8 {shape}, bf16 x: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
+              f"torch._int_mm {t['library_ms']:.4f}, chain {t['chain_ms']:.4f}, bound "
+              f"{t['bound_ms']:.4f} by {t['bound_by']})")
+    k8_path(k8)
+    torch.cuda.empty_cache()
+    kernels.append(check_mma_chain(g))
+    p1_path(kernels[-1], smi)
+    print(f"    phase 3b: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
     print("[4] DDPMConfig() DEPLOY_INT8, kernels vs plain versions (batch 8, f32)")
     cfg, qc = DDPMConfig(), QuantConfig(weight_bit=4, act_bit=8)
     model = DDPMUNet(cfg, qc, device="cuda", seed=0)
@@ -1239,7 +1448,7 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     extra = ("cifar_launches", "bedroom_launches", "per_forward", "chain_ms", "sd_ms",
-             "shapes_ms")
+             "shapes_ms", "rates", "plain_by_shape", "library_peak")
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{**{k: kern[k] for k in keys},
                                    **{k: kern[k] for k in extra if k in kern},

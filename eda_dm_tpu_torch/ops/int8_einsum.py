@@ -80,11 +80,18 @@ def _epilogue(acc, row_add, col_add, k_add, scale, bias):
     return v
 
 
+def int8_matmul_acc_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int32 ``a @ b`` of int8-valued operands (any batch) in plain
+    PyTorch: a float product in a type in which every partial sum is
+    exact."""
+    dt = exact_float(128 * 128 * a.shape[-1])
+    with tf32_off():
+        return (a.to(dt) @ b.to(dt)).to(torch.int32)
+
+
 def int8_bmm_acc_plain(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Exact int32 ``sum_k A[b,m,k]·B[b,n,k]`` in plain PyTorch."""
-    dt = exact_float(128 * 128 * A.shape[-1])
-    with tf32_off():
-        return torch.bmm(A.to(dt), B.to(dt).transpose(1, 2)).to(torch.int32)
+    return int8_matmul_acc_plain(A, B.transpose(1, 2))
 
 
 def int8_bmm_nt_plain(A, B, row_add=None, col_add=None, k_add=None,

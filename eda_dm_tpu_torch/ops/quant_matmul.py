@@ -1,5 +1,9 @@
-"""Serving matmul with the activation fake-quant fused into the tile load
-(kernel K7).
+"""The two serving matmuls of ``eda_dm_tpu/ops/pallas_quant.py``: the
+fake-quant matmul (kernel K7) and the int8 quantized matmul with its
+weight packing (kernel K8).
+
+K7, the serving matmul with the activation fake-quant fused into the tile
+load.
 
 Port of ``eda_dm_tpu/ops/pallas_quant.py::fakequant_matmul``, which the
 DEPLOY_FUSED mode runs for every 1×1 conv and dense:
@@ -13,8 +17,20 @@ port stores weights ``[out, in]``, so callers pass the transposed view
 (``weight.t()``): the wrapper hands the kernel w's two strides, and takes
 any strided (K, N) view without a copy.
 
+K8, port of ``quantized_matmul``: x is quantized to int8 codes inside the
+kernel, multiplied with pre-quantized int8 weights into int32, and the
+rank-1 dequant corrections end it:
+
+    xq8 = clip(round(x/s_x) + z_x, 0, 255) − 128
+    out = s_x·(xq8 @ w_q + (128 − z_x)·colsum) ·s_w + s_x·row·w_deq_off (+ bias)
+
+with ``row = Σ_k (xq8 + 128 − z_x)``, everything after the int32 product
+in float32 in this order, and the output in ``x.dtype``.  Weights come
+from :func:`pack_dense_weights` in the JAX layout (K, N).
+
 On a CUDA tensor :func:`fakequant_matmul` launches
-``csrc/fakequant_matmul.cu``; on a CPU tensor it runs the plain version.
+``csrc/fakequant_matmul.cu`` and :func:`quantized_matmul`
+``csrc/quantized_matmul.cu``; on a CPU tensor each runs its plain version.
 """
 
 from __future__ import annotations
@@ -25,10 +41,12 @@ from typing import Optional
 import torch
 
 from ._build import check_launch, cuda_lib, launch_counts, ptr, stream_ptr
-from .int8_einsum import tf32_off
+from .int8_einsum import int8_matmul_acc_plain, tf32_off
 
 _FQ_SIG = {"edm_fakequant_matmul": [ctypes.c_void_p] * 6
            + [ctypes.c_int] * 8 + [ctypes.c_void_p]}
+_QM_SIG = {"edm_quantized_matmul": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+           + [ctypes.c_void_p]}
 
 
 def fakequant_rows(x: torch.Tensor, delta_k: torch.Tensor, zp_k: torch.Tensor,
@@ -89,3 +107,125 @@ def fakequant_matmul(x: torch.Tensor, w: torch.Tensor, delta_k: torch.Tensor,
     if x.device.type != "cpu":
         raise ValueError(f"fakequant_matmul: unsupported device {x.device}")
     return fakequant_matmul_plain(x, w, delta_k, zp_k, n_levels, bias)
+
+
+# --------------------------------------------------------------------------
+# K8: the int8 quantized matmul and its weight packing
+
+
+def quantize_weights_int8(w: torch.Tensor, delta: torch.Tensor, zp: torch.Tensor,
+                          n_levels: int = 256):
+    """Storage int8 codes ``clip(round(w/Δ) + zp, 0, L−1) − L/2`` and the
+    dequant offset ``(L/2 − zp)·Δ``: ``w ≈ codes·Δ + offset``."""
+    half = n_levels // 2
+    q = torch.clamp(torch.round(w / delta) + zp, 0, n_levels - 1) - half
+    return q.to(torch.int8), (half - zp) * delta
+
+
+def pack_dense_weights(kernel: torch.Tensor, delta: torch.Tensor, zp: torch.Tensor,
+                       n_levels: int = 256):
+    """A dense kernel (K, N) with per-output-channel (or scalar) Δ, zp
+    prepared for :func:`quantized_matmul`: int8 codes, scales, float32
+    column sums of the codes and the per-channel dequant offsets."""
+    delta, zp = delta.reshape(1, -1), zp.reshape(1, -1)
+    w_q, deq_off = quantize_weights_int8(kernel, delta, zp, n_levels)
+    return {"w_q": w_q, "s_w": delta.reshape(-1),
+            "w_colsum": w_q.sum(0, dtype=torch.int32).to(torch.float32),
+            "w_deq_off": torch.broadcast_to(deq_off, kernel.shape)[0].contiguous()}
+
+
+def _f32_scalar(v, dev) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=torch.float32, device=dev).reshape(())
+
+
+def quantize_x_int8(x: torch.Tensor, s_x, z_x) -> torch.Tensor:
+    """The kernel's activation codes ``clip(round(x/s_x) + z_x, 0, 255) −
+    128`` as float32, computed in float32 whatever x's type."""
+    s_x, z_x = _f32_scalar(s_x, x.device), _f32_scalar(z_x, x.device)
+    return torch.clamp(torch.round(x.float() / s_x) + z_x, 0.0, 255.0) - 128.0
+
+
+def quantized_matmul_acc_plain(x, w_q, s_x, z_x) -> torch.Tensor:
+    """The exact int32 product ``xq8 @ w_q``."""
+    return int8_matmul_acc_plain(quantize_x_int8(x, s_x, z_x), w_q)
+
+
+def quantized_matmul_epilogue(acc, xq8, z_x, s_x, s_w, w_colsum, w_deq_off, bias,
+                              dtype):
+    """The dequant epilogue in float32, in the JAX package's order."""
+    row = torch.sum(xq8 + (128.0 - z_x), dim=1, keepdim=True)
+    out = s_x * (acc.float() + (128.0 - z_x) * w_colsum[None, :]) * s_w[None, :] \
+        + s_x * row * w_deq_off[None, :]
+    if bias is not None:
+        out = out + bias[None, :]
+    return out.to(dtype)
+
+
+def quantized_matmul_plain(x, w_q, s_x, z_x, s_w, w_colsum, w_deq_off, bias=None):
+    s_x, z_x = _f32_scalar(s_x, x.device), _f32_scalar(z_x, x.device)
+    acc = quantized_matmul_acc_plain(x, w_q, s_x, z_x)
+    return quantized_matmul_epilogue(acc, quantize_x_int8(x, s_x, z_x), z_x, s_x,
+                                     s_w, w_colsum, w_deq_off, bias, x.dtype)
+
+
+def _quantized_matmul_cuda(x, w_q, s_x, z_x, s_w, w_colsum, w_deq_off, bias,
+                           acc_only=False):
+    dev = x.device
+    if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 2:
+        raise ValueError(f"quantized_matmul takes a float32 or bfloat16 matrix x, "
+                         f"not {x.dtype} {tuple(x.shape)}")
+    if w_q.dtype != torch.int8 or w_q.dim() != 2 or w_q.device != dev:
+        raise ValueError(f"w_q must be an int8 matrix on {dev}")
+    m, k = x.shape
+    if w_q.shape[0] != k:
+        raise ValueError(f"shape mismatch {tuple(x.shape)} x {tuple(w_q.shape)}")
+    if k >= 1 << 16:
+        raise ValueError("quantized_matmul takes K < 65536 (exact float32 row sums)")
+    n = w_q.shape[1]
+    scalars = [_f32_scalar(v, dev) for v in (s_x, z_x)]
+    rows = []
+    for t, what in ((s_w, "s_w"), (w_colsum, "w_colsum"), (w_deq_off, "w_deq_off"),
+                    (bias, "bias")):
+        if acc_only or t is None:
+            rows.append(None)
+            continue
+        if t.shape != (n,) or t.device != dev:
+            raise ValueError(f"{what} must be ({n},) on {dev}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+        rows.append(t.float().contiguous())
+    x, w_q = x.contiguous(), w_q.contiguous()
+    out = torch.empty((m, n), dtype=torch.int32 if acc_only else x.dtype, device=dev)
+    lib = cuda_lib("quantized_matmul", _QM_SIG)
+    err = lib.edm_quantized_matmul(
+        ptr(x), ptr(w_q), ptr(scalars[0]), ptr(scalars[1]), *map(ptr, rows), ptr(out),
+        int(x.dtype == torch.bfloat16), int(acc_only), m, n, k,
+        stream_ptr(dev))
+    check_launch(lib, err, "quantized_matmul")
+    launch_counts["quantized_matmul"] += 1
+    return out
+
+
+def quantized_matmul(x: torch.Tensor, w_q: torch.Tensor, s_x, z_x, s_w: torch.Tensor,
+                     w_colsum: torch.Tensor, w_deq_off: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``quantize(x) @ dequant(w_q) (+ bias)``: x (M, K) float32/bf16, w_q
+    (K, N) int8 codes, s_x / z_x float32 scalars (z_x integer-valued), s_w,
+    w_colsum, w_deq_off and bias (N,) float32.  Returns (M, N) in
+    ``x.dtype``."""
+    if x.is_cuda:
+        return _quantized_matmul_cuda(x, w_q, s_x, z_x, s_w, w_colsum, w_deq_off, bias)
+    if x.device.type != "cpu":
+        raise ValueError(f"quantized_matmul: unsupported device {x.device}")
+    return quantized_matmul_plain(x, w_q, s_x, z_x, s_w, w_colsum, w_deq_off, bias)
+
+
+def quantized_matmul_acc(x: torch.Tensor, w_q: torch.Tensor, s_x, z_x) -> torch.Tensor:
+    """K8's int32 accumulators ``xq8 @ w_q`` alone (the kernel's store in
+    place of its epilogue on a CUDA tensor, the plain product on a CPU
+    tensor)."""
+    if x.is_cuda:
+        return _quantized_matmul_cuda(x, w_q, s_x, z_x, None, None, None, None,
+                                      acc_only=True)
+    if x.device.type != "cpu":
+        raise ValueError(f"quantized_matmul_acc: unsupported device {x.device}")
+    return quantized_matmul_acc_plain(x, w_q, s_x, z_x)

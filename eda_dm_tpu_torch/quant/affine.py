@@ -44,3 +44,14 @@ def fake_quant(x: torch.Tensor, delta: torch.Tensor, zero_point: torch.Tensor,
     x_q = torch.clamp(torch.round(x.float() / delta), -zero_point,
                       n_levels - 1 - zero_point)
     return (x_q * delta).to(x.dtype)
+
+
+def fake_quant_nograd(x: torch.Tensor, delta, zero_point, n_levels: int) -> torch.Tensor:
+    """Quantize→dequantize in the offset form used inside the range
+    searches: ``(clip(round(x/Δ) + zp, 0, L−1) − zp)·Δ``, in the type that
+    ``x`` and ``delta`` promote to."""
+    if isinstance(delta, torch.Tensor):
+        x = x.to(torch.promote_types(x.dtype, delta.dtype))
+    x_int = torch.round(x / delta) + zero_point
+    x_quant = torch.clamp(x_int, 0.0, n_levels - 1)
+    return (x_quant - zero_point) * delta

@@ -17,7 +17,10 @@ order, so outputs must be equal too; softmax codes may flip by one where
 a kernel's float64 row sum rounds to another float32 than the plain
 version's (≥ 99.9 % equal); K6's codes likewise (its statistics are
 float64 sums too); K7 within 1e-5·(|xq|·|w| + |bias|) of a float64
-product, plus one bf16 step on a bf16 output.  Last, the tiny DDPM, LDM
+product, plus one bf16 step on a bf16 output; K8 (int8 quantized
+matmul) accumulators and outputs bit-equal at ragged M, N, K; P1's int8
+chain bit-equal after 40 steps and its bf16 chain within the probe's
+stated tolerance.  Last, the tiny DDPM, LDM
 and SD UNets in DEPLOY_INT8 on the card against the same model on the
 host, module by module and as a whole, and the tiny DDPM so again with
 the fused GroupNorm and in DEPLOY_FUSED.
@@ -263,6 +266,61 @@ def test_fakequant_matmul_identity_is_the_fake_quant(gen):
     dk, zk = torch.full((200,), 0.031, device="cuda"), torch.full((200,), 121.0, device="cuda")
     out = fakequant_matmul(x, torch.eye(200, device="cuda"), dk, zk, 256)
     assert torch.equal(out, fake_quant(x, dk[0], zk[0], 256))
+
+
+QM = [  # m, k, n: ragged M, N and K against the 128 x 128 x 64 tiles
+    (1000, 200, 72), (37, 130, 300), (16, 32, 64), (8, 128, 128), (5, 7, 3),
+    (300, 64, 131)]
+
+
+@pytest.mark.parametrize("case", QM, ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_quantized_matmul_kernel(gen, case, dtype):
+    """K8: int32 accumulators bit-equal to the plain version's; the
+    epilogue runs the same float32 operations in the same order, so the
+    output is equal too (bias and none)."""
+    from eda_dm_tpu_torch.ops.quant_matmul import (
+        pack_dense_weights, quantized_matmul, quantized_matmul_acc,
+        quantized_matmul_acc_plain, quantized_matmul_plain)
+    from eda_dm_tpu_torch.quant import calculate_qparams, weight_qparams
+    m, k, n = case
+    x = (1.3 * torch.randn(m, k, generator=gen, device="cuda") + 0.2).to(dtype)
+    w = 0.1 * torch.randn(k, n, generator=gen, device="cuda")
+    s_x, z_x = calculate_qparams(x.float().min(), x.float().max(), 256)
+    d_w, z_w = weight_qparams(w, 256, symmetric=True, channel_axis=1)
+    pk = pack_dense_weights(w, d_w, z_w)
+    acc = quantized_matmul_acc(x, pk["w_q"], s_x, z_x)
+    torch.cuda.synchronize()
+    assert acc.dtype == torch.int32
+    assert torch.equal(acc, quantized_matmul_acc_plain(x, pk["w_q"], s_x, z_x))
+    bias = torch.randn(n, generator=gen, device="cuda")
+    for b in (bias, None):
+        args = (x, pk["w_q"], s_x, z_x, pk["s_w"], pk["w_colsum"], pk["w_deq_off"], b)
+        out = quantized_matmul(*args)
+        assert out.dtype == dtype and out.shape == (m, n)
+        assert torch.equal(out, quantized_matmul_plain(*args))
+
+
+@pytest.mark.parametrize("m,k", [(1024, 128), (512, 512), (300, 256), (77, 384)])
+def test_mma_chain_kernel(gen, m, k):
+    """P1: the int8 chain bit-equal to its plain version (40 steps, ragged
+    M included); the bf16 chain within the probe's stated tolerance; one
+    int8 step's int32 sums exact."""
+    from eda_dm_tpu_torch.ops.int8_einsum import int8_matmul_acc_plain
+    from eda_dm_tpu_torch.probes.mma_int8 import (
+        BF16_REL_L2, BF16_REL_MAX, bf16_errors, mma_chain, mma_chain_plain, one_mm,
+        probe_inputs)
+    x = probe_inputs(m, k, gen)
+    out = mma_chain(x["a8"], x["b8"])
+    torch.cuda.synchronize()
+    assert torch.equal(out, mma_chain_plain(x["a8"], x["b8"]))
+    assert torch.equal(one_mm(x["a8"], x["b8"]), int8_matmul_acc_plain(x["a8"], x["b8"]))
+    out16 = mma_chain(x["a16"], x["b16"])
+    rel_l2, rel_max = bf16_errors(out16, mma_chain_plain(x["a16"], x["b16"]))
+    print(f"[P1 bf16 ({m}, {k})] rel L2 {rel_l2:.3g}, max {rel_max:.3g} of max|ref|")
+    assert bool(torch.isfinite(out16.float()).all())
+    assert rel_l2 <= BF16_REL_L2 and rel_max <= BF16_REL_MAX
 
 
 TINY = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(8,),
@@ -527,3 +585,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         gn_norm(x, one, one)
     with pytest.raises(ValueError, match="shape mismatch"):
         fakequant_matmul(x[0, 0], torch.ones(511, 4, device="cuda"), one, one)
+    from eda_dm_tpu_torch.ops.quant_matmul import quantized_matmul
+    from eda_dm_tpu_torch.probes.mma_int8 import mma_chain
+    w8 = torch.zeros(511, 4, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="shape mismatch"):
+        quantized_matmul(x[0, 0], w8, 0.1, 3.0, one[:4], one[:4], one[:4])
+    with pytest.raises(ValueError, match="multiple of 128"):
+        mma_chain(A[0], torch.zeros(6, 6, dtype=torch.int8, device="cuda"))

@@ -89,6 +89,10 @@ def test_entry_points_refuse_the_host_without_cpu_opt_in():
                                          lambda x, t: x)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+    from eda_dm_tpu_torch.probes import mma_int8
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mma_int8.main(device=device, shapes=((256, 128),), steps=1)
 
 
 def test_modules_mirror_jax_paths():
