@@ -19,8 +19,13 @@ exits non-zero before the last line:
    8x8 site's and SD's cross-attention, K4 at its bedroom, CIFAR and SD
    shapes and K5 at SD's 64×64 shapes, a query length other than the key
    length and a 16-level softmax quantizer, whose outputs agree within
-   rtol = atol = 1e-5 on the rows whose codes agree); K2 at SD's K = 77
-   tail, K1 at SD's 1×1 ``proj_in`` and VALID over K6's padded codes; K6
+   rtol = atol = 1e-5 on the rows whose codes agree); K2's int32 sums and
+   f32 epilogue bit-equal at both tiles and each load route (SD's K = 40
+   and K = 77, operands off a 16-byte boundary), K2 alone timed beside its
+   einsum, ``torch.bmm`` in f32 on the codes and ``torch._int_mm`` at the
+   dense shapes, with the bound, at every shape; K1 at SD's 1×1
+   ``proj_in`` (with its bound and library times) and VALID over K6's
+   padded codes; K6
    (fused GroupNorm) at the CIFAR, bedroom and SD norm sites, codes within
    ±1 and ≥ 99.9 % equal (bit-equal expected), ``gn_norm`` equal in bf16
    and within 1e-5 in f32; K7 (fake-quant matmul) equal to ``fake_quant``
@@ -33,9 +38,11 @@ exits non-zero before the last line:
    and the bound;
 3b. K8 (int8 quantized matmul) against its plain version: int32
    accumulators and outputs bit-equal at the JAX test's shapes, ragged
-   ones, SD's GEGLU dense and K7's CIFAR shape, float32 and bf16 x; timed
-   beside the bound, the plain version, ``torch._int_mm`` on the same codes
-   and the chain quantize → ``_int_mm`` → epilogue; then K8's path as its
+   ones, the resident stripe and the streamed path with each load route,
+   SD's GEGLU dense and K7's CIFAR shape, float32 and bf16 x, and bf16 x
+   with Python-number s_x, z_x; timed beside the call that transposes the
+   weights itself, the bound, the plain version, ``torch._int_mm`` on the
+   same codes and the chain quantize → ``_int_mm`` → epilogue; then K8's path as its
    test drives it (``weight_qparams`` → ``pack_dense_weights`` →
    ``quantized_matmul`` at SD's GEGLU width, launch counts set to 0 just
    before and read just after, the output within 1e-4 of the fake-quant
@@ -92,6 +99,11 @@ exits non-zero before the last line:
    twice), the decode ms, img/s, peak memory and one profiled int8
    forward.
 
+The serving switches (``EDM_FUSED_ATTN`` and the others that
+``eda_dm_tpu_torch/ops/serving_policy.py`` reads) are unset for the run,
+outside the blocks that set one; each serving path's launches per forward
+are held to those of the default branches (``DEFAULT_LAUNCHES``).
+
 The smoke quant state stands in for calibration (a later slice): weight
 scales from the per-output-channel symmetric range ``[-max|w|, max|w|]``
 with round-to-nearest AdaRound alphas, activation scales from the min/max
@@ -116,6 +128,16 @@ LDM_BATCH = 50                         # the bedroom task's batch
 SD_ROWS = 8                            # 4 prompts under classifier-free guidance
 INT8_PEAK, BF16_PEAK, F32_PEAK, HBM = 1979e12, 989e12, 67e12, 3.35e12  # H100 SXM
 SFU_PER_CLOCK = 16                     # exponentials per SM per clock, sm_90
+# launches per UNet forward of each serving path with every serving switch
+# unset (the policy's default branches): a change of branch shows here
+DEFAULT_LAUNCHES = {
+    "cifar": {"int8_bmm": 35, "int8_conv": 76, "softmax_codes": 6},
+    "bedroom": {"int8_attention": 10, "int8_bmm": 67, "int8_conv": 54, "softmax_codes": 6},
+    "sd": {"int8_attention": 11, "int8_bmm": 215, "int8_conv": 85,
+           "int8_flash_attention": 5, "softmax_codes": 16}}
+SERVING_SWITCHES = ("EDM_FUSED_ATTN", "EDM_FUSED_ATTN_NARROW", "EDM_FUSED_SOFTMAX",
+                    "EDM_INT8_CONV", "EDM_INT8_ATTN", "EDM_FUSED_GN", "EDM_FUSED_GN_NARROW",
+                    "EDM_SERVE_KIND")
 
 
 def check(ok, what):
@@ -174,6 +196,23 @@ def attention_gate(out_k, W_k, out_p, W_p, what):
     return e
 
 
+def _times(t):
+    """One shape's numbers as text: every ``*_ms`` time, then the bound."""
+    parts = [f"{k[:-3]} {v:.4f}" for k, v in t.items()
+             if k.endswith("_ms") and k not in ("ms", "bound_ms")
+             and isinstance(v, (int, float))]
+    parts += [f"{k} {v}" for k, v in t.items() if k in ("tile", "route", "plan")]
+    if "bound_ms" in t:
+        parts.append(f"bound {t['bound_ms']:.4f} by {t['bound_by']}")
+    return f"{t['ms']:.4f} ms ({', '.join(parts)})"
+
+
+def print_kernel(k):
+    print(f"    {k['name']}: {k['shape']}: {_times(k)}")
+    for shape, t in {**k["sd_ms"], **k.get("shapes_ms", {})}.items():
+        print(f"      {shape}: {_times(t) if isinstance(t, dict) else f'{t:.4f} ms'}")
+
+
 # --------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 
@@ -229,7 +268,18 @@ def check_conv(g):
                           int8_conv_plain(*args, torch.bfloat16)),
               f"K1 {name}: bf16 output equal")
         if name.startswith(f"batch {SD_ROWS} SD"):
-            sd[name] = cuda_ms(lambda: int8_conv(*args, torch.bfloat16))
+            # a 1x1 conv is a matmul over channels: (8*64*64, 320)x(320, 320)
+            xf = x.permute(0, 3, 1, 2).float()
+            wf = w.permute(0, 3, 1, 2).float()
+            x2, w2 = x.reshape(-1, cin), w.reshape(cout, cin).t().contiguous()
+            sd[name] = dict(
+                ms=cuda_ms(lambda: int8_conv(*args, torch.bfloat16)),
+                library_ms=cuda_ms(lambda: torch.nn.functional.conv2d(xf, wf)),
+                int_mm_ms=cuda_ms(lambda: torch._int_mm(x2, w2)),
+                **dict(zip(("bound_ms", "bound_by"), bound(
+                    x.numel() + w.numel() + x.numel() // cin * cout * 2 + 3 * cout * 4,
+                    2 * x.numel() * cout, INT8_PEAK))))
+            del xf, wf
         if timing is None:                 # the most frequent conv shape
             ho, wo = out_size(hw, hw, k, k, (s, s), pads)
             nbytes = (x.numel() + w.numel() + BATCH * ho * wo * cout * 2
@@ -250,64 +300,102 @@ def check_conv(g):
                 **timing)
 
 
+def _offset_codes(g, shape, offset):
+    """Contiguous int8 codes whose first byte sits ``offset`` bytes past a
+    256-byte boundary (to reach K2's narrower load routes)."""
+    n = 1
+    for d in shape:
+        n *= d
+    return codes(g, (n + offset,))[offset:].view(shape)
+
+
 def check_bmm(g):
-    from eda_dm_tpu_torch.ops.int8_einsum import (int8_bmm_acc_plain,
+    """K2 against its plain version: int32 sums and the f32 epilogue
+    bit-equal at the CIFAR, bedroom and SD shapes (both tiles; the 16-byte,
+    8-byte and byte-gather routes, the last two also by operands 8 and 4
+    bytes off a 16-byte boundary); K2 alone (``int8_bmm_nt`` with the
+    einsum's epilogue terms) timed beside ``int8_code_einsum`` (K2 plus
+    the code sums), ``torch.bmm`` in f32 on the codes, ``torch._int_mm``
+    at the 2-D dense shapes, and the bound, at every shape."""
+    from eda_dm_tpu_torch.ops.int8_einsum import (bmm_plan, int8_bmm_acc_plain,
                                                   int8_bmm_nt, int8_bmm_nt_plain,
                                                   int8_code_einsum)
     import eda_dm_tpu_torch.ops.int8_einsum as ein
-    cases = [("q.k (500,256,256)x(500,256,256)^T", (BATCH, 256, 256), (BATCH, 256, 256), "nic,njc->nij"),
-             ("W.V (500,256,256)x(500,256,256)", (BATCH, 256, 256), (BATCH, 256, 256), "nij,njc->nic"),
-             ("mid q.k (500,16,256)x(500,16,256)^T", (BATCH, 16, 256), (BATCH, 16, 256), "nic,njc->nij"),
-             ("mid W.V (500,16,16)x(500,16,256)", (BATCH, 16, 16), (BATCH, 16, 256), "nij,njc->nic"),
-             ("dense (500,512)x(512,512)", (1, BATCH, 512), (1, 512, 512), None),
+    cases = [("q.k (500,256,256)x(500,256,256)^T", (BATCH, 256, 256), (BATCH, 256, 256), "nic,njc->nij", 0),
+             ("W.V (500,256,256)x(500,256,256)", (BATCH, 256, 256), (BATCH, 256, 256), "nij,njc->nic", 0),
+             ("mid q.k (500,16,256)x(500,16,256)^T", (BATCH, 16, 256), (BATCH, 16, 256), "nic,njc->nij", 0),
+             ("mid W.V (500,16,16)x(500,16,256)", (BATCH, 16, 16), (BATCH, 16, 256), "nij,njc->nic", 0),
+             ("dense (500,512)x(512,512)", (1, BATCH, 512), (1, 512, 512), None, 0),
              ("SD cross q.k (64,4096,40)x(64,77,40)^T", (64, 4096, 40), (64, 77, 40),
-              "nic,njc->nij"),
+              "nic,njc->nij", 0),
              ("SD cross W.V, K = 77: (64,4096,77)x(64,77,40)", (64, 4096, 77),
-              (64, 77, 40), "nij,njc->nic"),
+              (64, 77, 40), "nij,njc->nic", 0),
              ("SD GEGLU dense (32768,320)x(320,2560)", (1, SD_ROWS * 4096, 320),
-              (1, 2560, 320), None)]
-    err, timing, sd = 0.0, None, {}
-    for name, sa, sb, eq in cases:
-        A = codes(g, sa)
+              (1, 2560, 320), None, 0),
+             ("q.k, operands 8 bytes off 16", (BATCH, 256, 256), (BATCH, 256, 256),
+              "nic,njc->nij", 8),
+             ("q.k, operands 4 bytes off 8", (BATCH, 256, 256), (BATCH, 256, 256),
+              "nic,njc->nij", 4)]
+    err, shapes = 0.0, {}
+    for name, sa, sb, eq, offset in cases:
+        A = _offset_codes(g, sa, offset) if offset else codes(g, sa)
         B = codes(g, sb, *((-8, 7) if eq is None else (-128, 127)))
         Bt = B.transpose(1, 2).contiguous() if eq == "nij,njc->nic" else B
+        if offset:
+            Bt = _offset_codes(g, Bt.shape, offset).copy_(Bt)
+        m, k = A.shape[1:]
+        n = Bt.shape[1]
+        tile, route = bmm_plan(n, k, A.data_ptr(), Bt.data_ptr())
+        tag = f"K2 {name} (tile {'64x64' if tile else '128x128'}, route {route})"
         acc_k = int8_bmm_nt(A, Bt)
         bad = acc_k.to(torch.int32) != int8_bmm_acc_plain(A, Bt)
-        check(not bool(bad.any()), f"K2 {name}: int32 accumulators bit-equal "
+        check(not bool(bad.any()), f"{tag}: int32 accumulators bit-equal "
               f"({int(bad.sum())} differ)")
         ca, cb = torch.tensor(11.0, device="cuda"), torch.tensor(-3.0, device="cuda")
         da, db = torch.tensor(0.013, device="cuda"), torch.tensor(0.0071, device="cuda")
         if eq is None:
-            n = Bt.shape[1]
             kw = dict(col_add=torch.randn(n, generator=g, device="cuda"),
                       scale=torch.rand(n, generator=g, device="cuda") * 1e-3,
                       bias=torch.randn(n, generator=g, device="cuda"))
             out_k, out_p = int8_bmm_nt(A, Bt, **kw), int8_bmm_nt_plain(A, Bt, **kw)
+            einsum = lambda: int8_bmm_nt(A, Bt, **kw)
+            B_kn = Bt[0].t().contiguous()
         else:
             out_k = int8_code_einsum(eq, A, ca, da, B, cb, db)
             with swapped(ein, "int8_bmm_nt", _plain_bmm):
                 out_p = int8_code_einsum(eq, A, ca, da, B, cb, db)
+            sum_a = A.sum(-1, dtype=torch.int32).float()
+            sum_b = (B.sum(-1) if eq == "nic,njc->nij" else B.sum(1)).to(torch.int32).float()
+            kw = dict(row_add=cb * sum_a, col_add=ca * sum_b, k_add=ca * cb * float(k),
+                      scale=da * db)
+            einsum = lambda: int8_code_einsum(eq, A, ca, da, B, cb, db)
         e = float((out_k - out_p).abs().max())
-        check(torch.allclose(out_k, out_p, rtol=1e-5, atol=1e-5),
-              f"K2 {name}: f32 epilogue within 1e-5 (max |d| {e:.3g})")
+        check(torch.equal(out_k, out_p), f"{tag}: f32 epilogue bit-equal (max |d| {e:.3g})")
         err = max(err, e)
-        if name.startswith("SD"):
-            sd[name] = (cuda_ms(lambda: int8_bmm_nt(A, Bt, **kw)) if eq is None else
-                        cuda_ms(lambda: int8_code_einsum(eq, A, ca, da, B, cb, db)))
-        if timing is None:
-            m, k = A.shape[1:]
-            n = Bt.shape[1]
-            nbytes = A.numel() + Bt.numel() + BATCH * m * n * 4 + BATCH * (m + n) * 4
-            ops = 2 * BATCH * m * n * k
-            Af, Bf = A.float(), Bt.float().transpose(1, 2)
-            timing = dict(
-                shape=f"{name}, f32 out",
-                ms=cuda_ms(lambda: int8_code_einsum(eq, A, ca, da, B, cb, db)),
-                plain_ms=cuda_ms(lambda: int8_bmm_nt_plain(
-                    A, Bt, cb * A.sum(-1, dtype=torch.int32).float(),
-                    ca * B.sum(-1, dtype=torch.int32).float(), ca * cb * 256.0, da * db)),
-                library_ms=cuda_ms(lambda: torch.bmm(Af, Bf)),
-                **dict(zip(("bound_ms", "bound_by"), bound(nbytes, ops, INT8_PEAK))))
+        if offset:
+            continue
+        batch = A.shape[0]
+        Af, Bf = A.float(), Bt.float().transpose(1, 2)
+        nbytes = A.numel() + Bt.numel() + batch * m * n * 4 + sum(
+            v.numel() * 4 for v in kw.values() if isinstance(v, torch.Tensor))
+        shapes[name] = dict(
+            ms=cuda_ms(lambda: int8_bmm_nt(A, Bt, **kw)),
+            einsum_ms=cuda_ms(einsum),
+            plain_ms=cuda_ms(lambda: int8_bmm_nt_plain(A, Bt, **kw), reps=5),
+            bmm_f32_ms=cuda_ms(lambda: torch.bmm(Af, Bf)),
+            int_mm_ms=(cuda_ms(lambda: torch._int_mm(A[0], B_kn))
+                       if eq is None else None),
+            tile="64x64" if tile else "128x128", route=route,
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(nbytes, 2 * batch * m * n * k, INT8_PEAK))))
+        shapes[name]["library_ms"] = (shapes[name]["int_mm_ms"] if eq is None
+                                      else shapes[name]["bmm_f32_ms"])
+        # the other tile at the same shape, held and timed beside
+        with swapped(ein, "bmm_plan", lambda *a: (1 - tile, route)):
+            check(torch.equal(int8_bmm_nt(A, Bt, **kw), int8_bmm_nt_plain(A, Bt, **kw)),
+                  f"{tag}: the other tile gives the same output")
+            shapes[name]["other_tile_ms"] = cuda_ms(lambda: int8_bmm_nt(A, Bt, **kw))
+        del Af, Bf
     # the LDM heads layout at the bedroom 8x8 site: (50, 64, 28 heads, 32)
     b, s, h, c = LDM_BATCH, 64, 28, 32
     for eq, sa in (("bthc,bshc->bhts", (b, s, h, c)), ("bhts,bshc->bthc", (b, h, s, s))):
@@ -326,13 +414,15 @@ def check_bmm(g):
         with swapped(ein, "int8_bmm_nt", _plain_bmm):
             out_p = int8_code_einsum(eq, A, ca, da, B, cb, db)
         e = float((out_k - out_p).abs().max())
-        check(torch.allclose(out_k, out_p, rtol=1e-5, atol=1e-5),
-              f"K2 heads {eq}: f32 epilogue within 1e-5 (max |d| {e:.3g})")
+        check(torch.equal(out_k, out_p), f"K2 heads {eq}: f32 epilogue bit-equal "
+              f"(max |d| {e:.3g})")
         err = max(err, e)
+    main = cases[0][0]
     return dict(name="int8_bmm", route="cuda",
                 source="eda_dm_tpu_torch/csrc/int8_bmm.cu",
-                replaces="eda_dm_tpu/ops/int8_einsum.py:79", max_abs_err=err, sd_ms=sd,
-                **timing)
+                replaces="eda_dm_tpu/ops/int8_einsum.py:79", max_abs_err=err, sd_ms={},
+                shape=f"{main}, f32 out, K2 alone", shapes_ms=shapes,
+                **{k: v for k, v in shapes[main].items() if k not in ("tile", "route")})
 
 
 def _plain_bmm(A, B, row_add=None, col_add=None, k_add=None, scale=None,
@@ -359,8 +449,10 @@ def check_softmax(g):
                           f"K3 ({n}*{q}, {s})")
         err = max(err, float(diff.max()))
         if s == 77:
-            sd[f"SD cross-attention ({n}*{q}, {s}) f32 -> int8"] = cuda_ms(
-                lambda: softmax_int8_codes(logits, d, z, 256))
+            nel = logits.numel()
+            sd[f"SD cross-attention ({n}*{q}, {s}) f32 -> int8"] = dict(
+                ms=cuda_ms(lambda: softmax_int8_codes(logits, d, z, 256)),
+                **dict(zip(("bound_ms", "bound_by"), bound(5 * nel, 10 * nel, F32_PEAK))))
         if timing is None:
             nel = logits.numel()
             timing = dict(
@@ -398,8 +490,11 @@ def check_attention(g, sms, clock_hz):
         err = max(err, attention_gate(out_k, W_k, out_p, W_p, f"K4 ({n}, {s}, {c})"))
         del W_k, W_p, out_p
         if n == SD_ROWS * 8:
-            sd[f"SD ({n}, {s}, {c})"] = cuda_ms(
-                lambda: _int8_fused_attention_cuda(Q, K, V, sc, 256, False))
+            exp_sd = n * s * s / (sms * SFU_PER_CLOCK * clock_hz) * 1e3
+            sd[f"SD ({n}, {s}, {c})"] = dict(
+                ms=cuda_ms(lambda: _int8_fused_attention_cuda(Q, K, V, sc, 256, False)),
+                **dict(zip(("bound_ms", "bound_by"),
+                           bound(n * 7 * s * c, 4 * n * s * s * c, INT8_PEAK, exp_sd))))
         if timing is None:                 # the bedroom 32x32 site
             tq, tk, tv, tdq, tdk, tdv, tdw, tzw = (
                 torch.tensor(v, device="cuda") for v in (cq, ck, cv, dq, dk, dv, dw, zw))
@@ -629,34 +724,50 @@ def check_fq(g):
 def check_quantized_matmul(g):
     """K8 against its plain version: int32 accumulators bit-equal and
     outputs equal (the epilogue runs the plain version's float32 operations
-    in its order) at the JAX test's shapes, ragged shapes and the two timed
-    ones, in float32 and bf16; timed (bf16 x) beside the bound, the plain
-    version, ``torch._int_mm`` on the same codes (library) and the chain
-    quantize → ``_int_mm`` → epilogue."""
+    in its order) at the JAX test's shapes, ragged shapes, the resident
+    stripe and the streamed path with each load route of the weights, and
+    the two timed shapes, in float32 and bf16, and with a bf16 x and
+    Python-number s_x, z_x (the row term from JAX's bf16 outside pass);
+    timed (bf16 x, the pack's K-major copy) beside the call that
+    transposes w_q itself, the streamed plan at the same shape, the int32
+    sums alone (the same products, int32 stores in place of the epilogue),
+    the bound, the plain version, ``torch._int_mm`` on the same codes
+    (library) and the chain quantize → ``_int_mm`` → epilogue."""
+    import eda_dm_tpu_torch.ops.quant_matmul as qm
     from eda_dm_tpu_torch.ops.quant_matmul import (
-        pack_dense_weights, quantize_x_int8, quantized_matmul, quantized_matmul_acc,
-        quantized_matmul_acc_plain, quantized_matmul_epilogue, quantized_matmul_plain)
+        pack_dense_weights, qm_plan, quantize_x_int8, quantized_matmul,
+        quantized_matmul_acc, quantized_matmul_acc_plain, quantized_matmul_epilogue,
+        quantized_matmul_plain)
     from eda_dm_tpu_torch.quant import calculate_qparams, weight_qparams
     timed_shapes = {(SD_ROWS * 4096, 320, 2560): "SD GEGLU dense (32768, 320)x(320, 2560)",
                     (BATCH * 256, 256, 256): "CIFAR attention 1x1 (128000, 256)x(256, 256)"}
     shapes = {}
     for m, k, n in [(16, 32, 64), (8, 128, 128), (1000, 200, 72), (37, 130, 300),
-                    *timed_shapes]:
+                    (200, 40, 70), (129, 77, 130), (700, 512, 384), (300, 640, 200),
+                    (70, 1000, 90), (50, 2051, 33), *timed_shapes]:
         x = 1.3 * torch.randn(m, k, generator=g, device="cuda") + 0.2
         w = 0.1 * torch.randn(k, n, generator=g, device="cuda")
         bias = torch.randn(n, generator=g, device="cuda")
         pk = pack_dense_weights(w, *weight_qparams(w, 256, symmetric=True, channel_axis=1))
+        streamed, route = qm_plan(k, pk["w_qt"].data_ptr())
+        plan = f"{'streamed' if streamed else 'resident'}, route {route}"
         for xx in (x, x.to(torch.bfloat16)):
             s_x, z_x = calculate_qparams(xx.float().min(), xx.float().max(), 256)
-            tag = f"K8 ({m}, {k})x({k}, {n}), {str(xx.dtype)[6:]}"
+            tag = f"K8 ({m}, {k})x({k}, {n}), {str(xx.dtype)[6:]}, {plan}"
             acc_k = quantized_matmul_acc(xx, pk["w_q"], s_x, z_x)
             bad = acc_k != quantized_matmul_acc_plain(xx, pk["w_q"], s_x, z_x)
             check(not bool(bad.any()), f"{tag}: int32 accumulators bit-equal "
                   f"({int(bad.sum())} differ)")
             args = (xx, pk["w_q"], s_x, z_x, pk["s_w"], pk["w_colsum"], pk["w_deq_off"], bias)
-            out_k, out_p = quantized_matmul(*args), quantized_matmul_plain(*args)
+            out_k, out_p = quantized_matmul(*args, w_qt=pk["w_qt"]), quantized_matmul_plain(*args)
             check(torch.equal(out_k, out_p), f"{tag}: output equal to the plain version "
                   f"(max |d| {float((out_k.float() - out_p.float()).abs().max()):.3g})")
+            if xx.dtype == torch.bfloat16 and (m, k, n) in ((700, 512, 384), (300, 640, 200)):
+                py = (xx, pk["w_q"], float(s_x), float(z_x), *args[4:])
+                check(torch.equal(quantized_matmul(*py, w_qt=pk["w_qt"]),
+                                  quantized_matmul_plain(*py)),
+                      f"{tag}, Python-number s_x and z_x (JAX's bf16 row term): output "
+                      f"equal to the plain version")
             if (m, k, n) not in timed_shapes or xx.dtype != torch.bfloat16:
                 continue
             codes = quantize_x_int8(xx, s_x, z_x).to(torch.int8)
@@ -669,18 +780,29 @@ def check_quantized_matmul(g):
             check(torch.equal(chain(), out_k), f"{tag}: the chain through torch._int_mm "
                   f"gives the same output")
             nbytes = 2 * m * k + k * n + 4 * 4 * n + 2 * m * n
+            # the other plan at the same shape: x quantized once into device
+            # memory, both operands streamed (K2's grid)
+            with swapped(qm, "qm_plan", lambda kk, p: (1, qm.load_route(kk, p))):
+                check(torch.equal(quantized_matmul(*args, w_qt=pk["w_qt"]), out_k),
+                      f"{tag}: the streamed plan gives the same output")
+                streamed_ms = cuda_ms(lambda: quantized_matmul(*args, w_qt=pk["w_qt"]))
             shapes[timed_shapes[(m, k, n)]] = dict(
-                ms=cuda_ms(lambda: quantized_matmul(*args)),
+                ms=cuda_ms(lambda: quantized_matmul(*args, w_qt=pk["w_qt"])),
+                streamed_ms=streamed_ms,
+                transposing_ms=cuda_ms(lambda: quantized_matmul(*args)),
+                acc_ms=cuda_ms(lambda: quantized_matmul_acc(xx, pk["w_q"], s_x, z_x,
+                                                            w_qt=pk["w_qt"])),
                 plain_ms=cuda_ms(lambda: quantized_matmul_plain(*args), reps=5),
                 library_ms=cuda_ms(lambda: torch._int_mm(codes, pk["w_q"])),
-                chain_ms=cuda_ms(chain, reps=5),
+                chain_ms=cuda_ms(chain, reps=5), plan=plan,
                 **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 2 * m * n * k, INT8_PEAK))))
         del x, w
     main = next(iter(timed_shapes.values()))
     return dict(name="quantized_matmul", route="cuda",
                 source="eda_dm_tpu_torch/csrc/quantized_matmul.cu",
                 replaces="eda_dm_tpu/ops/pallas_quant.py:57", max_abs_err=0.0,
-                shape=f"{main}, bf16 x", sd_ms={}, shapes_ms=shapes, **shapes[main])
+                shape=f"{main}, bf16 x", sd_ms={}, shapes_ms=shapes,
+                **{k: v for k, v in shapes[main].items() if k != "plan"})
 
 
 def check_mma_chain(g):
@@ -733,7 +855,7 @@ def k8_path(kernel):
     s_x, z_x = calculate_qparams(x.min(), x.max(), 256)
     pk = pack_dense_weights(w, d_w, z_w)
     out = quantized_matmul(x, pk["w_q"], s_x, z_x, pk["s_w"], pk["w_colsum"],
-                           pk["w_deq_off"], bias)
+                           pk["w_deq_off"], bias, w_qt=pk["w_qt"])
     torch.cuda.synchronize()
     launches = dict(_build.launch_counts)
     ref = fake_quant_nograd(x, s_x, z_x, 256) @ fake_quant_nograd(w, d_w, z_w, 256) + bias
@@ -837,10 +959,9 @@ def plain_versions(record=None):
     inputs of every softmax-codes, fused- and flash-attention, fused
     GroupNorm and fake-quant matmul call are kept there under the kernel's
     name."""
-    import eda_dm_tpu_torch.models.ddpm_unet as unet
-    import eda_dm_tpu_torch.models.ldm_unet as ldm
     import eda_dm_tpu_torch.nn.layers as layers
     import eda_dm_tpu_torch.ops.gn_int8 as gn
+    import eda_dm_tpu_torch.ops.softmax_codes as sm
     import eda_dm_tpu_torch.ops.int8_attention as attn
     import eda_dm_tpu_torch.ops.int8_einsum as ein
     import eda_dm_tpu_torch.ops.quant_matmul as fq
@@ -874,8 +995,7 @@ def plain_versions(record=None):
 
     with swapped(layers, "int8_conv", int8_conv_plain), \
             swapped(ein, "int8_bmm_nt", _plain_bmm), \
-            swapped(unet, "softmax_int8_codes", softmax_plain), \
-            swapped(ldm, "softmax_int8_codes", softmax_plain), \
+            swapped(sm, "softmax_int8_codes", softmax_plain), \
             swapped(attn, "_int8_fused_attention_cuda", attention_plain), \
             swapped(attn, "_int8_flash_attention_cuda", flash_plain), \
             swapped(gn, "_gn_cuda", gn_plain), \
@@ -991,6 +1111,18 @@ def profile_forward(fn, top=12):
     for e in sorted(kern, key=dev_ms, reverse=True)[:top]:
         print(f"      {dev_ms(e):8.3f} ms {dev_ms(e) / busy:6.1%} x{e.count:<4d} "
               f"{e.key[:90]}")
+    # the hand-written kernels, each summed over its template instances
+    mine = {}
+    for e in kern:
+        for name in ("int8_conv_kernel", "int8_bmm_nt_kernel", "_softmax_codes_kernel",
+                     "int8_attention_kernel", "int8_flash_attention_kernel", "gn_kernel",
+                     "fakequant_matmul_kernel"):
+            if name in e.key:
+                t, c = mine.get(name, (0.0, 0))
+                mine[name] = (t + dev_ms(e), c + e.count)
+    print("      hand-written kernels: " + "; ".join(
+        f"{n} {t:.3f} ms ({t / busy:.1%}, x{c})" for n, (t, c) in
+        sorted(mine.items(), key=lambda kv: -kv[1][0])))
 
 
 def steps_per_s(model_fn, x, seq, betas):
@@ -1126,6 +1258,8 @@ def bedroom(kernels, smi):
           f"(mean {float(imgs.mean()):.4f}, std {float(imgs.std()):.4f})")
     print(f"    launches per UNet forward: "
           + ", ".join(f"{k} {v / STEPS:g}" for k, v in sorted(launches.items())))
+    check({k: v / STEPS for k, v in launches.items()} == DEFAULT_LAUNCHES["bedroom"],
+          f"the default branches: {DEFAULT_LAUNCHES['bedroom']} per forward")
     for k in kernels[:4]:                        # K1-K4; K5 serves SD only
         k["bedroom_launches"] = launches.get(k["name"], 0)
         check(k["bedroom_launches"] > 0, f"{k['name']} launched "
@@ -1251,6 +1385,8 @@ def sd(kernels, smi):
               f"({k['launches'] / n_fwd:g} per forward) on the SD path")
     check(per_fwd.get("int8_flash_attention") == 5,
           "K5 serves the five 64x64 self-attention sites of every forward")
+    check(per_fwd == DEFAULT_LAUNCHES["sd"], f"the default branches: "
+          f"{DEFAULT_LAUNCHES['sd']} per forward")
     z, _ = timed(lambda: pipe.sample_batch(DEPLOY_INT8, generator=g, context=ctx,
                                            uncond=unc, decode=False))
     _, decode_s = timed(lambda: pipe.ld.decode_first_stage(z))
@@ -1292,6 +1428,9 @@ def main():
     from eda_dm_tpu_torch.samplers.schedules import get_beta_schedule, skip_sequence
 
     t_start = time.perf_counter()
+    dropped = [name for name in SERVING_SWITCHES if os.environ.pop(name, None) is not None]
+    if dropped:                     # the checks below hold the default branches
+        print(f"chip_smoke: serving switches unset for this run: {', '.join(dropped)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     query = lambda q: subprocess.run(
@@ -1321,15 +1460,7 @@ def main():
                check_flash(g, sms, clock_mhz * 1e6), check_gn(g), check_fq(g)]
     kernels[5]["per_forward"] = {}
     for k in kernels:
-        print(f"    {k['name']}: {k['shape']}: {k['ms']:.4f} ms (plain "
-              f"{k['plain_ms']:.4f}, library {k['library_ms']}"
-              + (f", chain {k['chain_ms']:.4f}" if "chain_ms" in k else "")
-              + f", bound {k['bound_ms']:.4f} by {k['bound_by']})")
-        for shape, t in k["sd_ms"].items():
-            print(f"      {shape}: {t:.4f} ms")
-        for shape, t in k.get("shapes_ms", {}).items():
-            print(f"      {shape}: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, chain "
-                  f"{t['chain_ms']:.4f}, bound {t['bound_ms']:.4f} by {t['bound_by']})")
+        print_kernel(k)
     print(f"    phase 3: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
@@ -1338,10 +1469,7 @@ def main():
     t0 = time.perf_counter()
     kernels.append(check_quantized_matmul(g))
     k8 = kernels[-1]
-    for shape, t in k8["shapes_ms"].items():
-        print(f"    K8 {shape}, bf16 x: {t['ms']:.4f} ms (plain {t['plain_ms']:.4f}, "
-              f"torch._int_mm {t['library_ms']:.4f}, chain {t['chain_ms']:.4f}, bound "
-              f"{t['bound_ms']:.4f} by {t['bound_by']})")
+    print_kernel(k8)
     k8_path(k8)
     torch.cuda.empty_cache()
     kernels.append(check_mma_chain(g))
@@ -1395,6 +1523,8 @@ def main():
     cifar = dict(_build.launch_counts)
     check(bool(torch.isfinite(out).all()) and out.shape == (BATCH, 32, 32, 3),
           f"samples finite, shape {tuple(out.shape)}")
+    check({k: v / STEPS for k, v in cifar.items()} == DEFAULT_LAUNCHES["cifar"],
+          f"the default branches: {DEFAULT_LAUNCHES['cifar']} per forward")
     for k in kernels[:3]:
         k["cifar_launches"] = cifar.get(k["name"], 0)
         check(k["cifar_launches"] > 0, f"{k['name']} launched {k['cifar_launches']} "
@@ -1447,8 +1577,9 @@ def main():
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
-    extra = ("cifar_launches", "bedroom_launches", "per_forward", "chain_ms", "sd_ms",
-             "shapes_ms", "rates", "plain_by_shape", "library_peak")
+    extra = ("cifar_launches", "bedroom_launches", "per_forward", "chain_ms", "einsum_ms",
+             "bmm_f32_ms", "transposing_ms", "streamed_ms", "acc_ms", "other_tile_ms", "sd_ms", "shapes_ms", "rates", "plain_by_shape",
+             "library_peak")
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{**{k: kern[k] for k in keys},
                                    **{k: kern[k] for k in extra if k in kern},

@@ -1,4 +1,5 @@
-// Shared pieces of the int8 GEMM kernels (int8_conv.cu, int8_bmm.cu).
+// The CUDA-core int8 GEMM tile of K1 (int8_conv.cu), and the helpers every
+// kernel library shares (store_out, pack4, edm_error_string).
 //
 // One block computes a BM x BN tile of int32 sums.  The K dimension goes
 // through shared memory in chunks of BKW 32-bit words (32 int8 values);

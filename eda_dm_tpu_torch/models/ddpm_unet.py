@@ -25,8 +25,9 @@ from ..nn.layers import (ActQuantizer, GNorm, QConv, QDense, lecun_normal_,
 from ..ops.int8_attention import int8_fused_attention
 from ..ops.int8_einsum import (int8_act_einsum, int8_code_einsum,
                                quantize_act_int8)
-from ..ops.serving_policy import attention_impl, int8_serving
-from ..ops.softmax_codes import softmax_int8_codes
+from ..ops.serving_policy import (attention_impl, int8_attention_serving,
+                                  use_fused_softmax)
+from ..ops.softmax_codes import softmax_codes
 from ..quant.config import FP, QuantConfig, QuantizerSpec, QuantMode
 
 
@@ -101,7 +102,7 @@ class AttnBlockD(nn.Module):
         k = self.k(h, mode).reshape(n, hh * ww, c)
         v = self.v(h, mode).reshape(n, hh * ww, c)
         L, Lw = self.aq.n_levels, self.aq_w.n_levels
-        if int8_serving(mode) and L <= 256 and Lw <= 256:
+        if int8_attention_serving(mode) and L <= 256 and Lw <= 256:
             dq, zq = self.act_quantizer_q(q, mode, params_only=True)
             dk, zk = self.act_quantizer_k(k, mode, params_only=True)
             dv, zv = self.act_quantizer_v(v, mode, params_only=True)
@@ -119,7 +120,7 @@ class AttnBlockD(nn.Module):
                 # recentering epilogue; softmax→codes is K3
                 w = int8_act_einsum("nic,njc->nij", q, (dq, zq, L),
                                     k, (dk, zk, L)) * (c ** -0.5)
-                W, cw = softmax_int8_codes(w, dw, zw, Lw)
+                W, cw = softmax_codes(w, dw, zw, Lw)
                 V, cv = quantize_act_int8(v, dv, zv, L)
                 h = int8_code_einsum("nij,njc->nic", W, cw, dw, V, cv, dv)
         else:

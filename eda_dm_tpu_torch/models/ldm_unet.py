@@ -49,8 +49,9 @@ from ..ops.int8_attention import (int8_flash_attention_heads,
                                   int8_fused_attention_heads)
 from ..ops.int8_einsum import (int8_act_einsum, int8_code_einsum,
                                quantize_act_int8)
-from ..ops.serving_policy import attention_impl, int8_serving, use_fused_gn
-from ..ops.softmax_codes import softmax_int8_codes
+from ..ops.serving_policy import (attention_impl, int8_attention_serving,
+                                  int8_serving, use_fused_gn)
+from ..ops.softmax_codes import softmax_codes
 from ..quant.config import FP, QuantConfig, QuantizerSpec, QuantMode
 
 
@@ -243,7 +244,7 @@ class _QKVAttention(nn.Module):
     def attend(self, q, k, v, attn_scale: float, mode: QuantMode, dtype):
         b, sq, heads, c = q.shape
         L, Lw = self.aq.n_levels, self.aq_w.n_levels
-        if int8_serving(mode) and L <= 256 and Lw <= 256:
+        if int8_attention_serving(mode) and L <= 256 and Lw <= 256:
             dq, zq = self.act_quantizer_q(q, mode, params_only=True)
             dk, zk = self.act_quantizer_k(k, mode, params_only=True)
             dw, zw = self.act_quantizer_w(None, mode, params_only=True)
@@ -263,7 +264,7 @@ class _QKVAttention(nn.Module):
                                 k, (dk, zk, L))
             if attn_scale != 1.0:
                 w = w * attn_scale
-            W, cw = softmax_int8_codes(w, dw, zw, Lw)
+            W, cw = softmax_codes(w, dw, zw, Lw)
             V, cv = quantize_act_int8(v, dv, zv, L)
             return int8_code_einsum("bhts,bshc->bthc", W, cw, dw, V, cv, dv)
         q = self.act_quantizer_q(q, mode)

@@ -60,19 +60,27 @@ FLASH_MAX_C = 1024
 GATE_BYTES = 6 * 1024 * 1024
 
 
-def fused_attention_applicable(s: int, c: int) -> bool:
-    """The whole-attention kernel's gate: S and C multiples of 8 (the JAX
-    package's default admits the LDM zoos' sub-128-lane heads), one
-    element's working set within 6 MiB."""
-    if s % 8 != 0 or c % 8 != 0:
+def _head_width_ok(c: int, narrow_lanes: bool) -> bool:
+    return c % 128 == 0 or (narrow_lanes and c % 8 == 0)
+
+
+def fused_attention_applicable(s: int, c: int, narrow_lanes: bool = False) -> bool:
+    """The whole-attention kernel's gate, as the JAX package has it: S a
+    multiple of 8, C a multiple of 128 (any multiple of 8 with
+    ``narrow_lanes``, the LDM zoos' heads), one element's working set
+    within 6 MiB."""
+    if s % 8 != 0 or not _head_width_ok(c, narrow_lanes):
         return False
     return 3 * s * c + 4 * s * s + 4 * s * c <= GATE_BYTES
 
 
-def flash_attention_applicable(sq: int, skv: int, c: int) -> bool:
+def flash_attention_applicable(sq: int, skv: int, c: int,
+                               narrow_lanes: bool = False) -> bool:
     """The two-pass tiled kernel's (K5) gate, as the JAX package has it."""
     tq, tk = min(sq, 256), min(skv, 512)
-    if sq % tq != 0 or skv % tk != 0 or skv % 128 != 0 or c % 8 != 0:
+    if sq % tq != 0 or skv % tk != 0 or skv % 128 != 0:
+        return False
+    if not _head_width_ok(c, narrow_lanes):
         return False
     return 2 * skv * c + 4 * tq * c * 3 + 4 * tq * tk <= GATE_BYTES
 
@@ -121,7 +129,7 @@ def _int8_fused_attention_cuda(Q, K, V, sc, n_levels_w, return_codes):
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in (Q, K, V)):
         raise ValueError("int8_fused_attention takes contiguous, aligned operands")
     n, s, c = Q.shape
-    if not fused_attention_applicable(s, c):
+    if not fused_attention_applicable(s, c, narrow_lanes=True):
         raise ValueError(f"int8_fused_attention: S={s}, C={c} is outside the "
                          "kernel's gate (S, C multiples of 8, 3SC+4S²+4SC ≤ 6 MiB)")
     if n_levels_w > 256:

@@ -9,9 +9,11 @@ range and the product expands exactly:
                             + c_b·Σ_K A + c_a·Σ_K B + c_a·c_b·K ]
 
 The int8 product runs in the hand-written kernel ``csrc/int8_bmm.cu``
-(kernel K2) on a CUDA tensor and in its plain PyTorch version on a CPU
-tensor; the rank-reduced code sums are ``torch.sum`` beside it, as XLA
-computed them beside the einsum.
+(kernel K2: tensor-core products through the shared mainloop
+``csrc/int8_gemm.cuh``) on a CUDA tensor and in its plain PyTorch version
+on a CPU tensor; the rank-reduced code sums are ``torch.sum`` beside it,
+as XLA computed them beside the einsum.  :func:`bmm_plan` chooses the
+kernel's tile and load route.
 """
 
 from __future__ import annotations
@@ -26,7 +28,36 @@ from ._build import check_launch, cuda_lib, launch_counts, ptr, stream_ptr
 
 _BMM_SIG = {"edm_int8_bmm_nt": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
             + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-            + [ctypes.c_int] + [ctypes.c_void_p] * 2}
+            + [ctypes.c_int] + [ctypes.c_void_p] + [ctypes.c_int] * 2
+            + [ctypes.c_void_p]}
+
+# the mainloop's load routes (csrc/int8_gemm.cuh): 16-byte and 8-byte
+# cp.async copies, or the byte gather for any K
+ROUTE_16, ROUTE_8, ROUTE_GATHER = 16, 8, 1
+# K2's tiles: 128 x 128 (8 warps), and 64 x 64 (4 warps) for few columns
+TILE_LARGE, TILE_SMALL = 0, 1
+SMALL_N_MAX = 80
+
+
+def load_route(k: int, *ptrs: int) -> int:
+    """The widest copy that every K-contiguous row of these operands
+    allows: 16 bytes where K and every base address are multiples of 16, 8
+    bytes likewise, else the byte gather."""
+    for width in (ROUTE_16, ROUTE_8):
+        if k % width == 0 and all(p % width == 0 for p in ptrs):
+            return width
+    return ROUTE_GATHER
+
+
+def bmm_plan(n: int, k: int, a_ptr: int, b_ptr: int) -> Tuple[int, int]:
+    """K2's (tile, route) for A (batch, M, K) and B (batch, N, K) at these
+    base addresses: the 64 x 64 tile where N is at most 80 (the logits of
+    CIFAR's 16-token mid block, SD's 77 context tokens and 40-channel
+    heads), else 128 x 128, also for few rows (on the H100 the large tile
+    served CIFAR's mid-block W·V, M = 16 and N = 256, faster); the route
+    by :func:`load_route`."""
+    tile = TILE_SMALL if n <= SMALL_N_MAX else TILE_LARGE
+    return tile, load_route(k, a_ptr, b_ptr)
 
 
 @contextlib.contextmanager
@@ -135,11 +166,13 @@ def _int8_bmm_nt_cuda(A, B, row_add, col_add, k_add, scale, bias):
     if scale.numel() not in (1, n) or (bias is not None and bias.shape != (n,)):
         raise ValueError("scale must be a scalar or (N,), bias (N,)")
     out = torch.empty((batch, m, n), dtype=torch.float32, device=dev)
+    tile, route = bmm_plan(n, k, A.data_ptr(), B.data_ptr())
     lib = cuda_lib("int8_bmm", _BMM_SIG)
     err = lib.edm_int8_bmm_nt(
         ptr(A), ptr(B), ptr(out), batch, m, n, k, ptr(row_add), ptr(col_add),
         int(col_add is not None and col_add.dim() == 2), ptr(k_add),
-        ptr(scale), int(scale.numel() != 1), ptr(bias), stream_ptr(dev))
+        ptr(scale), int(scale.numel() != 1), ptr(bias), tile, route,
+        stream_ptr(dev))
     check_launch(lib, err, "int8_bmm_nt")
     launch_counts["int8_bmm"] += 1
     return out
@@ -155,7 +188,7 @@ def int8_bmm_nt(A: torch.Tensor, B: torch.Tensor,
     ``((((acc + row_add[b,m]) + col_add[b,n]) + k_add) · scale[n]) + bias[n]``.
 
     A: (batch, M, K) int8; B: (batch, N, K) int8 (both K-contiguous; any
-    K: where K % 4 != 0 the kernel gathers the tail bytes);
+    K: the load route follows K's alignment, :func:`bmm_plan`);
     returns (batch, M, N) float32.  On a CUDA tensor this launches kernel
     K2; on a CPU tensor it runs the plain version.
     """

@@ -26,7 +26,11 @@ rank-1 dequant corrections end it:
 
 with ``row = Σ_k (xq8 + 128 − z_x)``, everything after the int32 product
 in float32 in this order, and the output in ``x.dtype``.  Weights come
-from :func:`pack_dense_weights` in the JAX layout (K, N).
+from :func:`pack_dense_weights` in the JAX layout (K, N), beside a K-major
+(N, K) copy of the codes that the kernel reads (:func:`quantized_matmul`
+transposes once per call where the caller passes none).  The row term
+``s_x·row`` follows the JAX package's type promotion
+(:func:`jax_row_term`).
 
 On a CUDA tensor :func:`fakequant_matmul` launches
 ``csrc/fakequant_matmul.cu`` and :func:`quantized_matmul`
@@ -36,16 +40,16 @@ On a CUDA tensor :func:`fakequant_matmul` launches
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from ._build import check_launch, cuda_lib, launch_counts, ptr, stream_ptr
-from .int8_einsum import int8_matmul_acc_plain, tf32_off
+from .int8_einsum import int8_matmul_acc_plain, load_route, tf32_off
 
 _FQ_SIG = {"edm_fakequant_matmul": [ctypes.c_void_p] * 6
            + [ctypes.c_int] * 8 + [ctypes.c_void_p]}
-_QM_SIG = {"edm_quantized_matmul": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+_QM_SIG = {"edm_quantized_matmul": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
            + [ctypes.c_void_p]}
 
 
@@ -112,6 +116,19 @@ def fakequant_matmul(x: torch.Tensor, w: torch.Tensor, delta_k: torch.Tensor,
 # --------------------------------------------------------------------------
 # K8: the int8 quantized matmul and its weight packing
 
+# the kernel's plan (csrc/quantized_matmul.cu): a block quantizes a stripe
+# of 128 rows into shared memory where round_up(K, 64) is at most
+# RESIDENT_K_MAX (two blocks an SM); beyond, x is quantized once into
+# device memory and both operands stream
+RESIDENT_K_MAX = 512
+
+
+def qm_plan(k: int, w_ptr: int) -> Tuple[int, int]:
+    """K8's (streamed, route): streamed = 1 where K is too large for the
+    resident stripe; the route of the K-major weight copy by
+    :func:`~eda_dm_tpu_torch.ops.int8_einsum.load_route`."""
+    return int(-(-k // 64) * 64 > RESIDENT_K_MAX), load_route(k, w_ptr)
+
 
 def quantize_weights_int8(w: torch.Tensor, delta: torch.Tensor, zp: torch.Tensor,
                           n_levels: int = 256):
@@ -125,11 +142,13 @@ def quantize_weights_int8(w: torch.Tensor, delta: torch.Tensor, zp: torch.Tensor
 def pack_dense_weights(kernel: torch.Tensor, delta: torch.Tensor, zp: torch.Tensor,
                        n_levels: int = 256):
     """A dense kernel (K, N) with per-output-channel (or scalar) Δ, zp
-    prepared for :func:`quantized_matmul`: int8 codes, scales, float32
-    column sums of the codes and the per-channel dequant offsets."""
+    prepared for :func:`quantized_matmul`: int8 codes (K, N) as the JAX
+    package packs them, their K-major copy ``w_qt`` (N, K) that the kernel
+    reads, scales, float32 column sums of the codes and the per-channel
+    dequant offsets."""
     delta, zp = delta.reshape(1, -1), zp.reshape(1, -1)
     w_q, deq_off = quantize_weights_int8(kernel, delta, zp, n_levels)
-    return {"w_q": w_q, "s_w": delta.reshape(-1),
+    return {"w_q": w_q, "w_qt": w_q.t().contiguous(), "s_w": delta.reshape(-1),
             "w_colsum": w_q.sum(0, dtype=torch.int32).to(torch.float32),
             "w_deq_off": torch.broadcast_to(deq_off, kernel.shape)[0].contiguous()}
 
@@ -140,9 +159,55 @@ def _f32_scalar(v, dev) -> torch.Tensor:
 
 def quantize_x_int8(x: torch.Tensor, s_x, z_x) -> torch.Tensor:
     """The kernel's activation codes ``clip(round(x/s_x) + z_x, 0, 255) −
-    128`` as float32, computed in float32 whatever x's type."""
+    128`` as float32, computed in float32 whatever x's type, as the JAX
+    package's kernel computes them (its s_x and z_x are float32 arrays).
+
+    The JAX package's row-sum pass outside its kernel divides in x's type
+    where s_x is a Python number (weak typing): for a bf16 x it rounds the
+    quotient to bf16 before ``round``, so its row sums may count other
+    codes than its kernel's product.  :func:`jax_row_term` reproduces that
+    pass and the port's row term follows it; these codes stay the
+    kernel's.  On the CPU the row term equals XLA's bit for bit, and the
+    output then equals the JAX package's
+    (``tests/test_torch_quantized_matmul.py::test_bf16_row_term_follows_jax``
+    counts the codes on which the two divisions disagree)."""
     s_x, z_x = _f32_scalar(s_x, x.device), _f32_scalar(z_x, x.device)
     return torch.clamp(torch.round(x.float() / s_x) + z_x, 0.0, 255.0) - 128.0
+
+
+def _jax_type(dtype: torch.dtype, v) -> torch.dtype:
+    """The type of ``a ∘ v`` for ``a`` of ``dtype`` under the JAX package's
+    promotion: a Python number is weakly typed and takes ``dtype``; an
+    array promotes (float64 narrowed to float32, as JAX runs without x64)."""
+    if type(v) in (int, float):
+        return dtype
+    vt = torch.as_tensor(v).dtype
+    return torch.promote_types(dtype, torch.float32 if vt == torch.float64 else vt)
+
+
+def jax_row_term(x: torch.Tensor, s_x, z_x) -> Optional[torch.Tensor]:
+    """``s_x·row`` (M,) float32 as the JAX package's outside pass computes
+    it, ``row = sum(clip(round(x/s_x) + z_x, 0, 255) − 128 + (128 − z_x))``,
+    each step rounded to the type JAX's promotion gives it (a weakly typed
+    s_x or z_x takes x's type; ``jnp.sum`` adds in float32 and rounds
+    once).  None where every step is float32: then it is the kernel's own
+    row term (exact integer sums), which the kernel computes itself."""
+    d_div = _jax_type(x.dtype, s_x)
+    d_add = _jax_type(d_div, z_x)
+    d_scale = _jax_type(d_add, s_x)
+    if d_div == d_add == d_scale == torch.float32:
+        return None
+    f32 = torch.float32
+
+    def rnd(t, dtype):
+        return t.to(dtype).to(f32)
+
+    def as_type(v, dtype):
+        return rnd(torch.as_tensor(v, dtype=f32, device=x.device), dtype)
+    q = torch.round(rnd(x.float() / as_type(s_x, d_div), d_div))
+    q = torch.clamp(rnd(q + as_type(z_x, d_add), d_add), 0.0, 255.0) - 128.0
+    row = rnd(rnd(q + as_type(128.0 - z_x, d_add), d_add).sum(dim=1), d_add)
+    return rnd(as_type(s_x, d_scale) * row, d_scale)
 
 
 def quantized_matmul_acc_plain(x, w_q, s_x, z_x) -> torch.Tensor:
@@ -151,25 +216,29 @@ def quantized_matmul_acc_plain(x, w_q, s_x, z_x) -> torch.Tensor:
 
 
 def quantized_matmul_epilogue(acc, xq8, z_x, s_x, s_w, w_colsum, w_deq_off, bias,
-                              dtype):
-    """The dequant epilogue in float32, in the JAX package's order."""
-    row = torch.sum(xq8 + (128.0 - z_x), dim=1, keepdim=True)
+                              dtype, row_term=None):
+    """The dequant epilogue in float32, in the JAX package's order;
+    ``row_term`` (M,) in place of ``s_x·row`` where JAX's outside pass
+    rounds it (:func:`jax_row_term`)."""
+    if row_term is None:
+        row_term = s_x * torch.sum(xq8 + (128.0 - z_x), dim=1)
     out = s_x * (acc.float() + (128.0 - z_x) * w_colsum[None, :]) * s_w[None, :] \
-        + s_x * row * w_deq_off[None, :]
+        + row_term[:, None] * w_deq_off[None, :]
     if bias is not None:
         out = out + bias[None, :]
     return out.to(dtype)
 
 
 def quantized_matmul_plain(x, w_q, s_x, z_x, s_w, w_colsum, w_deq_off, bias=None):
+    row_term = jax_row_term(x, s_x, z_x)
     s_x, z_x = _f32_scalar(s_x, x.device), _f32_scalar(z_x, x.device)
     acc = quantized_matmul_acc_plain(x, w_q, s_x, z_x)
     return quantized_matmul_epilogue(acc, quantize_x_int8(x, s_x, z_x), z_x, s_x,
-                                     s_w, w_colsum, w_deq_off, bias, x.dtype)
+                                     s_w, w_colsum, w_deq_off, bias, x.dtype, row_term)
 
 
 def _quantized_matmul_cuda(x, w_q, s_x, z_x, s_w, w_colsum, w_deq_off, bias,
-                           acc_only=False):
+                           w_qt=None, acc_only=False):
     dev = x.device
     if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 2:
         raise ValueError(f"quantized_matmul takes a float32 or bfloat16 matrix x, "
@@ -177,11 +246,16 @@ def _quantized_matmul_cuda(x, w_q, s_x, z_x, s_w, w_colsum, w_deq_off, bias,
     if w_q.dtype != torch.int8 or w_q.dim() != 2 or w_q.device != dev:
         raise ValueError(f"w_q must be an int8 matrix on {dev}")
     m, k = x.shape
-    if w_q.shape[0] != k:
+    if w_q.shape[0] != k or k == 0:
         raise ValueError(f"shape mismatch {tuple(x.shape)} x {tuple(w_q.shape)}")
     if k >= 1 << 16:
         raise ValueError("quantized_matmul takes K < 65536 (exact float32 row sums)")
     n = w_q.shape[1]
+    if w_qt is None:
+        w_qt = w_q.t().contiguous()                  # once per call: (N, K)
+    elif w_qt.shape != (n, k) or w_qt.dtype != torch.int8 or w_qt.device != dev:
+        raise ValueError(f"w_qt must be the ({n}, {k}) int8 transpose of w_q on {dev}")
+    row_term = None if acc_only else jax_row_term(x, s_x, z_x)
     scalars = [_f32_scalar(v, dev) for v in (s_x, z_x)]
     rows = []
     for t, what in ((s_w, "s_w"), (w_colsum, "w_colsum"), (w_deq_off, "w_deq_off"),
@@ -193,12 +267,18 @@ def _quantized_matmul_cuda(x, w_q, s_x, z_x, s_w, w_colsum, w_deq_off, bias,
             raise ValueError(f"{what} must be ({n},) on {dev}, got "
                              f"{tuple(t.shape)} on {t.device}")
         rows.append(t.float().contiguous())
-    x, w_q = x.contiguous(), w_q.contiguous()
+    x, w_qt = x.contiguous(), w_qt.contiguous()
+    streamed, route = qm_plan(k, w_qt.data_ptr())
+    codes = row_scratch = None
+    if streamed:
+        codes = torch.empty((m, -(-k // 16) * 16), dtype=torch.int8, device=dev)
+        row_scratch = torch.empty((m,), dtype=torch.float32, device=dev)
     out = torch.empty((m, n), dtype=torch.int32 if acc_only else x.dtype, device=dev)
     lib = cuda_lib("quantized_matmul", _QM_SIG)
     err = lib.edm_quantized_matmul(
-        ptr(x), ptr(w_q), ptr(scalars[0]), ptr(scalars[1]), *map(ptr, rows), ptr(out),
-        int(x.dtype == torch.bfloat16), int(acc_only), m, n, k,
+        ptr(x), ptr(w_qt), ptr(scalars[0]), ptr(scalars[1]), *map(ptr, rows),
+        ptr(row_term), ptr(out), ptr(codes), ptr(row_scratch),
+        int(x.dtype == torch.bfloat16), int(acc_only), m, n, k, streamed, route,
         stream_ptr(dev))
     check_launch(lib, err, "quantized_matmul")
     launch_counts["quantized_matmul"] += 1
@@ -207,24 +287,29 @@ def _quantized_matmul_cuda(x, w_q, s_x, z_x, s_w, w_colsum, w_deq_off, bias,
 
 def quantized_matmul(x: torch.Tensor, w_q: torch.Tensor, s_x, z_x, s_w: torch.Tensor,
                      w_colsum: torch.Tensor, w_deq_off: torch.Tensor,
-                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     bias: Optional[torch.Tensor] = None,
+                     w_qt: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``quantize(x) @ dequant(w_q) (+ bias)``: x (M, K) float32/bf16, w_q
-    (K, N) int8 codes, s_x / z_x float32 scalars (z_x integer-valued), s_w,
-    w_colsum, w_deq_off and bias (N,) float32.  Returns (M, N) in
-    ``x.dtype``."""
+    (K, N) int8 codes, s_x / z_x float32 scalars or Python numbers (z_x
+    integer-valued), s_w, w_colsum, w_deq_off and bias (N,) float32;
+    ``w_qt``, the (N, K) copy of w_q from :func:`pack_dense_weights` (the
+    kernel's layout; without it a CUDA call transposes w_q).  Returns
+    (M, N) in ``x.dtype``."""
     if x.is_cuda:
-        return _quantized_matmul_cuda(x, w_q, s_x, z_x, s_w, w_colsum, w_deq_off, bias)
+        return _quantized_matmul_cuda(x, w_q, s_x, z_x, s_w, w_colsum, w_deq_off, bias,
+                                      w_qt)
     if x.device.type != "cpu":
         raise ValueError(f"quantized_matmul: unsupported device {x.device}")
     return quantized_matmul_plain(x, w_q, s_x, z_x, s_w, w_colsum, w_deq_off, bias)
 
 
-def quantized_matmul_acc(x: torch.Tensor, w_q: torch.Tensor, s_x, z_x) -> torch.Tensor:
+def quantized_matmul_acc(x: torch.Tensor, w_q: torch.Tensor, s_x, z_x,
+                         w_qt: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K8's int32 accumulators ``xq8 @ w_q`` alone (the kernel's store in
     place of its epilogue on a CUDA tensor, the plain product on a CPU
     tensor)."""
     if x.is_cuda:
-        return _quantized_matmul_cuda(x, w_q, s_x, z_x, None, None, None, None,
+        return _quantized_matmul_cuda(x, w_q, s_x, z_x, None, None, None, None, w_qt,
                                       acc_only=True)
     if x.device.type != "cpu":
         raise ValueError(f"quantized_matmul_acc: unsupported device {x.device}")

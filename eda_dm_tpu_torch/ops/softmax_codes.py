@@ -31,6 +31,8 @@ from typing import Tuple
 import torch
 
 from ._build import import_triton, launch_counts
+from .int8_einsum import quantize_act_int8
+from .serving_policy import use_fused_softmax
 
 tl = None            # triton.language, bound at the first launch
 libdevice = None     # triton.language.extra.libdevice, likewise
@@ -118,3 +120,17 @@ def softmax_int8_codes(logits: torch.Tensor, delta: torch.Tensor,
     else:
         raise ValueError(f"softmax_int8_codes: unsupported device {logits.device}")
     return codes, n_levels / 2 - zp
+
+
+def softmax_codes(logits: torch.Tensor, delta: torch.Tensor, zp: torch.Tensor,
+                  n_levels: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The einsum attention branch's softmax → ``(codes, c)``, chosen as the
+    JAX package's attention sites choose it: :func:`softmax_int8_codes`
+    unless ``EDM_FUSED_SOFTMAX=0``, then a float32 softmax in
+    ``jax.nn.softmax``'s steps (``exp(x − max) / Σ``) quantized by
+    ``quantize_act_int8``."""
+    if use_fused_softmax():
+        return softmax_int8_codes(logits, delta, zp, n_levels)
+    x = logits.float()
+    e = torch.exp(x - x.amax(-1, keepdim=True))
+    return quantize_act_int8(e / e.sum(-1, keepdim=True), delta, zp, n_levels)

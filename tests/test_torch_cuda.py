@@ -73,12 +73,25 @@ def test_int8_conv_kernel(gen, case, out_dtype):
     assert torch.equal(out, int8_conv_plain(*args, out_dtype))
 
 
-@pytest.mark.parametrize("batch,m,n,k", [(3, 17, 130, 20), (1, 5, 48, 512),
-                                         (2, 200, 64, 256), (16, 300, 40, 77),
-                                         (5, 64, 77, 40), (3, 9, 10, 6)])
+BMM = [  # batch, m, n, k: each tile (128 x 128; 64 x 64 where N <= 80)
+    # with each load route (16-byte: K % 16 == 0; 8-byte: K % 8 == 0; the
+    # byte gather: SD's 77 context tokens, K % 4 != 0), M or N under 16 and
+    # under 64, ragged M and N, K of one 32-byte slice and of many steps
+    (3, 17, 130, 20), (1, 5, 48, 512), (2, 200, 64, 256), (16, 300, 40, 77),
+    (5, 64, 77, 40), (3, 9, 10, 6), (2, 200, 300, 256), (2, 130, 260, 40),
+    (2, 129, 150, 77), (4, 256, 256, 32), (3, 100, 90, 16), (1, 70, 500, 160),
+    (2, 300, 97, 80), (2, 5, 300, 48), (1, 1000, 700, 320)]
+
+
+@pytest.mark.parametrize("batch,m,n,k", BMM)
 def test_int8_bmm_kernel(gen, batch, m, n, k):
+    """K2 at every tile and load route: the epilogue's float32 output (and
+    so its int32 sums) equal to the plain version's."""
     from eda_dm_tpu_torch.ops.int8_einsum import int8_bmm_nt, int8_bmm_nt_plain
     A, B = _codes(gen, (batch, m, k)), _codes(gen, (batch, n, k))
+    acc = int8_bmm_nt(A, B)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, int8_bmm_nt_plain(A, B, scale=torch.ones((), device="cuda")))
     kw = dict(row_add=torch.randn(batch, m, generator=gen, device="cuda"),
               col_add=torch.randn(batch, n, generator=gen, device="cuda"),
               k_add=torch.tensor(3.5, device="cuda"),
@@ -120,7 +133,7 @@ def test_int8_attention_kernel(gen, s, c):
         int8_fused_attention_plain)
     n = max(2, 4096 // s)
     Q, K, V, sc = _attention_case(gen, n, s, c)
-    if not fused_attention_applicable(s, c):
+    if not fused_attention_applicable(s, c, narrow_lanes=True):
         with pytest.raises(ValueError, match="gate"):
             _int8_fused_attention_cuda(Q, K, V, sc, 256, False)
         return
@@ -268,9 +281,13 @@ def test_fakequant_matmul_identity_is_the_fake_quant(gen):
     assert torch.equal(out, fake_quant(x, dk[0], zk[0], 256))
 
 
-QM = [  # m, k, n: ragged M, N and K against the 128 x 128 x 64 tiles
+QM = [  # m, k, n: ragged M, N and K against the 128 x 128 x 64 tiles; the
+    # resident stripe (K <= 512) and the streamed path (K > 512), each with
+    # the 16-byte, 8-byte and byte-gather routes of the weights; M or N
+    # under 16 and under 64
     (1000, 200, 72), (37, 130, 300), (16, 32, 64), (8, 128, 128), (5, 7, 3),
-    (300, 64, 131)]
+    (300, 64, 131), (300, 320, 260), (200, 40, 70), (129, 77, 130), (700, 512, 384),
+    (300, 640, 200), (70, 1000, 90), (50, 2051, 33), (4096, 320, 2560)]
 
 
 @pytest.mark.parametrize("case", QM, ids=lambda c: "x".join(map(str, c)))
@@ -300,6 +317,26 @@ def test_quantized_matmul_kernel(gen, case, dtype):
         out = quantized_matmul(*args)
         assert out.dtype == dtype and out.shape == (m, n)
         assert torch.equal(out, quantized_matmul_plain(*args))
+    assert torch.equal(quantized_matmul(*args[:-1], w_qt=pk["w_qt"]), out)
+
+
+@pytest.mark.parametrize("case", [(300, 320, 260), (300, 640, 200)],
+                         ids=["resident", "streamed"])
+def test_quantized_matmul_python_scalars(gen, case):
+    """K8 with a bf16 x and Python-float s_x, z_x: the row term comes from
+    JAX's bf16 outside pass (``jax_row_term``), passed to the kernel in
+    place of its own; the output equals the plain version's."""
+    from eda_dm_tpu_torch.ops.quant_matmul import (
+        pack_dense_weights, quantized_matmul, quantized_matmul_plain)
+    from eda_dm_tpu_torch.quant import weight_qparams
+    m, k, n = case
+    x = (1.9 * torch.randn(m, k, generator=gen, device="cuda") + 0.3).to(torch.bfloat16)
+    w = 0.1 * torch.randn(k, n, generator=gen, device="cuda")
+    pk = pack_dense_weights(w, *weight_qparams(w, 256, symmetric=True, channel_axis=1))
+    args = (x, pk["w_q"], 0.0371, 117.0, pk["s_w"], pk["w_colsum"], pk["w_deq_off"])
+    out = quantized_matmul(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, quantized_matmul_plain(*args))
 
 
 @pytest.mark.parametrize("m,k", [(1024, 128), (512, 512), (300, 256), (77, 384)])

@@ -4,8 +4,13 @@ The JAX tree goes CALIB_W → CALIB_A → export once per module; the port gets
 it through ``models/bridge.py`` and runs on the CPU (the kernels' plain
 versions).  Both packages take their default attention branch: at this
 small batch the fused attention (K4's plain version, JAX's Pallas kernel in
-interpret mode); the einsum + softmax-codes branch is held too, forced on
-both sides (``EDM_FUSED_ATTN=0`` in JAX, ``attention_impl`` in the port).
+interpret mode).  The serving switches put both packages on one branch
+under one environment (``monkeypatch.setenv``, nothing of the port's
+policy patched): the einsum + softmax-codes branch (``EDM_FUSED_ATTN=0``),
+with a float32 softmax in place of the codes kernel
+(``EDM_FUSED_SOFTMAX=0``), the fake-quant attention (``EDM_INT8_ATTN=0``)
+and the folded convs (``EDM_INT8_CONV=0``), each with spies that count
+which kernels each package called.
 
 Tolerances: the FP forward atol 1e-4; single blocks on a shared input
 rtol = atol = 2e-5 (f32 association only).  The quantized whole-model
@@ -101,11 +106,30 @@ def calibrated():
 
 
 @pytest.fixture
-def einsum_attention(monkeypatch):
-    """Both packages on the einsum + softmax-codes attention branch."""
+def branch_spy(monkeypatch):
+    """Counts, per package, of the attention kernels' calls: the fused
+    attention (K4) and the softmax-codes kernel (K3, which serves the
+    einsum branch unless ``EDM_FUSED_SOFTMAX=0``)."""
     import eda_dm_tpu_torch.models.ddpm_unet as port_unet
+    import eda_dm_tpu_torch.ops.softmax_codes as port_softmax
+    seen = {"jax": 0, "port": 0}
+    counts = {}
+    for side, module, name in (("jax", jddpm, "int8_fused_attention"),
+                               ("jax", jddpm, "softmax_int8_codes"),
+                               ("port", port_unet, "int8_fused_attention"),
+                               ("port", port_softmax, "softmax_int8_codes")):
+        key = (side, name.replace("int8_", "").replace("_int8", ""))
+        counts[key] = {"jax": 0, "port": 0}
+        _count_calls(monkeypatch, module, name, counts[key], side)
+    return lambda: {k: v[k[0]] for k, v in counts.items()}
+
+
+@pytest.fixture
+def einsum_attention(monkeypatch, branch_spy):
+    """Both packages on the einsum + softmax-codes attention branch, by the
+    switch alone."""
     monkeypatch.setenv("EDM_FUSED_ATTN", "0")
-    monkeypatch.setattr(port_unet, "attention_impl", lambda *a: "einsum")
+    return branch_spy
 
 
 def _flip_gate(out, ref, max_abs, share=True):
@@ -298,7 +322,55 @@ def test_deploy_int8_forward(calibrated):
 
 
 def test_deploy_int8_forward_einsum(calibrated, einsum_attention):
+    """``EDM_FUSED_ATTN=0`` at batch 4 (batch·heads < 128): both packages
+    serve the four attention blocks with K2 → K3 → K2 and none with K4
+    (the port runs twice: forced on JAX's inputs, then free)."""
     _deploy_int8_forward(calibrated)
+    assert einsum_attention() == {("jax", "fused_attention"): 0,
+                                  ("jax", "softmax_codes"): 4,
+                                  ("port", "fused_attention"): 0,
+                                  ("port", "softmax_codes"): 8}
+
+
+@pytest.mark.parametrize("switches,calls", [
+    # the einsum branch with a float32 softmax quantized outside a kernel
+    ({"EDM_FUSED_ATTN": "0", "EDM_FUSED_SOFTMAX": "0"}, (0, 0, 0, 0)),
+    # the attention products on the fake-quant branch
+    ({"EDM_INT8_ATTN": "0"}, (0, 0, 0, 0)),
+    # every conv and dense on the folded numerics; attention stays int8 (K4)
+    ({"EDM_INT8_CONV": "0"}, (4, 0, 8, 0)),
+], ids=["fused_softmax_off", "int8_attn_off", "int8_conv_off"])
+def test_deploy_int8_forward_switch(calibrated, branch_spy, monkeypatch, switches,
+                                    calls):
+    """DEPLOY_INT8 of the int8 export under one of JAX's serving switches,
+    set once for both packages: each package calls the same kernels, and
+    the port's output is held to JAX's as DEPLOY is
+    (:func:`test_deploy_forward`: module by module on JAX's input, the
+    flip-aware gate, the mean drift no larger than JAX's own DEPLOY vs
+    DEPLOY_INT8 drift), since with the folded convs a code may flip on a
+    tie of two float summation orders."""
+    for name, value in switches.items():
+        monkeypatch.setenv(name, value)
+    c = calibrated
+    port = from_jax_variables(_np(c["int8"]), CFG, QC, device="cpu")
+    seen = {"port": 0}
+    for name in ("int8_conv", "int8_dense"):
+        _count_calls(monkeypatch, tlayers, name, seen, "port")
+    ref, out, flips = _against_jax(c["model"], c["int8"], port, c["x"], c["t"],
+                                   jexport.DEPLOY_INT8, DEPLOY_INT8)
+    got = branch_spy()
+    assert (got[("jax", "fused_attention")], got[("jax", "softmax_codes")],
+            got[("port", "fused_attention")], got[("port", "softmax_codes")]) == calls
+    assert (seen["port"] == 0) == (switches.get("EDM_INT8_CONV") == "0"), seen
+    assert out.shape == ref.shape and np.isfinite(out).all()
+    _flip_gate(out, ref, 0.15, share=flips == 0)
+    monkeypatch.delenv("EDM_INT8_CONV", raising=False)
+    folded = np.asarray(c["model"].apply(
+        jexport.export_serving(c["v"], JQC_, dtype=jnp.float32), c["x"], c["t"],
+        jexport.DEPLOY))
+    own = np.abs(np.asarray(c["model"].apply(c["int8"], c["x"], c["t"],
+                                             jexport.DEPLOY_INT8)) - folded).mean()
+    assert np.abs(out - ref).mean() <= max(own, 1e-6)
 
 
 @pytest.mark.parametrize("which", ["resnet_block", "attn_block",

@@ -16,7 +16,8 @@ and the share with |Δ| < 2e-4 above 0.7 where no code flips, else the mean
 drift no larger than JAX's own DEPLOY-vs-DEPLOY_INT8 drift.  DEPLOY_INT8
 is held on both attention branches: at batch 2 both packages take the
 fused one (K4's plain version, the Pallas kernel in interpret mode); the
-einsum one (K2 → K3 → K2 on the heads layout) is forced on both sides.
+einsum one (K2 → K3 → K2 on the heads layout) by ``EDM_FUSED_ATTN=0``, set
+once for both.
 """
 
 import jax
@@ -89,21 +90,32 @@ def test_deploy_forward(calibrated):
 
 @pytest.mark.parametrize("branch", ["fused", "einsum"])
 def test_deploy_int8_forward(calibrated, branch, monkeypatch):
+    """DEPLOY_INT8 on each attention branch: the default (fused at batch
+    2) and ``EDM_FUSED_ATTN=0`` (einsum), set once for both packages;
+    spies count each package's attention-kernel calls."""
     c = calibrated
     port = _port(c["int8"])
-    seen = []
-    impl = tldm.attention_impl
+    seen = {}
+    for side, module, names in (
+            ("jax", jldm, ("int8_fused_attention_heads", "int8_flash_attention_heads",
+                           "softmax_int8_codes")),
+            ("port", tldm, ("int8_fused_attention_heads", "int8_flash_attention_heads",
+                            "softmax_codes"))):
+        for name in names:
+            impl = "einsum" if "softmax" in name else name.split("_")[1]
+            fn = getattr(module, name)
 
-    def spy(*site):
-        seen.append(impl(*site) if branch == "fused" else "einsum")
-        return seen[-1]
-    monkeypatch.setattr(tldm, "attention_impl", spy)
+            def spy(*a, _fn=fn, _key=(side, impl), **k):
+                seen[_key] = seen.get(_key, 0) + 1
+                return _fn(*a, **k)
+            monkeypatch.setattr(module, name, spy)
     if branch == "einsum":
         monkeypatch.setenv("EDM_FUSED_ATTN", "0")
     ref, out, flips = _against_jax(c["model"], c["int8"], port, c["x"],
                                    c["t"], jexport.DEPLOY_INT8, DEPLOY_INT8,
                                    attn_code_flips=True)
-    assert set(seen) == {branch}
+    # seven attention sites; the port runs twice (forced, then free)
+    assert seen == {("jax", branch): 7, ("port", branch): 14}, seen
     assert out.shape == ref.shape and np.isfinite(out).all()
     _flip_gate(out, ref, 0.15, share=flips == 0)
     if flips:

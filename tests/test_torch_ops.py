@@ -7,7 +7,10 @@
   mode: every code within ±1, ≥ 99.9 % equal (reduction order may differ);
 * int8 conv (K1's plain version) inside the port's QConv vs a JAX QConv
   in DEPLOY_INT8 on a shared input and a shared exported state:
-  rtol = atol = 2e-5 (the bound of tests/test_export.py's exact-codes test).
+  rtol = atol = 2e-5 (the bound of tests/test_export.py's exact-codes test);
+* K2's plan (``bmm_plan``): the tile by the number of columns, the load
+  route by K and the operands' alignment, at the serving shapes the card
+  runs.
 """
 
 import jax
@@ -184,3 +187,19 @@ def test_cpu_dispatch_runs_plain_and_bf16_carrier():
     assert bf16.dtype == torch.bfloat16
     np.testing.assert_array_equal(bf16.float().numpy(),
                                   f32.to(torch.bfloat16).float().numpy())
+
+
+@pytest.mark.parametrize("m,n,k,ptrs,plan", [
+    (256, 256, 256, (0, 0), (tein.TILE_LARGE, tein.ROUTE_16)),    # CIFAR q·k
+    (16, 16, 256, (0, 0), (tein.TILE_SMALL, tein.ROUTE_16)),      # CIFAR mid block
+    (16, 256, 16, (0, 0), (tein.TILE_LARGE, tein.ROUTE_16)),      # its W·V
+    (4096, 77, 40, (0, 0), (tein.TILE_SMALL, tein.ROUTE_8)),      # SD cross q·k
+    (4096, 40, 77, (0, 0), (tein.TILE_SMALL, tein.ROUTE_GATHER)), # SD cross W·V
+    (4096, 160, 80, (0, 0), (tein.TILE_LARGE, tein.ROUTE_16)),    # 80 % 16 == 0
+    (32768, 2560, 320, (0, 0), (tein.TILE_LARGE, tein.ROUTE_16)), # SD GEGLU dense
+    (500, 512, 512, (0, 8), (tein.TILE_LARGE, tein.ROUTE_8)),     # an 8-aligned operand
+    (500, 512, 512, (4, 0), (tein.TILE_LARGE, tein.ROUTE_GATHER)),
+    (81, 81, 20, (0, 0), (tein.TILE_LARGE, tein.ROUTE_GATHER)),
+])
+def test_bmm_plan(m, n, k, ptrs, plan):
+    assert tein.bmm_plan(n, k, *ptrs) == plan
