@@ -23,9 +23,13 @@ exits non-zero before the last line:
    f32 epilogue bit-equal at both tiles and each load route (SD's K = 40
    and K = 77, operands off a 16-byte boundary), K2 alone timed beside its
    einsum, ``torch.bmm`` in f32 on the codes and ``torch._int_mm`` at the
-   dense shapes, with the bound, at every shape; K1 at SD's 1×1
-   ``proj_in`` (with its bound and library times) and VALID over K6's
-   padded codes; K6
+   dense shapes, with the bound, at every shape; K1 also at SD's 1×1
+   ``proj_in``, bedroom's 224 channels, SD's ``conv_in`` (Cin = 4, the
+   byte gather), CIFAR's ``conv_out`` (Cout = 3, the 128×64 tile) and
+   VALID over K6's padded codes, each with its ``conv_plan`` (tile and
+   route) and time, ``ptxas``'s registers and spills of each K1 instance,
+   CIFAR's 3×3 and SD's 1×1 beside ``F.conv2d`` in f32 and in bf16
+   channels-last on the same codes (and ``torch._int_mm`` at the 1×1); K6
    (fused GroupNorm) at the CIFAR, bedroom and SD norm sites, codes within
    ±1 and ≥ 99.9 % equal (bit-equal expected), ``gn_norm`` equal in bf16
    and within 1e-5 in f32; K7 (fake-quant matmul) equal to ``fake_quant``
@@ -217,29 +221,77 @@ def print_kernel(k):
 # phase 3: kernels against their plain versions
 
 
+def ptxas_report(lib):
+    """``[(kernel, registers, spill stores, spill loads)]`` of one library's
+    build, from ``ptxas -v``'s lines in ``_build/<lib>.log`` (names
+    demangled by ``c++filt`` where the machine has it)."""
+    import re
+    import shutil
+    from eda_dm_tpu_torch.ops import _build
+    log = _build.BUILD_DIR / f"{lib}.log"
+    rows, entry, spills = [], None, (0, 0)
+    for line in (log.read_text().splitlines() if log.exists() else []):
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            rows.append([entry, int(m.group(1)), *spills])
+            entry, spills = None, (0, 0)
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, timeout=60).stdout.split("\n")
+        for r, n in zip(rows, names):
+            r[0] = n or r[0]
+    return [tuple(r) for r in rows]
+
+
 def check_conv(g):
-    from eda_dm_tpu_torch.ops.int8_conv import (border_map, int8_conv,
+    from eda_dm_tpu_torch.ops.int8_conv import (border_map, conv_plan, int8_conv,
                                                 int8_conv_acc_plain,
                                                 int8_conv_plain, out_size,
                                                 same_pads)
+    F = torch.nn.functional
+    import re
+    for name, regs, st, ld in ptxas_report("int8_conv"):
+        m = re.search(r"int8_conv_kernel<[^()]*>", name)
+        print(f"    K1 instance {m.group(0) if m else name} (tile N, kstep, stages, route, "
+              f"out): {regs} registers, spill stores {st} B, loads {ld} B")
+
+    def bf16_conv_ms(x, w, padding):
+        """``F.conv2d`` in bf16, channels-last, on the same codes: the conv
+        that bf16-FP serving pays for."""
+        cl = torch.channels_last
+        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=cl)
+        wb = w.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=cl)
+        return cuda_ms(lambda: F.conv2d(xb, wb, padding=padding))
+
     cases = [(BATCH, "32x32x128->128 3x3 same", 32, 128, 128, 3, 1, None),
              (BATCH, "32x32x128 3x3 s2 downsample", 32, 128, 128, 3, 2, ((0, 1), (0, 1))),
              (BATCH, "16x16x256->256 1x1", 16, 256, 256, 1, 1, ((0, 0), (0, 0))),
              (BATCH, "conv_in 32x32x3->128 3x3", 32, 3, 128, 3, 1, None),
+             (BATCH, "conv_out 32x32x128->3 3x3", 32, 128, 3, 3, 1, None),
              (LDM_BATCH, "bedroom DownsampleL 64x64x224 3x3 s2 pad ((1,1),(1,1))",
               64, 224, 224, 3, 2, ((1, 1), (1, 1))),
              (LDM_BATCH, "bedroom concat 32x32x(448+224)->448 3x3", 32, 672, 448,
               3, 1, None),
+             (LDM_BATCH, "bedroom 64x64x224->224 3x3", 64, 224, 224, 3, 1, None),
+             (SD_ROWS, "SD conv_in 64x64x4->320 3x3", 64, 4, 320, 3, 1, None),
              (SD_ROWS, "SD proj_in 64x64x320->320 1x1", 64, 320, 320, 1, 1,
               ((0, 0), (0, 0))),
              # after K6, which writes the codes already padded: VALID over 34x34
              (BATCH, "3x3 VALID over K6's padded 34x34x128 codes", 34, 128, 128, 3, 1,
               ((0, 0), (0, 0)))]
-    err, timing, sd = 0.0, None, {}
+    err, timing, sd, plans, shapes = 0.0, None, {}, {}, {}
     for batch, name, hw, cin, cout, k, s, pads in cases:
         pads = pads or same_pads(hw, hw, k, k, s, s)
         x = codes(g, (batch, hw, hw, cin))
         w = codes(g, (cout, k, k, cin), -8, 7)
+        plans[f"batch {batch} {name}"] = "/".join(
+            map(str, conv_plan(cin, cout, x.data_ptr(), w.data_ptr())))
         isum = w.float().sum((1, 2, 3))
         border = (border_map(w, hw, hw, (s, s), pads)
                   if pads != ((0, 0), (0, 0)) else None)
@@ -253,8 +305,8 @@ def check_conv(g):
         acc_p = int8_conv_acc_plain(x, w, (s, s), pads)
         bad = acc_k.to(torch.int32) != acc_p
         name = f"batch {batch} {name}"
-        check(not bool(bad.any()), f"K1 {name}: int32 accumulators bit-equal "
-              f"({int(bad.sum())} differ, max |d| "
+        check(not bool(bad.any()), f"K1 {name} (plan {plans[name]}): int32 accumulators "
+              f"bit-equal ({int(bad.sum())} differ, max |d| "
               f"{float((acc_k - acc_p.float()).abs().max()):.6g})")
         args = (x, w, isum, c, scale, bias, (s, s), pads, border)
         out_k = int8_conv(*args, torch.float32)
@@ -267,15 +319,19 @@ def check_conv(g):
         check(torch.equal(int8_conv(*args, torch.bfloat16),
                           int8_conv_plain(*args, torch.bfloat16)),
               f"K1 {name}: bf16 output equal")
-        if name.startswith(f"batch {SD_ROWS} SD"):
+        if timing is not None and not name.startswith(f"batch {SD_ROWS} SD proj_in"):
+            shapes[name] = dict(ms=cuda_ms(lambda: int8_conv(*args, torch.bfloat16)),
+                                plan=plans[name])
+        if name.startswith(f"batch {SD_ROWS} SD proj_in"):
             # a 1x1 conv is a matmul over channels: (8*64*64, 320)x(320, 320)
             xf = x.permute(0, 3, 1, 2).float()
             wf = w.permute(0, 3, 1, 2).float()
             x2, w2 = x.reshape(-1, cin), w.reshape(cout, cin).t().contiguous()
             sd[name] = dict(
                 ms=cuda_ms(lambda: int8_conv(*args, torch.bfloat16)),
-                library_ms=cuda_ms(lambda: torch.nn.functional.conv2d(xf, wf)),
+                library_ms=cuda_ms(lambda: F.conv2d(xf, wf)),
                 int_mm_ms=cuda_ms(lambda: torch._int_mm(x2, w2)),
+                bf16_conv_ms=bf16_conv_ms(x, w, 0), plan=plans[name],
                 **dict(zip(("bound_ms", "bound_by"), bound(
                     x.numel() + w.numel() + x.numel() // cin * cout * 2 + 3 * cout * 4,
                     2 * x.numel() * cout, INT8_PEAK))))
@@ -291,13 +347,17 @@ def check_conv(g):
                 shape=f"{name}, bf16 out",
                 ms=cuda_ms(lambda: int8_conv(*args, torch.bfloat16)),
                 plain_ms=cuda_ms(lambda: int8_conv_plain(*args, torch.bfloat16)),
-                library_ms=cuda_ms(lambda: torch.nn.functional.conv2d(
-                    xf, wf, padding=1)),
+                library_ms=cuda_ms(lambda: F.conv2d(xf, wf, padding=1)),
+                bf16_conv_ms=bf16_conv_ms(x, w, 1), plan=plans[name],
                 **dict(zip(("bound_ms", "bound_by"), bound(nbytes, ops, INT8_PEAK))))
+            del xf, wf
+    for name, plan in plans.items():
+        print(f"    K1 plan at {name}: {plan} (tile 0 = 128x128, 1 = 128x64 / route 16, "
+              "8 bytes, or 1: the gather)")
     return dict(name="int8_conv", route="cuda",
                 source="eda_dm_tpu_torch/csrc/int8_conv.cu",
                 replaces="eda_dm_tpu/nn/layers.py:471", max_abs_err=err, sd_ms=sd,
-                **timing)
+                plans=plans, shapes_ms=shapes, **timing)
 
 
 def _offset_codes(g, shape, offset):
@@ -1447,6 +1507,8 @@ def main():
     secs = _build.build()
     print(f"[2] build: {secs:.1f} s for {', '.join(_build.CUDA_SOURCES)}")
     for name in _build.CUDA_SOURCES:
+        if name == "int8_conv":      # by instance in phase 3
+            continue
         log = (_build.BUILD_DIR / f"{name}.log")
         for line in (log.read_text().splitlines() if log.exists() else []):
             if "registers" in line or "spill" in line:
@@ -1578,7 +1640,8 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     extra = ("cifar_launches", "bedroom_launches", "per_forward", "chain_ms", "einsum_ms",
-             "bmm_f32_ms", "transposing_ms", "streamed_ms", "acc_ms", "other_tile_ms", "sd_ms", "shapes_ms", "rates", "plain_by_shape",
+             "bmm_f32_ms", "bf16_conv_ms", "plans", "transposing_ms", "streamed_ms",
+             "acc_ms", "other_tile_ms", "sd_ms", "shapes_ms", "rates", "plain_by_shape",
              "library_peak")
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{**{k: kern[k] for k in keys},

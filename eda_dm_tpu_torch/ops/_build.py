@@ -90,13 +90,18 @@ def cuda_lib(name: str, signatures: Dict[str, list]) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
         build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        lib.edm_error_string.argtypes = [ctypes.c_int]
-        lib.edm_error_string.restype = ctypes.c_char_p
-        for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _libs[name] = lib
+        lib = _libs[name] = load_lib(_lib_path(name), signatures)
+    return lib
+
+
+def load_lib(path: Path, signatures: Dict[str, list]) -> ctypes.CDLL:
+    """Load a built kernel library and set its entry points' types."""
+    lib = ctypes.CDLL(str(path))
+    lib.edm_error_string.argtypes = [ctypes.c_int]
+    lib.edm_error_string.restype = ctypes.c_char_p
+    for fn, argtypes in signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 

@@ -9,9 +9,11 @@ the pad indicator:
 
     out = (acc + c·(isum − border))·(Δx·Δw) + bias
 
-On a CUDA tensor :func:`int8_conv` launches ``csrc/int8_conv.cu``; on a
-CPU tensor it runs the plain version.  Activations are NHWC, weight codes
-``[Cout, kh, kw, Cin]``.
+On a CUDA tensor :func:`int8_conv` launches ``csrc/int8_conv.cu`` (an
+implicit GEMM on the tensor-core mainloop ``csrc/int8_gemm.cuh``, by the
+tile and load route :func:`conv_plan` chooses); on a CPU tensor it runs
+the plain version.
+Activations are NHWC, weight codes ``[Cout, kh, kw, Cin]``.
 """
 
 from __future__ import annotations
@@ -23,12 +25,27 @@ import torch
 import torch.nn.functional as F
 
 from ._build import check_launch, cuda_lib, launch_counts, ptr, stream_ptr
-from .int8_einsum import exact_float, tf32_off
+from .int8_einsum import TILE_LARGE, TILE_SMALL, exact_float, load_route, tf32_off
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 
 _CONV_SIG = {"edm_int8_conv": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14
-             + [ctypes.c_void_p] * 6}
+             + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
+
+SMALL_COUT_MAX = 64      # the 128 x 64 tile up to this many output channels
+
+
+def conv_plan(cin: int, cout: int, x_ptr: int, w_ptr: int) -> Tuple[int, int]:
+    """K1's (tile, route) for a conv of ``cin`` → ``cout`` channels on codes
+    at ``x_ptr`` and weight codes at ``w_ptr``: the 128 x 64 tile
+    (``TILE_SMALL``) where Cout ≤ 64, the UNets' ``conv_out``s (Cout = 3 or
+    4; on the H100 it took CIFAR's 0.45 ms on the 128 x 128 tile to 0.28,
+    ``probes/conv_plans.py``), else 128 x 128; the route by
+    :func:`~eda_dm_tpu_torch.ops.int8_einsum.load_route` of a pixel's Cin
+    codes (a 16-byte copy never crosses a tap where Cin % 16 == 0).  The K
+    step and ring are fixed per route in ``csrc/int8_conv.cu``."""
+    tile = TILE_SMALL if cout <= SMALL_COUT_MAX else TILE_LARGE
+    return tile, load_route(cin, x_ptr, w_ptr)
 
 
 def same_pads(h: int, w: int, kh: int, kw: int, sh: int, sw: int) -> Pads:
@@ -106,15 +123,15 @@ def int8_conv_plain(codes, w_codes, isum, c, scale, bias, stride, pads,
 
 
 def _int8_conv_cuda(codes, w_codes, isum, c, scale, bias, stride, pads,
-                    border, out_dtype):
+                    border, out_dtype, tile=None):
+    """The kernel's launch at :func:`conv_plan`'s plan, or at ``tile`` with
+    its route (the card tests and the probe pass both tiles)."""
     dev = codes.device
     if codes.dtype != torch.int8 or w_codes.dtype != torch.int8:
         raise ValueError("int8_conv takes int8 codes and int8 weight codes")
     if not (codes.is_contiguous() and w_codes.is_contiguous()):
         raise ValueError("int8_conv takes contiguous NHWC codes and "
                          "[Cout, kh, kw, Cin] weight codes")
-    if codes.data_ptr() % 16 or w_codes.data_ptr() % 16:
-        raise ValueError("int8_conv takes 16-byte aligned operands")
     n, h, w, cin = codes.shape
     cout, kh, kw, cin_w = w_codes.shape
     if cin_w != cin:
@@ -122,6 +139,10 @@ def _int8_conv_cuda(codes, w_codes, isum, c, scale, bias, stride, pads,
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"int8_conv writes float32 or bfloat16, not {out_dtype}")
     ho, wo = out_size(h, w, kh, kw, stride, pads)
+    if n * max(h * w, ho * wo) >= 2 ** 31:
+        raise ValueError("int8_conv indexes pixels in 32 bits")
+    plan_tile, route = conv_plan(cin, cout, codes.data_ptr(), w_codes.data_ptr())
+    tile = plan_tile if tile is None else tile
     for t, shape, dt, what in ((isum, (cout,), torch.float32, "isum"),
                                (scale, (cout,), torch.float32, "scale"),
                                (c, (), torch.float32, "c"),
@@ -136,7 +157,7 @@ def _int8_conv_cuda(codes, w_codes, isum, c, scale, bias, stride, pads,
         ptr(codes), ptr(w_codes), ptr(out), int(out_dtype == torch.bfloat16),
         n, h, w, cin, ho, wo, cout, kh, kw, stride[0], stride[1],
         pads[0][0], pads[1][0], ptr(isum), ptr(border), ptr(c), ptr(scale),
-        ptr(bias), stream_ptr(dev))
+        ptr(bias), tile, route, stream_ptr(dev))
     check_launch(lib, err, "int8_conv")
     launch_counts["int8_conv"] += 1
     return out

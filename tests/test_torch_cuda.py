@@ -6,9 +6,12 @@ machine (no JAX there, so without the JAX conftest):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 Shapes are the ragged ones the CIFAR path does not reach: M, N not
-multiples of the 128 tile, Cin not a multiple of 32 (the byte-gather path
-of K1), K not a multiple of 4 (K2's tail, SD's 77 context tokens), softmax
-rows that are not a power of two, query and key lengths that are not
+multiples of the 128 tile, K1 at each load route (16-byte copies with K
+steps that cross taps at Cin = 224, 8-byte at Cin = 24, the byte gather at
+the conv_ins' Cin = 3 and 4, each at both tiles), stride 2, VALID over
+padded codes, K not a
+multiple of 4 (K2's tail, SD's 77 context tokens), softmax rows that are
+not a power of two, query and key lengths that are not
 multiples of K5's 64-row tiles, GroupNorm groups of 3 and 21 channels
 and slices past 48 KB of shared memory (K6), and fake-quant matmuls with
 ragged M, N, K and strided weights (K7).  Integer accumulators
@@ -44,33 +47,66 @@ def _codes(g, shape, lo=-128, hi=127):
                          dtype=torch.int32).to(torch.int8)
 
 
+VALID = ((0, 0), (0, 0))
 CONV = [  # n, hw, cin, cout, k, stride, pads (None = SAME)
     (3, 7, 32, 40, 3, 1, None),
     (2, 9, 64, 64, 3, 2, ((0, 1), (0, 1))),
     (2, 8, 3, 32, 3, 1, None),
-    (2, 6, 96, 130, 1, 1, ((0, 0), (0, 0))),
+    (2, 6, 96, 130, 1, 1, VALID),
     (2, 5, 48, 16, 3, 1, None),
+    (2, 9, 224, 224, 3, 1, None),            # 16-byte copies, K steps across taps
+    (2, 7, 24, 40, 3, 1, None),              # the 8-byte route
+    (2, 10, 4, 320, 3, 1, None),             # SD's conv_in: the byte gather
+    (3, 11, 64, 96, 3, 2, ((1, 1), (1, 1))), # stride 2, symmetric pads
+    (2, 10, 32, 48, 3, 1, VALID),            # VALID over padded codes (K6's route)
+    (1, 5, 16, 24, 3, 1, None),              # M and Cout under one tile
 ]
+
+
+def _conv_args(gen, case):
+    from eda_dm_tpu_torch.ops.int8_conv import border_map, same_pads
+    n, hw, cin, cout, k, s, pads = case
+    pads = pads or same_pads(hw, hw, k, k, s, s)
+    x = _codes(gen, (n, hw, hw, cin))
+    w = _codes(gen, (cout, k, k, cin), -8, 7)
+    isum = w.float().sum((1, 2, 3))
+    border = border_map(w, hw, hw, (s, s), pads) if pads != VALID else None
+    return (x, w, isum, torch.tensor(21.0, device="cuda"),
+            torch.rand(cout, generator=gen, device="cuda") * 1e-2,
+            torch.randn(cout, generator=gen, device="cuda"), (s, s), pads, border)
 
 
 @pytest.mark.parametrize("case", CONV, ids=lambda c: "x".join(map(str, c[:6])))
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_int8_conv_kernel(gen, case, out_dtype):
-    from eda_dm_tpu_torch.ops.int8_conv import (border_map, int8_conv,
-                                                int8_conv_plain, same_pads)
-    n, hw, cin, cout, k, s, pads = case
-    pads = pads or same_pads(hw, hw, k, k, s, s)
-    x = _codes(gen, (n, hw, hw, cin))
-    w = _codes(gen, (cout, k, k, cin), -8, 7)
-    isum = w.float().sum((1, 2, 3))
-    border = border_map(w, hw, hw, (s, s), pads) if pads != ((0, 0), (0, 0)) else None
-    args = (x, w, isum, torch.tensor(21.0, device="cuda"),
-            torch.rand(cout, generator=gen, device="cuda") * 1e-2,
-            torch.randn(cout, generator=gen, device="cuda"), (s, s), pads, border)
+    from eda_dm_tpu_torch.ops.int8_conv import int8_conv, int8_conv_plain
+    args = _conv_args(gen, case)
     out = int8_conv(*args, out_dtype)
     torch.cuda.synchronize()
     assert torch.equal(out, int8_conv_plain(*args, out_dtype))
+
+
+@pytest.mark.parametrize("tile", [0, 1], ids=["128x128", "128x64"])
+@pytest.mark.parametrize("case,route", [
+    ((2, 9, 224, 200, 3, 1, None), 16), ((2, 7, 24, 40, 3, 1, None), 8),
+    ((2, 10, 4, 70, 3, 1, None), 1)], ids=["16-byte", "8-byte", "gather"])
+def test_int8_conv_routes(gen, case, route, tile):
+    """Each load route of K1 at each tile, equal to the plain version: the
+    int32 sums through a unit epilogue, and the bf16 output."""
+    from eda_dm_tpu_torch.ops.int8_conv import (_int8_conv_cuda, conv_plan,
+                                                int8_conv_acc_plain, int8_conv_plain)
+    x, w, isum, c, scale, bias, stride, pads, border = _conv_args(gen, case)
+    cout = w.shape[0]
+    assert conv_plan(x.shape[-1], cout, x.data_ptr(), w.data_ptr())[1] == route
+    acc = _int8_conv_cuda(x, w, isum, torch.zeros((), device="cuda"),
+                          torch.ones(cout, device="cuda"), None, stride, pads, border,
+                          torch.float32, tile=tile)
+    torch.cuda.synchronize()
+    assert torch.equal(acc.to(torch.int32), int8_conv_acc_plain(x, w, stride, pads))
+    args = (x, w, isum, c, scale, bias, stride, pads, border)
+    assert torch.equal(_int8_conv_cuda(*args, torch.bfloat16, tile=tile),
+                       int8_conv_plain(*args, torch.bfloat16))
 
 
 BMM = [  # batch, m, n, k: each tile (128 x 128; 64 x 64 where N <= 80)

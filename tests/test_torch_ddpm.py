@@ -132,9 +132,13 @@ def einsum_attention(monkeypatch, branch_spy):
     return branch_spy
 
 
-def _flip_gate(out, ref, max_abs, share=True):
+def _flip_gate(out, ref, max_abs, share=True, median=True):
+    """The whole-output bounds: max |Δ| < ``max_abs`` always; the median
+    below 2e-4 where ``median`` and the share with |Δ| < 2e-4 above 0.7
+    where ``share`` (callers pass "no code flipped" for either)."""
     d = np.abs(np.asarray(out, np.float32) - np.asarray(ref, np.float32))
-    assert np.median(d) < 2e-4, np.median(d)
+    if median:
+        assert np.median(d) < 2e-4, np.median(d)
     assert d.max() < max_abs, d.max()
     if share:
         assert (d < 2e-4).mean() > 0.7, (d < 2e-4).mean()
@@ -490,10 +494,13 @@ def test_tiny_ddpm_fused_gn_matches_jax(calibrated, k6_spy, monkeypatch):
     """Every GroupNorm of the tiny DDPM in both packages through K6: two
     per ResnetBlock (into conv1 and conv2), one per attention block and
     ``norm_out``.  Each module on JAX's input as in ``_against_jax``,
-    where a code computed inside K6 may flip on a tie (one does, at
-    ``up.0.block.1.conv2``); the output through the flip-aware gate, and
-    the mean drift to the nearer of JAX's fused and unfused runs no larger
-    than the drift between those two."""
+    where a code computed inside K6 may flip on a tie (on some hosts one
+    does, at ``up.0.block.1.conv2``).  Where no act code differs, the
+    output within rtol = atol = 2e-5 of JAX's, element by element.  Where
+    codes flip, the flip-aware gate, and the mean drift to the nearer of
+    JAX's fused and unfused runs no larger than the drift between those
+    two: with no flip, both drifts are float32 rounding noise, and that
+    comparison says nothing."""
     monkeypatch.setenv("EDM_FUSED_GN_NARROW", "1")
     c = calibrated
     port = from_jax_variables(_np(c["int8"]), CFG, QC, device="cpu")
@@ -508,9 +515,12 @@ def test_tiny_ddpm_fused_gn_matches_jax(calibrated, k6_spy, monkeypatch):
     assert all(fused for _, fused in k6_spy["jax_gate"])
     assert out.shape == ref.shape and np.isfinite(out).all()
     _flip_gate(out, ref, 0.15, share=flips == 0)
-    # JAX computes the same function unfused too; the flip above lands the
-    # port next to that run, so its drift to the nearer of JAX's two runs
-    # is held to the drift between them
+    if flips == 0:
+        np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-5)
+        return
+    # JAX computes the same function unfused too; a flip lands the port
+    # next to that run, so its drift to the nearer of JAX's two runs is
+    # held to the drift between them
     monkeypatch.setenv("EDM_FUSED_GN", "0")
     unfused = np.asarray(c["model"].apply(c["int8"], c["x"], c["t"],
                                           jexport.DEPLOY_INT8))
@@ -545,11 +555,16 @@ def test_deploy_fused_forward(calibrated, k7_spy):
 
 def test_ddim_sampling_int8(calibrated):
     """Four DDIM steps at eta=0 through DEPLOY_INT8.  Step by step on JAX's
-    own x_t: the forward is held as in :func:`_against_jax` (at t = 35 a
-    code flips at a tie and spreads) and the DDIM update on JAX's (x_t, ε)
-    within 2e-5.  Run freely: the flip-aware median / max bounds, and the
-    mean drift no larger than JAX's own folded-vs-int8 drift on the same
-    trajectory."""
+    own x_t: the forward is held as in :func:`_against_jax` (on some hosts
+    a code flips at a tie at t = 35 and spreads) and the DDIM update on
+    JAX's (x_t, ε) within 2e-5.  Run freely: the flip-aware median / max
+    bounds, with the share bound only where no act code of the free run
+    differs from JAX's (the port's codes on its own x_t against JAX's on
+    JAX's x_t, step by step: the two x_t part once any code on a tie flips
+    along the way, also between JAX's jitted trajectory and the eager
+    forwards held above, so codes may differ there though none does on
+    JAX's x_t), and the mean drift no larger than JAX's own
+    folded-vs-int8 drift on the same trajectory."""
     c = calibrated
     # a 100-step schedule keeps alpha-bar above ~0.4, so the x0 estimate
     # (x − √(1−ᾱ)·ε)/√ᾱ does not amplify the drift 100-fold as the first
@@ -572,7 +587,6 @@ def test_ddim_sampling_int8(calibrated):
     port = from_jax_variables(_np(c["int8"]), CFG, QC, device="cpu")
     ja, pa = jalphas(betas), alphas_cumprod_padded(betas)
     seq_next = [-1] + list(seq[:-1])
-    flipped = False
     for k, (i, j) in enumerate(zip(seq[::-1], seq_next[::-1])):
         xk = np.array(steps["x"][k])
         assert int(steps["t"][k]) == i
@@ -580,7 +594,6 @@ def test_ddim_sampling_int8(calibrated):
         eps, eps_port, flips = _against_jax(model, c["int8"], port, xk, t,
                                             jexport.DEPLOY_INT8, DEPLOY_INT8)
         _flip_gate(eps_port, eps, 0.15, share=flips == 0)
-        flipped |= flips > 0
         nxt, _ = jddim.ddim_denoise_step(jnp.asarray(xk), jnp.asarray(eps),
                                          ja[i + 1], ja[j + 1], 0.0, 0.0)
         nxt_port, _ = ddim_denoise_step(
@@ -588,13 +601,30 @@ def test_ddim_sampling_int8(calibrated):
             pa[j + 1], 0.0, None)
         np.testing.assert_allclose(nxt_port.numpy(), np.asarray(nxt),
                                    rtol=2e-5, atol=2e-5)
-    out = generalized_steps(torch.from_numpy(x), seq,
-                            lambda xx, tt: port(xx, tt, DEPLOY_INT8), betas,
+    free = []
+
+    def port_eps(xx, tt):
+        with tap(port, ActQuantizer) as rec:
+            eps = port(xx, tt, DEPLOY_INT8)
+        free.append(rec)
+        return eps
+
+    out = generalized_steps(torch.from_numpy(x), seq, port_eps, betas,
                             eta=0.0, device="cpu").numpy()
-    assert np.isfinite(out).all()
+    assert np.isfinite(out).all() and len(free) == len(seq)
+    free_flips = 0
+    for k, rec in enumerate(free):
+        xk = np.array(steps["x"][k])
+        t = np.full((xk.shape[0],), int(steps["t"][k]), np.float32)
+        _, jrec = _jax_tapped(model, c["int8"], (xk, t), jexport.DEPLOY_INT8)
+        rows = act_code_flips(port, rec, jrec)
+        n = sum(r[2] for r in rows)
+        free_flips += n
+        print(f"\n  free run, t={int(steps['t'][k])}: {n} act codes differ, the "
+              f"first in {next((r for r in rows if r[2]), None)}")
     d, dj = np.abs(out - ref), np.abs(folded - ref)
-    print(f"  free run: median {np.median(d):.3g} max {d.max():.3g} mean "
-          f"{d.mean():.3g} share<2e-4 {(d < 2e-4).mean():.4f}; JAX folded vs "
-          f"int8: mean {dj.mean():.3g}")
-    _flip_gate(out, ref, 0.3, share=not flipped)
+    print(f"  free run: {free_flips} act codes differ; median {np.median(d):.3g} "
+          f"max {d.max():.3g} mean {d.mean():.3g} share<2e-4 "
+          f"{(d < 2e-4).mean():.4f}; JAX folded vs int8: mean {dj.mean():.3g}")
+    _flip_gate(out, ref, 0.3, share=free_flips == 0)
     assert d.mean() <= dj.mean()

@@ -10,8 +10,17 @@
   rtol = atol = 2e-5 (the bound of tests/test_export.py's exact-codes test);
 * K2's plan (``bmm_plan``): the tile by the number of columns, the load
   route by K and the operands' alignment, at the serving shapes the card
-  runs.
+  runs;
+* K1's plan (``conv_plan``) at every conv of the full CIFAR, bedroom and SD
+  UNets (built on the meta device): the 16-byte route wherever Cin % 16 ==
+  0, the byte gather at the ``conv_in``s, the 128 x 64 tile only where
+  Cout ≤ 64; each tile's ring (step and slots fixed per route in
+  ``csrc/int8_conv.cu``) within the card's 227 KB of shared memory a
+  block.
 """
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +37,7 @@ from eda_dm_tpu.quant.export import export_serving_int8 as j_export_int8
 from eda_dm_tpu_torch.models.bridge import load_jax_variables, to_jax_variables
 from eda_dm_tpu_torch.nn.layers import QConv, QDense
 from eda_dm_tpu_torch.ops import int8_einsum as tein
-from eda_dm_tpu_torch.ops.int8_conv import border_map, int8_conv
+from eda_dm_tpu_torch.ops.int8_conv import border_map, conv_plan, int8_conv
 from eda_dm_tpu_torch.ops.softmax_codes import softmax_int8_codes
 from eda_dm_tpu_torch.quant import DEPLOY_INT8
 
@@ -203,3 +212,55 @@ def test_cpu_dispatch_runs_plain_and_bf16_carrier():
 ])
 def test_bmm_plan(m, n, k, ptrs, plan):
     assert tein.bmm_plan(n, k, *ptrs) == plan
+
+
+def _conv_shapes(which):
+    """(Cin, Cout, kernel, strides) of every QConv of a full UNet."""
+    from unittest import mock
+    from eda_dm_tpu_torch.models.ddpm_unet import DDPMConfig, DDPMUNet
+    from eda_dm_tpu_torch.models.latent_diffusion import bedroom_config, sd_v1_config
+    from eda_dm_tpu_torch.models.ldm_unet import LDMUNet
+    from eda_dm_tpu_torch.quant import QuantConfig as TQC
+    qc = TQC(weight_bit=4, act_bit=8)
+    build = {"cifar": lambda: DDPMUNet(DDPMConfig(), qc, device="meta"),
+             "bedroom": lambda: LDMUNet(bedroom_config().unet, qc, device="meta"),
+             "sd": lambda: LDMUNet(sd_v1_config().unet, qc, device="meta")}[which]
+    with mock.patch.object(DDPMUNet, "init_weights", lambda *a: None), \
+            mock.patch.object(LDMUNet, "init_weights", lambda *a: None):
+        model = build()
+    return sorted({(m.weight.shape[1], m.weight.shape[0], m.kernel_size, m.strides)
+                   for m in model.modules() if isinstance(m, QConv)})
+
+
+@pytest.mark.parametrize("which,n_shapes,conv_in", [("cifar", 17, 3), ("bedroom", 35, 3),
+                                                   ("sd", 29, 4)])
+def test_conv_plan_every_unet_conv(which, n_shapes, conv_in):
+    shapes = _conv_shapes(which)
+    assert len(shapes) == n_shapes
+    assert sum(cin % 16 != 0 for cin, *_ in shapes) == 1
+    for cin, cout, k, stride in shapes:
+        route = tein.ROUTE_GATHER if cin == conv_in else tein.ROUTE_16
+        tile = tein.TILE_SMALL if cout <= 64 else tein.TILE_LARGE
+        assert conv_plan(cin, cout, 0, 256) == (tile, route), (cin, cout, k, stride)
+    assert sum(cout <= 64 for _, cout, *_ in shapes) == 1      # conv_out
+
+
+@pytest.mark.parametrize("cin,ptrs,route", [
+    (224, (0, 0), tein.ROUTE_16), (24, (0, 0), tein.ROUTE_8),
+    (128, (8, 0), tein.ROUTE_8), (128, (0, 4), tein.ROUTE_GATHER),
+    (3, (0, 0), tein.ROUTE_GATHER), (4, (0, 0), tein.ROUTE_GATHER)])
+def test_conv_plan_route(cin, ptrs, route):
+    """The route by Cin and both operands' alignment, at either tile."""
+    assert conv_plan(cin, 128, *ptrs) == (tein.TILE_LARGE, route)
+    assert conv_plan(cin, 64, *ptrs) == (tein.TILE_SMALL, route)
+
+
+@pytest.mark.parametrize("tile_n", [128, 64])
+def test_conv_ring_fits_shared_memory(tile_n):
+    """K1's 16-byte ring as ``csrc/int8_conv.cu`` fixes it, and the narrow
+    routes' 64-byte steps in 4 slots, fit the H100's 227 KB of shared
+    memory a block at either tile (128 pixels by ``tile_n`` channels)."""
+    src = (Path(tein.__file__).parent.parent / "csrc" / "int8_conv.cu").read_text()
+    k1 = {name: int(v) for name, v in re.findall(r"#define (K1_\w+) (\d+)", src)}
+    for kstep, stages in ((k1["K1_KSTEP"], k1["K1_STAGES"]), (64, 4)):
+        assert stages * (128 + tile_n) * (kstep + 16) <= 227 * 1024

@@ -95,6 +95,16 @@ def test_entry_points_refuse_the_host_without_cpu_opt_in():
             mma_int8.main(device=device, shapes=((256, 128),), steps=1)
 
 
+def test_conv_plans_probe_needs_a_card():
+    """K1's variant probe builds and times kernels only: it refuses the
+    host, CPU included, before it builds anything."""
+    from eda_dm_tpu_torch.probes import conv_plans
+    for device, what in ((None, "no CUDA device"), ("cuda", "no CUDA device"),
+                         ("cpu", "needs a CUDA card")):
+        with pytest.raises(RuntimeError, match=what):
+            conv_plans.main(device=device)
+
+
 def test_modules_mirror_jax_paths():
     """Module paths map mechanically onto the JAX variable paths."""
     from eda_dm_tpu_torch.models.bridge import _child
