@@ -534,7 +534,8 @@ def check_attention(g, sms, clock_hz):
     heads), the two CIFAR sites at batch 8 and SD's three fused sites at
     8 rows (32x32, 16x16, 8x8)."""
     from eda_dm_tpu_torch.ops.int8_attention import (
-        _int8_fused_attention_cuda, attention_scalars, int8_fused_attention_plain)
+        K4_PLAN_ARGS, _int8_fused_attention_cuda, attention_plan, attention_scalars,
+        int8_fused_attention_plain)
     from eda_dm_tpu_torch.ops.int8_einsum import int8_code_einsum
     from eda_dm_tpu_torch.ops.softmax_codes import softmax_int8_codes
     err, timing, sd = 0.0, None, {}
@@ -570,6 +571,7 @@ def check_attention(g, sms, clock_hz):
                 plain_ms=cuda_ms(lambda: int8_fused_attention_plain(Q, K, V, sc, 256),
                                  reps=5),
                 library_ms=None, chain_ms=cuda_ms(chain, reps=5),
+                plan=" ".join(f"{k} {attention_plan(s, c)[k]}" for k in K4_PLAN_ARGS),
                 **dict(zip(("bound_ms", "bound_by"),
                            bound(n * 7 * s * c, 4 * n * s * s * c, INT8_PEAK, exp_ms))))
             print(f"    K4 bound parts: bytes {n * 7 * s * c / HBM * 1e3:.4f} ms, int8 "

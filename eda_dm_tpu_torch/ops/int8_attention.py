@@ -39,6 +39,7 @@ version.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -46,7 +47,7 @@ from ._build import check_launch, cuda_lib, launch_counts, ptr, stream_ptr
 from .int8_einsum import int8_bmm_acc_plain
 
 _ATTN_SIG = {"edm_int8_fused_attention": [ctypes.c_void_p] * 6
-             + [ctypes.c_int] * 4 + [ctypes.c_void_p]}
+             + [ctypes.c_int] * 10 + [ctypes.c_void_p]}
 _FLASH_SIG = {"edm_int8_flash_attention": [ctypes.c_void_p] * 6
               + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
 # query rows per chunk of K5's plain version: bounds its (N, rows, Skv)
@@ -83,6 +84,71 @@ def flash_attention_applicable(sq: int, skv: int, c: int,
     if not _head_width_ok(c, narrow_lanes):
         return False
     return 2 * skv * c + 4 * tq * c * 3 + 4 * tq * tk <= GATE_BYTES
+
+
+# the plan's entries, in the order the kernel's entry point takes them
+K4_PLAN_ARGS = ("tq", "threads", "cq", "tj", "tv", "smem")
+# K4's fixed sizes (``csrc/int8_attention.cu``, held equal by a test): query
+# rows and warps a block, ring slots, output columns a phase-3 chunk, n8 key
+# tiles a warp in phase 1 at a time, header bytes
+K4_TQ, K4_WARPS, K4_STAGES, K4_CB, K4_NI_MAX, K4_HDR = 32, 16, 2, 256, 4, 4096
+# K4's tile sizes in keys (K and V tiles each): on the H100 a pipeline step
+# costs about as much again in barriers and dependent latency as in work,
+# so the plan takes the fewest, largest tiles that fit
+K4_TILE_KEYS = (64, 128, 256, 512, 1024)
+# the H100's shared memory a block: the opt-in maximum
+BLOCK_SMEM_MAX = 232_448
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def k4_cq(c: int) -> int:
+    """Bytes of C a phase-1 step: C rounded up to 32 up to 256, else 128."""
+    return _round_up(c, 32) if c <= K4_CB else 128
+
+
+def k4_smem_bytes(s: int, c: int, tj: int, tv: int):
+    """K4's dynamic shared bytes (the kernel's ``k4_layout``) with K tiles
+    of ``tj`` keys and V tiles of ``tv``, or None where that pair does not
+    fit a block or a warp's split: header, f32 logits rows of S + 4 (the
+    codes overwrite them), the int32 W·V sums, the Q tile, and the ring,
+    whose slot holds a K tile (with its Q chunk where C takes several) or a
+    V tile (rows of the chunk's columns rounded up to 32, plus 8).  A warp
+    takes a K tile's n8 key tiles ``K4_NI_MAX`` at a time, so a K tile
+    holds several such chunks only where C is one step."""
+    cq, cb0 = k4_cq(c), min(c, K4_CB)
+    ni1 = tj // (8 * K4_WARPS // (K4_TQ // 16))      # n8 key tiles a warp
+    if tj % (8 * K4_WARPS // (K4_TQ // 16)) or ni1 < 1 or (
+            ni1 > K4_NI_MAX and (ni1 % K4_NI_MAX or c > cq)):
+        return None
+    slot1 = (tj + (K4_TQ if c > cq else 0)) * (cq + 16)
+    slot3 = tv * (_round_up(cb0, 32) + 8)
+    smem = (K4_HDR + K4_TQ * 4 * (s + 4) + K4_TQ * 4 * cb0 + K4_TQ * (cq + 16)
+            + K4_STAGES * max(slot1, slot3))
+    return smem if smem <= BLOCK_SMEM_MAX else None
+
+
+@functools.lru_cache(maxsize=None)
+def attention_plan(s: int, c: int) -> dict:
+    """K4's launch plan at (S, C): ``K4_TQ`` = 32 query rows in one block
+    of 16 warps (rows past S zero-filled), C in steps of ``cq`` bytes, and
+    the K and V tile sizes in keys with the fewest steps, then the least
+    shared memory, that fit.  Returns ``tq``, ``threads``, ``cq``, ``tj``,
+    ``tv`` and ``smem`` (the dynamic shared bytes); cached, so a launch
+    pays no search."""
+    best = None
+    for tj in K4_TILE_KEYS:
+        for tv in K4_TILE_KEYS:
+            smem = k4_smem_bytes(s, c, tj, tv)
+            key = (-(-s // tj) + -(-s // tv), smem)
+            if smem is not None and (best is None or key < best[0]):
+                best = key, dict(tq=K4_TQ, threads=32 * K4_WARPS, cq=k4_cq(c), tj=tj,
+                                 tv=tv, smem=smem)
+    if best is None:
+        raise ValueError(f"int8_fused_attention: no plan fits S={s}, C={c}")
+    return best[1]
 
 
 def attention_scalars(cq, dq, ck, dk, cv, dv, attn_scale: float, dw, zw,
@@ -137,10 +203,11 @@ def _int8_fused_attention_cuda(Q, K, V, sc, n_levels_w, return_codes):
     out = torch.empty((n, s, c), dtype=torch.float32, device=dev)
     codes = (torch.empty((n, s, s), dtype=torch.int8, device=dev)
              if return_codes else None)
+    plan = attention_plan(s, c)
     lib = cuda_lib("int8_attention", _ATTN_SIG)
     err = lib.edm_int8_fused_attention(
         ptr(Q), ptr(K), ptr(V), ptr(sc.contiguous()), ptr(out), ptr(codes),
-        n, s, c, n_levels_w, stream_ptr(dev))
+        n, s, c, n_levels_w, *(plan[k] for k in K4_PLAN_ARGS), stream_ptr(dev))
     check_launch(lib, err, "int8_fused_attention")
     launch_counts["int8_attention"] += 1
     return (out, codes) if return_codes else out

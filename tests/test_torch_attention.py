@@ -10,11 +10,17 @@ version) against the JAX package on the CPU.
   the row sums may round differently in the last bit), the output within
   rtol = atol = 1e-5 on every row whose codes agree.  JAX's codes are its
   kernel body's arithmetic replayed with ``jnp``.
+* ``attention_plan`` (K4's launch plan): 16 warps a block within the
+  H100's shared memory at every shape the gate admits, its fixed sizes
+  and layout those of ``csrc/int8_attention.cu``.
 * the heads layout (``int8_fused_attention_heads``) and the heads-layout
   einsums of the LDM einsum branch (``bthc,bshc->bhts``,
   ``bhts,bshc->bthc``): the int8 products are exact, the epilogues run in
   the JAX order (rtol = atol = 1e-6).
 """
+
+import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,8 +31,11 @@ from eda_dm_tpu.ops import int8_einsum as jein
 from eda_dm_tpu.ops import pallas_attention as jpa
 from eda_dm_tpu.ops import serving_policy as jpolicy
 from eda_dm_tpu_torch.ops import int8_einsum as tein
-from eda_dm_tpu_torch.ops.int8_attention import (int8_fused_attention,
-                                                 int8_fused_attention_heads)
+from eda_dm_tpu_torch.ops.int8_attention import (BLOCK_SMEM_MAX, K4_CB, K4_HDR, K4_NI_MAX,
+                                                 K4_STAGES, K4_TILE_KEYS, K4_TQ, K4_WARPS,
+                                                 attention_plan, fused_attention_applicable,
+                                                 int8_fused_attention,
+                                                 int8_fused_attention_heads, k4_smem_bytes)
 from eda_dm_tpu_torch.ops.serving_policy import attention_impl
 
 GRID = [  # batch, heads, S, C
@@ -137,3 +146,55 @@ def test_heads_layout_einsums_match_jax(eq):
     out = tein.int8_code_einsum(eq, T(A), T(ca), T(da), T(B), T(cb), T(db))
     assert out.shape == ref.shape
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-6, atol=1e-6)
+
+
+def _widest_c(s):
+    """The widest head the gate admits at S (3SC + 4S² + 4SC ≤ 6 MiB)."""
+    return (6 * 1024 * 1024 - 4 * s * s) // (7 * s) // 8 * 8
+
+
+@pytest.mark.parametrize("cs", [(8, 24, 32, 40), (80, 128, 160, 256),
+                                (264, 384, 1024, 4096), ("widest",)],
+                         ids=["narrow", "sd-cifar", "wide", "widest"])
+def test_attention_plan_fits_the_card(cs):
+    """Every (S, C) the gate admits (S = 8 … 1240) gets a plan of 32 query
+    rows in one block of 512 threads (16 warps), at most 232,448 B of
+    dynamic shared memory (the H100's opt-in maximum), and K and V tiles
+    that split evenly over the warps; the bedroom's (1024, 32) takes the
+    fewest steps, a 512-key K tile and one 1024-key V tile."""
+    n = 0
+    for s in range(8, 1249, 8):
+        for c in (_widest_c(s),) if cs == ("widest",) else cs:
+            if not fused_attention_applicable(s, c, narrow_lanes=True):
+                continue
+            plan = attention_plan(s, c)
+            assert (plan["tq"], plan["threads"]) == (32, 512)
+            assert plan["smem"] <= BLOCK_SMEM_MAX
+            assert plan["smem"] == k4_smem_bytes(s, c, plan["tj"], plan["tv"])
+            assert plan["cq"] % 32 == 0 and plan["cq"] <= 256
+            assert plan["tj"] in K4_TILE_KEYS and plan["tv"] in K4_TILE_KEYS
+            assert plan["tj"] % (8 * 8) == 0       # 8 warps along the keys
+            n += 1
+    assert n > 100
+    bedroom = attention_plan(1024, 32)
+    assert (bedroom["tj"], bedroom["tv"]) == (512, 1024)
+
+
+def test_k4_constants_match_the_source():
+    """The plan's copy of K4's fixed sizes (rows and warps a block, ring
+    slots, phase-3 columns, n8 tiles a warp, header bytes) equals the
+    constants of ``csrc/int8_attention.cu``, and the source's layout adds
+    the same parts as ``k4_smem_bytes``."""
+    src = (pathlib.Path(tein.__file__).parent.parent / "csrc"
+           / "int8_attention.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert (const["TQ"], const["NW"], const["STAGES"], const["CB_MAX"], const["NI_MAX"],
+            const["HDR_BYTES"]) == (K4_TQ, K4_WARPS, K4_STAGES, K4_CB, K4_NI_MAX, K4_HDR)
+    layout = src[src.index("inline Layout k4_layout("):]
+    layout = layout[:layout.index("return l;")]
+    for part in ("l.logits = HDR_BYTES;", "TQ * 4 * (S + 4)", "TQ * 4 * cb0",
+                 "QBUF * TQ * (cq + 16)", "STAGES * l.slot", "tv * v_row_bytes(cb0)",
+                 "(tj + (C > cq ? TQ : 0)) * (cq + 16)"):
+        assert part in layout, part
+    assert "constexpr int QBUF = LOAD_V ? 1 : 2;" in src
+    assert "constexpr int v_row_bytes(int cb) { return round_up(cb, 32) + 8; }" in src

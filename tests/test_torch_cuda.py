@@ -158,12 +158,13 @@ def _attention_case(g, n, s, c):
     return Q, K, V, sc
 
 
-@pytest.mark.parametrize("s", [8, 72, 264, 1024, 1240])
-@pytest.mark.parametrize("c", [8, 24, 32, 40, 256])
+@pytest.mark.parametrize("s", [8, 16, 72, 264, 1024, 1240])
+@pytest.mark.parametrize("c", [8, 24, 32, 40, 80, 160, 256])
 def test_int8_attention_kernel(gen, s, c):
-    """K4 at ragged shapes: codes within ±1 and ≥ 99.9 % equal, the output
-    within rtol = atol = 1e-5 on the rows whose codes agree; a shape
-    outside the TPU kernel's gate is refused."""
+    """K4 at ragged shapes, SD's head widths (80, 160) and CIFAR's 4×4
+    site (S = 16): codes within ±1 and ≥ 99.9 % equal, the output within
+    rtol = atol = 1e-5 on the rows whose codes agree; a shape outside the
+    TPU kernel's gate is refused."""
     from eda_dm_tpu_torch.ops.int8_attention import (
         _int8_fused_attention_cuda, fused_attention_applicable,
         int8_fused_attention_plain)
@@ -173,6 +174,28 @@ def test_int8_attention_kernel(gen, s, c):
         with pytest.raises(ValueError, match="gate"):
             _int8_fused_attention_cuda(Q, K, V, sc, 256, False)
         return
+    out, codes = _int8_fused_attention_cuda(Q, K, V, sc, 256, True)
+    torch.cuda.synchronize()
+    ref, ref_codes = int8_fused_attention_plain(Q, K, V, sc, 256, True)
+    diff = (codes.int() - ref_codes.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.999
+    rows = (diff == 0).all(-1)
+    torch.testing.assert_close(out[rows], ref[rows], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("s, c", [(1240, 8), (1048, 256), (8, 4096)])
+def test_int8_attention_kernel_plan_corners(gen, s, c):
+    """K4 at the gate's corners, where its plan changes: the longest rows
+    (S = 1240 at C = 8, K tiles of two 256-key chunks), the most shared
+    memory (S = 1048 at C = 256) and C in several 128-byte chunks (S = 8 at
+    C = 4096: 24 of a block's 32 query rows past S, the Q tile streamed
+    with K, W·V in 256-column chunks): codes within ±1 and ≥ 99.9 % equal,
+    the output within 1e-5 on the rows whose codes agree."""
+    from eda_dm_tpu_torch.ops.int8_attention import (
+        _int8_fused_attention_cuda, fused_attention_applicable,
+        int8_fused_attention_plain)
+    assert fused_attention_applicable(s, c, narrow_lanes=True)
+    Q, K, V, sc = _attention_case(gen, 3, s, c)
     out, codes = _int8_fused_attention_cuda(Q, K, V, sc, 256, True)
     torch.cuda.synchronize()
     ref, ref_codes = int8_fused_attention_plain(Q, K, V, sc, 256, True)
