@@ -18,7 +18,8 @@ exits non-zero before the last line:
    within ±1 and ≥ 99.9 % equal (K3 at the CIFAR shapes, the bedroom
    8x8 site's and SD's cross-attention, K4 at its bedroom, CIFAR and SD
    shapes and K5 at SD's 64×64 shapes, a query length other than the key
-   length and a 16-level softmax quantizer, whose outputs agree within
+   length and a 16-level softmax quantizer (each on its plan's one-pass
+   route) and past the one pass (the sweep route), whose outputs agree within
    rtol = atol = 1e-5 on the rows whose codes agree); K2's int32 sums and
    f32 epilogue bit-equal at both tiles and each load route (SD's K = 40
    and K = 77, operands off a 16-byte boundary), K2 alone timed beside its
@@ -586,16 +587,19 @@ def check_attention(g, sms, clock_hz):
 def check_flash(g, sms, clock_hz):
     """K5 against its plain version: SD's 64x64 self-attention at 8 rows
     (64 batch-heads) and at 2 (16), a query length other than the key
-    length, and a 16-level softmax quantizer; timed at the 8-row shape
-    beside the bound and the port's einsum chain K2 -> K3 -> K2."""
+    length, and a 16-level softmax quantizer, each on the route of its
+    ``flash_plan`` (one pass, the keys over a cluster of blocks), and a key
+    length past what 8 blocks hold (the sweep route); timed at the 8-row
+    shape beside the bound and the port's einsum chain K2 -> K3 -> K2."""
     from eda_dm_tpu_torch.ops.int8_attention import (
-        _int8_flash_attention_cuda, attention_scalars, int8_flash_attention_plain)
+        K5_PLAN_ARGS, _int8_flash_attention_cuda, attention_scalars, flash_plan,
+        int8_flash_attention_plain)
     from eda_dm_tpu_torch.ops.int8_einsum import int8_code_einsum
     from eda_dm_tpu_torch.ops.softmax_codes import softmax_int8_codes
     err, timing = 0.0, None
     for n, sq, skv, c, levels in ((SD_ROWS * 8, 4096, 4096, 40, 256),
                                   (16, 4096, 4096, 40, 256), (8, 256, 512, 32, 256),
-                                  (16, 4096, 4096, 40, 16)):
+                                  (16, 4096, 4096, 40, 16), (2, 40, 6657, 40, 256)):
         Q, K, V = codes(g, (n, sq, c)), codes(g, (n, skv, c)), codes(g, (n, skv, c))
         cq, ck, cv = 3.0, -5.0, 1.0
         dq, dk, dv, dw, zw = 0.021, 0.017, 0.025, 1.0 / (levels - 1), 0.0
@@ -603,8 +607,10 @@ def check_flash(g, sms, clock_hz):
         out_k, W_k = _int8_flash_attention_cuda(Q, K, V, sc, levels, True)
         torch.cuda.synchronize()
         out_p, W_p = int8_flash_attention_plain(Q, K, V, sc, levels, True)
+        plan = flash_plan(sq, skv, c)
         err = max(err, attention_gate(out_k, W_k, out_p, W_p,
-                                      f"K5 ({n}, {sq}, {skv}, {c}), {levels} levels"))
+                                      f"K5 ({n}, {sq}, {skv}, {c}), {levels} levels, "
+                                      f"{plan['route']} route"))
         del W_k, W_p, out_p
         if timing is None:                 # SD 64x64, 4 prompts under CFG
             tq, tk, tv, tdq, tdk, tdv, tdw, tzw = (
@@ -623,6 +629,7 @@ def check_flash(g, sms, clock_hz):
                 plain_ms=cuda_ms(lambda: int8_flash_attention_plain(Q, K, V, sc, levels),
                                  reps=5, warmup=1),
                 library_ms=None, chain_ms=cuda_ms(chain, reps=5, warmup=1),
+                plan=" ".join(f"{k} {plan[k]}" for k in ("route",) + K5_PLAN_ARGS),
                 **dict(zip(("bound_ms", "bound_by"),
                            bound(nbytes, 4 * logits * c, INT8_PEAK, exp_ms))))
             print(f"    K5 bound parts: bytes {nbytes / HBM * 1e3:.4f} ms, int8 ops "

@@ -23,17 +23,21 @@ probability on a rounding tie of its code takes the plain version's code.
 
 K5 (:func:`int8_flash_attention`, ``csrc/int8_flash_attention.cu``)
 computes the same function for a query length other than the key length
-and for key lengths whose (S, S) logits K4 cannot hold: it sweeps the key
-tiles three times (row max, f64 row sum, codes and W·V), each sweep
-independent of the tile order, so its plain version is K4's plain
-function chunked over query rows, and the two agree bit for bit.  (The
-JAX kernel keeps a running f32 max and rescaled normalizer instead, whose
-sum depends on the tile order.)
+and for key lengths whose (S, S) logits K4 cannot hold.  It splits a row
+tile's keys over a thread-block cluster whose blocks hold their slice's
+logits, and computes each logit once; the row max is exact in any order
+and the f64 row sum is added in rank order, so its plain version is K4's
+plain function chunked over query rows, and the two agree bit for bit.
+Where a shape's logits or head do not fit (:func:`flash_plan`'s
+``"sweep"`` route), the wrapper launches ``csrc/int8_flash_sweep.cu``,
+which sweeps the key tiles three times (row max, f64 row sum, codes and
+W·V), each sweep independent of the tile order.  (The JAX kernel keeps a
+running f32 max and rescaled normalizer instead, whose sum depends on the
+tile order.)
 
 On a CUDA tensor :func:`int8_fused_attention` launches
-``csrc/int8_attention.cu`` and :func:`int8_flash_attention`
-``csrc/int8_flash_attention.cu``; on a CPU tensor each runs its plain
-version.
+``csrc/int8_attention.cu`` and :func:`int8_flash_attention` the route of
+its plan; on a CPU tensor each runs its plain version.
 """
 
 from __future__ import annotations
@@ -49,12 +53,14 @@ from .int8_einsum import int8_bmm_acc_plain
 _ATTN_SIG = {"edm_int8_fused_attention": [ctypes.c_void_p] * 6
              + [ctypes.c_int] * 10 + [ctypes.c_void_p]}
 _FLASH_SIG = {"edm_int8_flash_attention": [ctypes.c_void_p] * 6
+              + [ctypes.c_int] * 10 + [ctypes.c_void_p]}
+_SWEEP_SIG = {"edm_int8_flash_sweep": [ctypes.c_void_p] * 6
               + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
 # query rows per chunk of K5's plain version: bounds its (N, rows, Skv)
 # temporaries (1 GiB of f32 logits at the SD 64×64 shape)
 FLASH_PLAIN_ROWS = 1024
-# the widest head K5 takes: its query and key tiles (64 rows of C codes
-# each) live in shared memory
+# the widest head K5 takes: the sweep route's query and key tiles (64 rows
+# of C codes each) live in shared memory
 FLASH_MAX_C = 1024
 
 # the gates' working-set budget (bytes), as the TPU kernels' VMEM budget
@@ -149,6 +155,77 @@ def attention_plan(s: int, c: int) -> dict:
     if best is None:
         raise ValueError(f"int8_fused_attention: no plan fits S={s}, C={c}")
     return best[1]
+
+
+# the plan's entries, in the order K5's entry point takes them
+K5_PLAN_ARGS = ("tq", "threads", "r", "kb", "smem")
+# K5's fixed sizes (``csrc/int8_flash_attention.cu``, held equal by a
+# test): the most warps a block (a warp takes two rows of an item: 16
+# warps for 32-row items, 32 for 64-row ones), the largest cluster, the
+# step of a block's keys, the widest head of the one-pass route, header
+# bytes
+K5_WARPS_MAX, K5_R_MAX, K5_KB_STEP, K5_MAX_C, K5_HDR = 32, 8, 64, 512, 3328
+# cluster sizes, and query rows a work item, in the plan's order of
+# preference: 64-row items (in 32-warp blocks) pay the cluster's barriers
+# half as often as 32-row ones (in 16 warps): 4.68 against 5.83 ms at SD's
+# 64×64 shape on an H100 80GB HBM3 at 700 W (probes/flash_plans.py,
+# PERF.md §6)
+K5_CLUSTERS = (1, 2, 4, 8)
+K5_TQS = (64, 32)
+# the sweep route's fixed sizes (``csrc/int8_flash_sweep.cu``): query rows
+# and keys a tile, output columns a block, threads, words of row padding
+SWEEP_FQ, SWEEP_FJ, SWEEP_FCH, SWEEP_THREADS, SWEEP_FPAD = 64, 64, 64, 256, 4
+
+
+def k5_smem_bytes(tq: int, c: int, kb: int):
+    """K5's dynamic shared bytes (the kernel's ``k5_layout``) with ``tq``
+    query rows and ``kb`` keys a block, or None where that does not fit a
+    block: header, f32 logits rows of kb + 4 (the codes overwrite them), the
+    int32 W·V sums of two items, ΣV (the block's and the cluster's, of two
+    elements), the Σk terms, the Q tile and the K slice (rows of C rounded
+    up to 32, plus 16), and the V slice transposed (C rounded up to 8 rows
+    of kb + 16)."""
+    cp, c8 = _round_up(c, 32), _round_up(c, 8)
+    smem = (K5_HDR + tq * 4 * (kb + 4) + 2 * tq * 4 * c8 + 4 * 4 * c8 + 4 * kb
+            + tq * (cp + 16) + kb * (cp + 16) + c8 * (kb + 16))
+    return smem if smem <= BLOCK_SMEM_MAX else None
+
+
+def sweep_smem_bytes(c: int) -> int:
+    """The sweep route's dynamic shared bytes (``int8_flash_sweep.cu``)."""
+    cw = c // 4
+    return 4 * (cw * (SWEEP_FQ + SWEEP_FPAD) + cw * (SWEEP_FJ + SWEEP_FPAD)
+                + (SWEEP_FJ // 4) * (SWEEP_FCH + SWEEP_FPAD)
+                + SWEEP_FQ * (SWEEP_FJ // 4 + 1) + SWEEP_FQ + SWEEP_FJ + SWEEP_FCH)
+
+
+def k5_plan(r: int, tq: int, skv: int, c: int):
+    """K5's one-pass plan with ``r`` blocks a cluster and ``tq`` rows a
+    work item, or None where a block's logits, slices and head do not fit:
+    each block takes ``kb`` keys, Skv / r rounded up to ``K5_KB_STEP``."""
+    kb = _round_up(-(-skv // r), K5_KB_STEP)
+    smem = k5_smem_bytes(tq, c, kb) if c <= K5_MAX_C else None
+    if smem is None:
+        return None
+    return dict(route="one_pass", tq=tq, threads=16 * tq, r=r, kb=kb, smem=smem)
+
+
+@functools.lru_cache(maxsize=None)
+def flash_plan(sq: int, skv: int, c: int) -> dict:
+    """K5's launch plan at (Sq, Skv, C): the one-pass route with the
+    smallest cluster (``r`` blocks, each ``kb`` keys) whose blocks hold
+    their slice, with 64 query rows a work item where they fit and Sq
+    exceeds 32, else 32; else the sweep route (``int8_flash_sweep.cu``:
+    one block covers the keys in three sweeps).  Returns ``route``,
+    ``tq``, ``threads``, ``r``, ``kb`` and ``smem`` (the dynamic shared
+    bytes); cached, so a launch pays no search."""
+    for r in K5_CLUSTERS:
+        for tq in K5_TQS:
+            plan = k5_plan(r, tq, skv, c) if tq == 32 or sq > 32 else None
+            if plan is not None:
+                return plan
+    return dict(route="sweep", tq=SWEEP_FQ, threads=SWEEP_THREADS, r=1, kb=skv,
+                smem=sweep_smem_bytes(c))
 
 
 def attention_scalars(cq, dq, ck, dk, cv, dv, attn_scale: float, dw, zw,
@@ -267,12 +344,20 @@ def _int8_flash_attention_cuda(Q, K, V, sc, n_levels_w, return_codes):
     out = torch.empty((n, sq, c), dtype=torch.float32, device=dev)
     codes = (torch.empty((n, sq, skv), dtype=torch.int8, device=dev)
              if return_codes else None)
-    lib = cuda_lib("int8_flash_attention", _FLASH_SIG)
-    err = lib.edm_int8_flash_attention(
-        ptr(Q), ptr(K), ptr(V), ptr(sc.contiguous()), ptr(out), ptr(codes),
-        n, sq, skv, c, n_levels_w, stream_ptr(dev))
-    check_launch(lib, err, "int8_flash_attention")
-    launch_counts["int8_flash_attention"] += 1
+    plan = flash_plan(sq, skv, c)
+    args = (ptr(Q), ptr(K), ptr(V), ptr(sc.contiguous()), ptr(out), ptr(codes),
+            n, sq, skv, c, n_levels_w)
+    if plan["route"] == "one_pass":
+        lib = cuda_lib("int8_flash_attention", _FLASH_SIG)
+        err = lib.edm_int8_flash_attention(*args, *(plan[k] for k in K5_PLAN_ARGS),
+                                           stream_ptr(dev))
+        check_launch(lib, err, "int8_flash_attention")
+        launch_counts["int8_flash_attention"] += 1
+    else:
+        lib = cuda_lib("int8_flash_sweep", _SWEEP_SIG)
+        err = lib.edm_int8_flash_sweep(*args, stream_ptr(dev))
+        check_launch(lib, err, "int8_flash_sweep")
+        launch_counts["int8_flash_sweep"] += 1
     return (out, codes) if return_codes else out
 
 
@@ -282,8 +367,8 @@ def int8_flash_attention(Q: torch.Tensor, cq, dq, K: torch.Tensor, ck, dk,
     """Tiled int8 attention: Q (N, Sq, C), K/V (N, Skv, C) centered int8
     codes, the rest as :func:`int8_fused_attention`.  Returns f32
     (N, Sq, C), and with ``return_codes`` also the codes W (N, Sq, Skv).
-    On a CUDA tensor this launches kernel K5; on a CPU tensor it runs the
-    plain version."""
+    On a CUDA tensor this launches kernel K5 (the route of
+    :func:`flash_plan`); on a CPU tensor it runs the plain version."""
     sc = attention_scalars(cq, dq, ck, dk, cv, dv, attn_scale, dw, zw, Q.device)
     if Q.is_cuda:
         return _int8_flash_attention_cuda(Q, K, V, sc, n_levels_w, return_codes)

@@ -13,6 +13,11 @@ version) against the JAX package on the CPU.
 * ``attention_plan`` (K4's launch plan): 16 warps a block within the
   H100's shared memory at every shape the gate admits, its fixed sizes
   and layout those of ``csrc/int8_attention.cu``.
+* ``flash_plan`` (K5's launch plan): within the H100's shared memory, at
+  most 8 blocks a cluster whose key slices cover every key once, the
+  one-pass route at SD's shape and up to what 8 blocks hold, the sweep
+  route past it, its fixed sizes and layout those of
+  ``csrc/int8_flash_attention.cu`` and ``csrc/int8_flash_sweep.cu``.
 * the heads layout (``int8_fused_attention_heads``) and the heads-layout
   einsums of the LDM einsum branch (``bthc,bshc->bhts``,
   ``bhts,bshc->bthc``): the int8 products are exact, the epilogues run in
@@ -31,11 +36,16 @@ from eda_dm_tpu.ops import int8_einsum as jein
 from eda_dm_tpu.ops import pallas_attention as jpa
 from eda_dm_tpu.ops import serving_policy as jpolicy
 from eda_dm_tpu_torch.ops import int8_einsum as tein
-from eda_dm_tpu_torch.ops.int8_attention import (BLOCK_SMEM_MAX, K4_CB, K4_HDR, K4_NI_MAX,
-                                                 K4_STAGES, K4_TILE_KEYS, K4_TQ, K4_WARPS,
-                                                 attention_plan, fused_attention_applicable,
+from eda_dm_tpu_torch.ops.int8_attention import (BLOCK_SMEM_MAX, FLASH_MAX_C, K4_CB, K4_HDR,
+                                                 K4_NI_MAX, K4_STAGES, K4_TILE_KEYS, K4_TQ,
+                                                 K4_WARPS, K5_CLUSTERS, K5_HDR, K5_KB_STEP,
+                                                 K5_MAX_C, K5_R_MAX, K5_TQS, K5_WARPS_MAX,
+                                                 SWEEP_FCH, SWEEP_FJ, SWEEP_FPAD, SWEEP_FQ,
+                                                 SWEEP_THREADS, attention_plan, flash_plan,
+                                                 fused_attention_applicable,
                                                  int8_fused_attention,
-                                                 int8_fused_attention_heads, k4_smem_bytes)
+                                                 int8_fused_attention_heads, k4_smem_bytes,
+                                                 k5_plan, k5_smem_bytes, sweep_smem_bytes)
 from eda_dm_tpu_torch.ops.serving_policy import attention_impl
 
 GRID = [  # batch, heads, S, C
@@ -198,3 +208,84 @@ def test_k4_constants_match_the_source():
         assert part in layout, part
     assert "constexpr int QBUF = LOAD_V ? 1 : 2;" in src
     assert "constexpr int v_row_bytes(int cb) { return round_up(cb, 32) + 8; }" in src
+
+
+# K5's routes at C = 40 (SD's head) on each side of the plan's cluster
+# sizes: Skv → blocks a cluster, or the sweep route past what 8 hold
+K5_R_BOUNDARIES = ((832, 1), (833, 2), (1664, 2), (1665, 4), (3328, 4), (3329, 8),
+                   (6656, 8), (6657, "sweep"))
+FLASH_PLAN_GRID = [  # sq, skv, c: the card tests' FLASH shapes, SD's, the corners
+    (64, 64, 40), (100, 77, 40), (256, 512, 32), (33, 300, 8), (130, 4096, 40),
+    (64, 128, 160), (40, 200, 384), (1, 1, 4), (8, 8, 8), (4096, 4096, 40),
+    (4096, 4096, 80), (1024, 4096, 160), (64, 4096, 1024), (1, 100_000, 4),
+    (7, 1, K5_MAX_C), (7, 1, K5_MAX_C + 4), (7, 2048, K5_MAX_C), (3, 9, FLASH_MAX_C),
+    (64, 2048, 40), (64, 4097, 40)] + [(40, skv, 40) for skv, _ in K5_R_BOUNDARIES]
+
+
+@pytest.mark.parametrize("sq, skv, c", FLASH_PLAN_GRID,
+                         ids=lambda v: str(v))
+def test_flash_plan_fits_the_card(sq, skv, c):
+    """K5's plan fits a block of the H100 (at most 232,448 B of dynamic
+    shared memory) with at most 8 blocks a cluster whose key slices cover
+    every key exactly once.  The one-pass route takes the smallest cluster
+    that holds the keys (SD's (4096, 4096, 40): 8 blocks of 512 keys); where
+    no cluster of at most 8 does, the sweep route takes one block."""
+    plan = flash_plan(sq, skv, c)
+    assert plan["smem"] <= BLOCK_SMEM_MAX and 1 <= plan["r"] <= K5_R_MAX
+    cover = np.zeros(skv, dtype=np.int64)
+    for rank in range(plan["r"]):
+        cover[rank * plan["kb"]:(rank + 1) * plan["kb"]] += 1
+    assert (cover == 1).all() and plan["r"] * plan["kb"] >= skv
+    fits = [(r, tq) for r in K5_CLUSTERS for tq in K5_TQS
+            if (tq == 32 or sq > 32) and k5_plan(r, tq, skv, c) is not None]
+    if plan["route"] == "one_pass":
+        assert (plan["r"], plan["tq"]) == fits[0] and plan["r"] in K5_CLUSTERS
+        assert plan["tq"] in (32, 64) and plan["threads"] == 16 * plan["tq"]
+        assert plan["kb"] % K5_KB_STEP == 0 and plan["kb"] - K5_KB_STEP < -(-skv // plan["r"])
+        assert plan["smem"] == k5_smem_bytes(plan["tq"], c, plan["kb"])
+    else:
+        assert plan["route"] == "sweep" and not fits
+        assert (plan["tq"], plan["threads"]) == (SWEEP_FQ, SWEEP_THREADS)
+        assert plan["smem"] == sweep_smem_bytes(c)
+    if (sq, skv, c) == (4096, 4096, 40):
+        assert plan == dict(route="one_pass", tq=64, threads=1024, r=8, kb=512, smem=225_792)
+    expected = dict(K5_R_BOUNDARIES).get(skv) if c == 40 else None
+    if expected == "sweep":
+        assert plan["route"] == "sweep"
+    elif expected:
+        assert (plan["route"], plan["r"]) == ("one_pass", expected)
+
+
+def test_k5_constants_match_the_source():
+    """The plan's copy of K5's fixed sizes (warps, the largest cluster, the
+    step of a block's keys, the widest one-pass head, header bytes) equals
+    the constants of ``csrc/int8_flash_attention.cu``, the header's parts
+    fit its bytes, the source's layout adds the same parts as
+    ``k5_smem_bytes``; the sweep route's sizes are those of
+    ``csrc/int8_flash_sweep.cu``."""
+    csrc = pathlib.Path(tein.__file__).parent.parent / "csrc"
+    src = (csrc / "int8_flash_attention.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert (const["NW_MAX"], const["R_MAX"], const["KB_STEP"], const["MAX_C"],
+            const["HDR_BYTES"]) == (K5_WARPS_MAX, K5_R_MAX, K5_KB_STEP, K5_MAX_C, K5_HDR)
+    assert "constexpr int k5_warps(int tq) { return tq / 2; }" in src
+    hdr = {k: int(v) for k, v in re.findall(r"(H_\w+) = (\d+)", src)}
+    tq_max, nw = 64, const["NW_MAX"]
+    assert nw * 16 * 4 <= hdr["H_PMAX"]                  # maxima by warp [NW·16 / TQ][TQ]
+    assert hdr["H_PMAX"] + 4 * tq_max <= hdr["H_PSUM"] and hdr["H_PSUM"] % 8 == 0
+    assert hdr["H_PSUM"] + 8 * tq_max <= hdr["H_SW"]
+    assert hdr["H_SW"] + 2 * 4 * tq_max <= const["HDR_BYTES"] and const["HDR_BYTES"] % 16 == 0
+    layout = src[src.index("inline Layout k5_layout("):]
+    layout = layout[:layout.index("return l;")]
+    for part in ("l.logits = HDR_BYTES;", "tq * 4 * (kb + 4)", "2 * tq * 4 * c8",
+                 "4 * 4 * c8", "4 * kb", "tq * (cp + 16)", "kb * (cp + 16)",
+                 "c8 * (kb + 16)", "round_up(C, 32)", "round_up(C, 8)"):
+        assert part in layout, part
+    assert "(tq != 32 && tq != 64)" in src and set(K5_TQS) == {32, 64}
+    sweep = (csrc / "int8_flash_sweep.cu").read_text()
+    defs = {k: int(v) for k, v in re.findall(r"#define (\w+) (\d+)", sweep)}
+    assert (defs["FQ"], defs["FJ"], defs["FCH"], defs["FA_THREADS"], defs["FPAD"]) == (
+        SWEEP_FQ, SWEEP_FJ, SWEEP_FCH, SWEEP_THREADS, SWEEP_FPAD)
+    assert ("4 * ((size_t)Cw * (FQ + FPAD) + (size_t)Cw * (FJ + FPAD)\n"
+            "                           + (FJ / 4) * (FCH + FPAD) + FQ * WROW + FQ + FJ + FCH)"
+            ) in sweep

@@ -12,7 +12,8 @@ the conv_ins' Cin = 3 and 4, each at both tiles), stride 2, VALID over
 padded codes, K not a
 multiple of 4 (K2's tail, SD's 77 context tokens), softmax rows that are
 not a power of two, query and key lengths that are not
-multiples of K5's 64-row tiles, GroupNorm groups of 3 and 21 channels
+multiples of K5's 32-row and 64-key tiles, K5 on each side of its plan's
+cluster sizes and past them on its sweep route, GroupNorm groups of 3 and 21 channels
 and slices past 48 KB of shared memory (K6), and fake-quant matmuls with
 ragged M, N, K and strided weights (K7).  Integer accumulators
 must be bit-equal; the f32 epilogues run the same operations in the same
@@ -207,14 +208,20 @@ def test_int8_attention_kernel_plan_corners(gen, s, c):
 
 FLASH = [  # n, sq, skv, c: ragged tiles, Sq != Skv, wide heads, SD's 4096
     (3, 64, 64, 40), (4, 100, 77, 40), (2, 256, 512, 32), (5, 33, 300, 8),
-    (2, 130, 4096, 40), (2, 64, 128, 160), (2, 40, 200, 384), (1, 1, 1, 4)]
+    (2, 130, 4096, 40), (2, 64, 128, 160), (2, 40, 200, 384), (1, 1, 1, 4),
+    (16, 4096, 4096, 40),                                    # SD at 2 rows
+    # each side of the plan's cluster sizes at C = 40 (1 | 2 | 4 | 8 blocks)
+    # and past them (the sweep route); a head too wide for the one pass
+    (2, 40, 832, 40), (2, 40, 833, 40), (2, 40, 1665, 40), (2, 40, 3329, 40),
+    (2, 40, 6656, 40), (2, 40, 6657, 40), (2, 40, 100, 516), (2, 8, 300, 1024)]
 
 
 @pytest.mark.parametrize("case", FLASH, ids=lambda c: "x".join(map(str, c)))
 @pytest.mark.parametrize("levels", [256, 16])
 def test_int8_flash_attention_kernel(gen, case, levels):
-    """K5 against its plain version: codes within ±1 and ≥ 99.9 % equal,
-    the output within rtol = atol = 1e-5 on the rows whose codes agree."""
+    """K5 against its plain version, on the route its plan takes: codes
+    within ±1 and ≥ 99.9 % equal, the output within rtol = atol = 1e-5 on
+    the rows whose codes agree."""
     from eda_dm_tpu_torch.ops.int8_attention import (
         _int8_flash_attention_cuda, attention_scalars, int8_flash_attention_plain)
     n, sq, skv, c = case
@@ -230,6 +237,25 @@ def test_int8_flash_attention_kernel(gen, case, levels):
     assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.999
     rows = (diff == 0).all(-1)
     torch.testing.assert_close(out[rows], ref[rows], rtol=1e-5, atol=1e-5)
+
+
+def test_int8_flash_attention_routes_count_their_launches(gen):
+    """SD's 64×64 shape takes K5's one-pass route, counted under
+    ``int8_flash_attention``; a key length past what 8 blocks hold takes
+    the sweep route, counted under ``int8_flash_sweep``."""
+    from eda_dm_tpu_torch.ops._build import launch_counts
+    from eda_dm_tpu_torch.ops.int8_attention import flash_plan, int8_flash_attention
+    assert flash_plan(4096, 4096, 40)["route"] == "one_pass"
+    assert flash_plan(40, 6657, 40)["route"] == "sweep"
+    for (sq, skv), name in (((4096, 4096), "int8_flash_attention"),
+                            ((40, 6657), "int8_flash_sweep")):
+        Q, K, V = _codes(gen, (2, sq, 40)), _codes(gen, (2, skv, 40)), _codes(gen, (2, skv, 40))
+        launch_counts.clear()
+        out = int8_flash_attention(Q, 3.0, 0.021, K, -5.0, 0.017, V, 1.0, 0.025,
+                                   40 ** -0.5, 1.0 / 255.0, 0.0, 256)
+        torch.cuda.synchronize()
+        assert dict(launch_counts) == {name: 1}
+        assert out.shape == (2, sq, 40) and bool(torch.isfinite(out).all())
 
 
 def test_int8_flash_attention_kernel_past_the_grid_limit(gen):
