@@ -82,9 +82,10 @@ exits non-zero before the last line:
    step does not depend on their number), bf16 carrier, DEPLOY_INT8, then
    the VQ-f4 decode to (50, 256, 256, 3) images in [0, 1] — launch counts
    set to 0 just before and read just after, and printed per forward;
-   ms per denoise step of int8 W4A8, bf16-FP and fp32-FP (each warmed up
-   at batch 50 and timed twice), the decode ms, img/s, peak memory and one
-   profiled int8 forward;
+   ms per denoise step of int8 W4A8, int8 with the fused GroupNorm
+   (``EDM_FUSED_GN=1 EDM_FUSED_GN_NARROW=1``), bf16-FP and fp32-FP (each
+   warmed up at batch 50 and timed twice), the decode ms, img/s, peak
+   memory and one profiled forward of each int8 arm;
 8. the full Stable Diffusion v1.4 UNet (``sd_v1_config()``), smoke quant
    state, DEPLOY_INT8 through the kernels and the plain versions (one
    prompt under CFG, 2 rows, f32 carrier; its attention sites take the
@@ -98,11 +99,12 @@ exits non-zero before the last line:
    (8 UNet rows), 10 PLMS steps (11 UNet forwards: the first step looks
    ahead), bf16 carrier, DEPLOY_INT8, then the KL-f8 decode to
    (4, 512, 512, 3) images in [0, 1] — launch counts set to 0 just before
-   and read just after; ms per UNet forward at 8 rows of int8 W4A8, folded
-   W4A8 (DEPLOY on the bf16 export: what the JAX package serves this
-   family with), bf16-FP and fp32-FP (each warmed up at 8 rows and timed
-   twice), the decode ms, img/s, peak memory and one profiled int8
-   forward.
+   and read just after; ms per UNet forward at 8 rows of int8 W4A8, int8
+   with the fused GroupNorm (``EDM_FUSED_GN=1``), folded W4A8 (DEPLOY on
+   the bf16 export: what the JAX package serves this family with),
+   bf16-FP and fp32-FP (each warmed up at 8 rows and timed twice), the
+   decode ms, img/s, peak memory and one profiled forward of each int8
+   arm.
 
 The serving switches (``EDM_FUSED_ATTN`` and the others that
 ``eda_dm_tpu_torch/ops/serving_policy.py`` reads) are unset for the run,
@@ -589,7 +591,8 @@ def check_flash(g, sms, clock_hz):
     (64 batch-heads) and at 2 (16), a query length other than the key
     length, and a 16-level softmax quantizer, each on the route of its
     ``flash_plan`` (one pass, the keys over a cluster of blocks), and a key
-    length past what 8 blocks hold (the sweep route); timed at the 8-row
+    length past what 8 blocks hold and a head past its resident 1024
+    columns (the sweep route, C in chunks); timed at the 8-row
     shape beside the bound and the port's einsum chain K2 -> K3 -> K2."""
     from eda_dm_tpu_torch.ops.int8_attention import (
         K5_PLAN_ARGS, _int8_flash_attention_cuda, attention_scalars, flash_plan,
@@ -599,7 +602,8 @@ def check_flash(g, sms, clock_hz):
     err, timing = 0.0, None
     for n, sq, skv, c, levels in ((SD_ROWS * 8, 4096, 4096, 40, 256),
                                   (16, 4096, 4096, 40, 256), (8, 256, 512, 32, 256),
-                                  (16, 4096, 4096, 40, 16), (2, 40, 6657, 40, 256)):
+                                  (16, 4096, 4096, 40, 16), (2, 40, 6657, 40, 256),
+                                  (1, 256, 512, 1280, 256)):
         Q, K, V = codes(g, (n, sq, c)), codes(g, (n, skv, c)), codes(g, (n, skv, c))
         cq, ck, cv = 3.0, -5.0, 1.0
         dq, dk, dv, dw, zw = 0.021, 0.017, 0.025, 1.0 / (levels - 1), 0.0
@@ -649,7 +653,8 @@ def check_gn(g):
     plain version and the port's unfused chain GNorm → swish →
     quantize_act_int8 (the norm alone for ``gn_norm``)."""
     from eda_dm_tpu_torch.nn.layers import GNorm, swish
-    from eda_dm_tpu_torch.ops.gn_int8 import NO_PADS, gn_norm, gn_plain, gn_swish_int8
+    from eda_dm_tpu_torch.ops.gn_int8 import (K6_PLAN_ARGS, NO_PADS, gn_norm, gn_plain,
+                                              gn_plan, gn_swish_int8)
     from eda_dm_tpu_torch.ops.int8_einsum import quantize_act_int8
     same = ((1, 1), (1, 1))
     cases = [("CIFAR conv1 (500, 32, 32, 128), SAME pad", BATCH, 32, 128, same, True),
@@ -698,9 +703,11 @@ def check_gn(g):
                 out_bytes = ck.numel()
             if xx.dtype == torch.bfloat16:      # the serving carrier: timed
                 nbytes = xx.numel() * 2 + out_bytes + 2 * c * 4
+                plan = gn_plan(b, hw, hw, c, xx.dtype)
                 shapes[name] = dict(
                     ms=cuda_ms(kern), plain_ms=cuda_ms(plain, reps=5),
                     chain_ms=cuda_ms(chain, reps=5),
+                    plan=" ".join(f"{k} {plan[k]}" for k in K6_PLAN_ARGS),
                     **dict(zip(("bound_ms", "bound_by"),
                                bound(nbytes, 12 * xx.numel(), F32_PEAK))))
         del x, xx, gn
@@ -1346,6 +1353,14 @@ def bedroom(kernels, smi):
     print(f"    profile, DEPLOY_INT8 forward at batch {LDM_BATCH}, bf16 carrier:")
     with torch.no_grad():
         profile_forward(int8_fwd)
+    with environ(EDM_FUSED_GN="1", EDM_FUSED_GN_NARROW="1"):   # K6 at its serving batch
+        with torch.no_grad():
+            int8_fwd()
+        ms["int8_fused_gn"] = [step_ms(DEPLOY_INT8), step_ms(DEPLOY_INT8)]
+        print(f"    profile, DEPLOY_INT8 with the fused GroupNorm (EDM_FUSED_GN=1 "
+              f"EDM_FUSED_GN_NARROW=1) forward at batch {LDM_BATCH}, bf16 carrier:")
+        with torch.no_grad():
+            profile_forward(int8_fwd)
     del pipe.ld.unet, unet
     for arm, dtype in (("bf16_fp", torch.bfloat16), ("fp32_fp", torch.float32)):
         pipe.ld.unet = LDMUNet(cfg, qc, device="cuda", seed=0).to(dtype)
@@ -1355,7 +1370,8 @@ def bedroom(kernels, smi):
         del pipe.ld.unet
     both = lambda arm: " / ".join(f"{v:.3f}" for v in ms[arm])
     print(f"    on {smi}: ms per denoise step at batch {LDM_BATCH} (two runs each): "
-          f"int8 W4A8 {both('int8')} | bf16-FP {both('bf16_fp')} | fp32-FP "
+          f"int8 W4A8 {both('int8')} | int8 W4A8 fused GN {both('int8_fused_gn')} | "
+          f"bf16-FP {both('bf16_fp')} | fp32-FP "
           f"{both('fp32_fp')}; decode {decode_s * 1e3:.1f} ms; sample_batch {wall:.3f} s = "
           f"{LDM_BATCH / wall:.4f} img/s ({STEPS} steps + decode); peak memory "
           f"{peak:.2f} GiB")
@@ -1464,6 +1480,13 @@ def sd(kernels, smi):
     with torch.no_grad():
         profile_forward(lambda: unet(x8.to(torch.bfloat16), t8,
                                      c8.to(torch.bfloat16), mode=DEPLOY_INT8))
+    with environ(EDM_FUSED_GN="1"):               # K6 at the serving rows
+        ms["int8_fused_gn"] = fwd_ms(unet, DEPLOY_INT8, torch.bfloat16)
+        print(f"    profile, DEPLOY_INT8 with the fused GroupNorm (EDM_FUSED_GN=1) forward "
+              f"at {SD_ROWS} rows, bf16 carrier:")
+        with torch.no_grad():
+            profile_forward(lambda: unet(x8.to(torch.bfloat16), t8,
+                                         c8.to(torch.bfloat16), mode=DEPLOY_INT8))
     del pipe.ld.unet, unet
     for arm, dtype in (("bf16_fp", torch.bfloat16), ("fp32_fp", torch.float32)):
         model = LDMUNet(cfg, qc, device="cuda", seed=0).to(dtype)
@@ -1471,7 +1494,8 @@ def sd(kernels, smi):
         del model
     both = lambda arm: " / ".join(f"{v:.3f}" for v in ms[arm])
     print(f"    on {smi}: ms per UNet forward at {SD_ROWS} rows (two runs each): int8 "
-          f"W4A8 {both('int8')} | folded W4A8 {both('folded')} | bf16-FP "
+          f"W4A8 {both('int8')} | int8 W4A8 fused GN {both('int8_fused_gn')} | folded "
+          f"W4A8 {both('folded')} | bf16-FP "
           f"{both('bf16_fp')} | fp32-FP {both('fp32_fp')}; decode "
           f"{decode_s * 1e3:.1f} ms; sample_batch {wall:.3f} s = "
           f"{len(prompts) / wall:.4f} img/s ({STEPS} steps + decode); peak memory "

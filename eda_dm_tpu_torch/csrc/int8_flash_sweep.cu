@@ -33,12 +33,18 @@
 //   (c) the codes, W·V accumulated in int32 (|ΣW·V| passes 2²⁴ at
 //       Skv = 4096, where an f32 sum is no longer exact) and ΣW.
 // The logits never leave the block: each sweep recomputes its tile of
-// them from Q (resident in shared memory) and the key tile.
+// them from Q and the key tile in shared memory.
 //
 // Design: one block per (b·h, tile of FQ = 64 query rows, chunk of FCH =
 // 64 output columns); blockIdx.x walks b·h × query tiles, so any b·h is
 // accepted; blockIdx.y walks the column chunks (one for C ≤ 64; wider
-// heads repeat the sweeps per chunk).  256 threads: thread (tx, ty) owns
+// heads repeat the sweeps per chunk).  The logits' products walk C in
+// chunks of at most FCC = 1024 columns, the chunk of the query tile and of
+// the key tile resident in shared memory: a head of at most FCC columns
+// keeps its query tile for all three sweeps; a wider one reloads its query
+// chunks with each key tile and adds Q·Kᵀ, Σq and Σk across the chunks in
+// int32, which is exact, so every C gives the same function.  256
+// threads: thread (tx, ty) owns
 // query rows ty + 16·m (m < 4) and, in the logits tile, keys 4·tx .. +3,
 // in W·V output columns 4·tx .. +3.  Key tiles of FJ = 64 rows, stored as
 // 32-bit words transposed ([word][key]) so a thread reads its four keys
@@ -63,6 +69,7 @@
 #define FQ 64          // query rows per block
 #define FJ 64          // keys per tile
 #define FCH 64         // output columns per block
+#define FCC 1024       // columns of Q and K resident a chunk
 #define FPAD 4         // words of padding per shared row
 #define WROW (FJ / 4 + 1)
 
@@ -93,10 +100,12 @@ int8_flash_sweep_kernel(const int8_t* __restrict__ Q, const int8_t* __restrict__
                             float* __restrict__ out, int8_t* __restrict__ codes_out,
                             int Sq, int Skv, int C, int n_levels_w, int qtiles) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int Cw = C >> 2;
-  int* Qs = reinterpret_cast<int*>(smem);                  // [Cw][FQ + FPAD]
-  int* Ks = Qs + Cw * (FQ + FPAD);                          // [Cw][FJ + FPAD]
-  int* VT = Ks + Cw * (FJ + FPAD);                          // [FJ/4][FCH + FPAD]
+  const int Cw = C >> 2;                                    // words of a row
+  const int Cs = Cw < FCC / 4 ? Cw : FCC / 4;               // words of a chunk
+  const bool resident = Cw == Cs;                           // one chunk: Q loaded once
+  int* Qs = reinterpret_cast<int*>(smem);                  // [Cs][FQ + FPAD]
+  int* Ks = Qs + Cs * (FQ + FPAD);                          // [Cs][FJ + FPAD]
+  int* VT = Ks + Cs * (FJ + FPAD);                          // [FJ/4][FCH + FPAD]
   int* Ws = VT + (FJ / 4) * (FCH + FPAD);                   // [FQ][WROW]
   int* sq = Ws + FQ * WROW;                                 // Σq [FQ]
   int* sk = sq + FQ;                                        // Σk [FJ]
@@ -114,16 +123,34 @@ int8_flash_sweep_kernel(const int8_t* __restrict__ Q, const int8_t* __restrict__
   const float dw = sc[4], zw = sc[5], dwdv = sc[6];
   const float cqckC = __fmul_rn(__fmul_rn(cq, ck), (float)C);
 
-  // the query tile, resident for all three sweeps
-  for (int idx = tid; idx < FQ * Cw; idx += FA_THREADS) {
-    const int r = idx / Cw, w = idx - r * Cw;
-    Qs[w * (FQ + FPAD) + r] = (i0 + r < Sq) ? __ldg(Q32 + (long long)(i0 + r) * Cw + w) : 0;
-  }
-  __syncthreads();
-  if (tid < FQ) {
+  // words [w0, w0 + cn) of the query tile's rows, and of a key tile's
+  auto load_q = [&](int w0, int cn) {
+    for (int idx = tid; idx < FQ * cn; idx += FA_THREADS) {
+      const int r = idx / cn, w = idx - r * cn;
+      Qs[w * (FQ + FPAD) + r] =
+          (i0 + r < Sq) ? __ldg(Q32 + (long long)(i0 + r) * Cw + w0 + w) : 0;
+    }
+  };
+  auto load_k = [&](int j0, int w0, int cn) {
+    for (int idx = tid; idx < FJ * cn; idx += FA_THREADS) {
+      const int r = idx / cn, w = idx - r * cn;
+      Ks[w * (FJ + FPAD) + r] =
+          (j0 + r < Skv) ? __ldg(K32 + (long long)(j0 + r) * Cw + w0 + w) : 0;
+    }
+  };
+
+  // Σq, and the query tile resident for all three sweeps where it fits
+  {
     int s = 0;
-    for (int w = 0; w < Cw; ++w) s = ones_dot(Qs[w * (FQ + FPAD) + tid], s);
-    sq[tid] = s;
+    for (int w0 = 0; w0 < Cw; w0 += Cs) {
+      const int cn = Cw - w0 < Cs ? Cw - w0 : Cs;
+      __syncthreads();
+      load_q(w0, cn);
+      __syncthreads();
+      if (tid < FQ)
+        for (int w = 0; w < cn; ++w) s = ones_dot(Qs[w * (FQ + FPAD) + tid], s);
+    }
+    if (tid < FQ) sq[tid] = s;
   }
   __syncthreads();
   float qterm[4];
@@ -132,31 +159,31 @@ int8_flash_sweep_kernel(const int8_t* __restrict__ Q, const int8_t* __restrict__
 
   // one 64 × 64 tile of logits: rows ty + 16·m, keys j0 + 4·tx + k
   auto logits_tile = [&](int j0, float (&lg)[4][4]) {
-    __syncthreads();                           // the last tile's readers are done
-    for (int idx = tid; idx < FJ * Cw; idx += FA_THREADS) {
-      const int r = idx / Cw, w = idx - r * Cw;
-      Ks[w * (FJ + FPAD) + r] = (j0 + r < Skv) ? __ldg(K32 + (long long)(j0 + r) * Cw + w) : 0;
-    }
-    __syncthreads();
-    if (tid < FJ) {
-      int s = 0;
-      for (int w = 0; w < Cw; ++w) s = ones_dot(Ks[w * (FJ + FPAD) + tid], s);
-      sk[tid] = s;
-    }
     int acc[4][4];
 #pragma unroll
     for (int m = 0; m < 4; ++m) acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0;
-    for (int kk = 0; kk < Cw; ++kk) {
-      const int4 b = *reinterpret_cast<const int4*>(&Ks[kk * (FJ + FPAD) + tx * 4]);
+    int s = 0;
+    for (int w0 = 0; w0 < Cw; w0 += Cs) {
+      const int cn = Cw - w0 < Cs ? Cw - w0 : Cs;
+      __syncthreads();                         // the last chunk's readers are done
+      if (!resident) load_q(w0, cn);
+      load_k(j0, w0, cn);
+      __syncthreads();
+      if (tid < FJ)
+        for (int w = 0; w < cn; ++w) s = ones_dot(Ks[w * (FJ + FPAD) + tid], s);
+      for (int kk = 0; kk < cn; ++kk) {
+        const int4 b = *reinterpret_cast<const int4*>(&Ks[kk * (FJ + FPAD) + tx * 4]);
 #pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int a = Qs[kk * (FQ + FPAD) + ty + 16 * m];
-        acc[m][0] = __dp4a(a, b.x, acc[m][0]);
-        acc[m][1] = __dp4a(a, b.y, acc[m][1]);
-        acc[m][2] = __dp4a(a, b.z, acc[m][2]);
-        acc[m][3] = __dp4a(a, b.w, acc[m][3]);
+        for (int m = 0; m < 4; ++m) {
+          const int a = Qs[kk * (FQ + FPAD) + ty + 16 * m];
+          acc[m][0] = __dp4a(a, b.x, acc[m][0]);
+          acc[m][1] = __dp4a(a, b.y, acc[m][1]);
+          acc[m][2] = __dp4a(a, b.z, acc[m][2]);
+          acc[m][3] = __dp4a(a, b.w, acc[m][3]);
+        }
       }
     }
+    if (tid < FJ) sk[tid] = s;                 // its last readers passed the loop's barrier
     __syncthreads();                           // Σk written
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -314,8 +341,8 @@ extern "C" int edm_int8_flash_sweep(const void* Q, const void* K, const void* V,
   if (N <= 0 || Sq <= 0 || Skv <= 0 || C <= 0 || C % 4) return (int)cudaErrorInvalidValue;
   const int qtiles = (Sq + FQ - 1) / FQ;
   const long long blocks = (long long)N * qtiles;
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  const int Cw = C / 4;
+  if (blocks > INT_MAX || (C + FCH - 1) / FCH > 65535) return (int)cudaErrorInvalidConfiguration;
+  const int Cw = (C < FCC ? C : FCC) / 4;      // words of a resident chunk
   const size_t smem = 4 * ((size_t)Cw * (FQ + FPAD) + (size_t)Cw * (FJ + FPAD)
                            + (FJ / 4) * (FCH + FPAD) + FQ * WROW + FQ + FJ + FCH);
   cudaError_t e = cudaFuncSetAttribute(int8_flash_sweep_kernel,

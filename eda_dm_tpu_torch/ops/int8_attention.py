@@ -31,7 +31,8 @@ plain function chunked over query rows, and the two agree bit for bit.
 Where a shape's logits or head do not fit (:func:`flash_plan`'s
 ``"sweep"`` route), the wrapper launches ``csrc/int8_flash_sweep.cu``,
 which sweeps the key tiles three times (row max, f64 row sum, codes and
-W·V), each sweep independent of the tile order.  (The JAX kernel keeps a
+W·V), each sweep independent of the tile order, and takes a head of any
+width the gate admits in chunks of columns.  (The JAX kernel keeps a
 running f32 max and rescaled normalizer instead, whose sum depends on the
 tile order.)
 
@@ -59,9 +60,9 @@ _SWEEP_SIG = {"edm_int8_flash_sweep": [ctypes.c_void_p] * 6
 # query rows per chunk of K5's plain version: bounds its (N, rows, Skv)
 # temporaries (1 GiB of f32 logits at the SD 64×64 shape)
 FLASH_PLAIN_ROWS = 1024
-# the widest head K5 takes: the sweep route's query and key tiles (64 rows
-# of C codes each) live in shared memory
-FLASH_MAX_C = 1024
+# the widest head K5 takes: the sweep route's blocks a (b·h, query tile)
+# walk C in 64-column chunks along the grid's y dimension (at most 65,535)
+FLASH_MAX_C = 64 * 65535
 
 # the gates' working-set budget (bytes), as the TPU kernels' VMEM budget
 GATE_BYTES = 6 * 1024 * 1024
@@ -173,8 +174,10 @@ K5_WARPS_MAX, K5_R_MAX, K5_KB_STEP, K5_MAX_C, K5_HDR = 32, 8, 64, 512, 3328
 K5_CLUSTERS = (1, 2, 4, 8)
 K5_TQS = (64, 32)
 # the sweep route's fixed sizes (``csrc/int8_flash_sweep.cu``): query rows
-# and keys a tile, output columns a block, threads, words of row padding
+# and keys a tile, output columns a block, threads, words of row padding,
+# columns of the query and key tiles resident a chunk
 SWEEP_FQ, SWEEP_FJ, SWEEP_FCH, SWEEP_THREADS, SWEEP_FPAD = 64, 64, 64, 256, 4
+SWEEP_FCC = 1024
 
 
 def k5_smem_bytes(tq: int, c: int, kb: int):
@@ -192,8 +195,11 @@ def k5_smem_bytes(tq: int, c: int, kb: int):
 
 
 def sweep_smem_bytes(c: int) -> int:
-    """The sweep route's dynamic shared bytes (``int8_flash_sweep.cu``)."""
-    cw = c // 4
+    """The sweep route's dynamic shared bytes (``int8_flash_sweep.cu``):
+    the query and key tiles hold a chunk of at most ``SWEEP_FCC`` columns
+    (a wider head walks C chunk by chunk), then the V tile, the codes and
+    the code sums."""
+    cw = min(c, SWEEP_FCC) // 4
     return 4 * (cw * (SWEEP_FQ + SWEEP_FPAD) + cw * (SWEEP_FJ + SWEEP_FPAD)
                 + (SWEEP_FJ // 4) * (SWEEP_FCH + SWEEP_FPAD)
                 + SWEEP_FQ * (SWEEP_FJ // 4 + 1) + SWEEP_FQ + SWEEP_FJ + SWEEP_FCH)
@@ -216,7 +222,8 @@ def flash_plan(sq: int, skv: int, c: int) -> dict:
     smallest cluster (``r`` blocks, each ``kb`` keys) whose blocks hold
     their slice, with 64 query rows a work item where they fit and Sq
     exceeds 32, else 32; else the sweep route (``int8_flash_sweep.cu``:
-    one block covers the keys in three sweeps).  Returns ``route``,
+    one block covers the keys in three sweeps, and C in chunks of at most
+    ``SWEEP_FCC`` columns).  Returns ``route``,
     ``tq``, ``threads``, ``r``, ``kb`` and ``smem`` (the dynamic shared
     bytes); cached, so a launch pays no search."""
     for r in K5_CLUSTERS:
@@ -324,6 +331,14 @@ def int8_flash_attention_plain(Q, K, V, sc: torch.Tensor, n_levels_w: int,
             torch.cat([p[1] for p in parts], 1))
 
 
+def flash_shape_check(n: int, sq: int, skv: int, c: int) -> None:
+    """Raise unless K5 takes (N, Sq, Skv, C) on the card: C a multiple of
+    4 and at most ``FLASH_MAX_C``, N, Sq and Skv positive."""
+    if c % 4 or c > FLASH_MAX_C or min(n, sq, skv, c) <= 0:
+        raise ValueError(f"int8_flash_attention: C={c} must be a positive multiple "
+                         f"of 4 and at most {FLASH_MAX_C}, N, Sq, Skv positive")
+
+
 def _int8_flash_attention_cuda(Q, K, V, sc, n_levels_w, return_codes):
     dev = Q.device
     if any(t.dtype != torch.int8 or t.device != dev for t in (Q, K, V)):
@@ -336,9 +351,7 @@ def _int8_flash_attention_cuda(Q, K, V, sc, n_levels_w, return_codes):
         raise ValueError("int8_flash_attention takes contiguous, aligned operands")
     n, sq, c = Q.shape
     skv = K.shape[1]
-    if c % 4 or c > FLASH_MAX_C or min(n, sq, skv) == 0:
-        raise ValueError(f"int8_flash_attention: C={c} must be a multiple of 4 "
-                         f"and at most {FLASH_MAX_C}, N, Sq, Skv positive")
+    flash_shape_check(n, sq, skv, c)
     if n_levels_w > 256:
         raise ValueError("int8 codes require sm_abit <= 8")
     out = torch.empty((n, sq, c), dtype=torch.float32, device=dev)

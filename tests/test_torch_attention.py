@@ -40,8 +40,10 @@ from eda_dm_tpu_torch.ops.int8_attention import (BLOCK_SMEM_MAX, FLASH_MAX_C, K4
                                                  K4_NI_MAX, K4_STAGES, K4_TILE_KEYS, K4_TQ,
                                                  K4_WARPS, K5_CLUSTERS, K5_HDR, K5_KB_STEP,
                                                  K5_MAX_C, K5_R_MAX, K5_TQS, K5_WARPS_MAX,
-                                                 SWEEP_FCH, SWEEP_FJ, SWEEP_FPAD, SWEEP_FQ,
-                                                 SWEEP_THREADS, attention_plan, flash_plan,
+                                                 SWEEP_FCC, SWEEP_FCH, SWEEP_FJ, SWEEP_FPAD,
+                                                 SWEEP_FQ, SWEEP_THREADS, attention_plan,
+                                                 flash_attention_applicable, flash_plan,
+                                                 flash_shape_check,
                                                  fused_attention_applicable,
                                                  int8_fused_attention,
                                                  int8_fused_attention_heads, k4_smem_bytes,
@@ -218,8 +220,10 @@ FLASH_PLAN_GRID = [  # sq, skv, c: the card tests' FLASH shapes, SD's, the corne
     (64, 64, 40), (100, 77, 40), (256, 512, 32), (33, 300, 8), (130, 4096, 40),
     (64, 128, 160), (40, 200, 384), (1, 1, 4), (8, 8, 8), (4096, 4096, 40),
     (4096, 4096, 80), (1024, 4096, 160), (64, 4096, 1024), (1, 100_000, 4),
-    (7, 1, K5_MAX_C), (7, 1, K5_MAX_C + 4), (7, 2048, K5_MAX_C), (3, 9, FLASH_MAX_C),
-    (64, 2048, 40), (64, 4097, 40)] + [(40, skv, 40) for skv, _ in K5_R_BOUNDARIES]
+    (7, 1, K5_MAX_C), (7, 1, K5_MAX_C + 4), (7, 2048, K5_MAX_C), (3, 9, 1024),
+    (64, 2048, 40), (64, 4097, 40)] + [(40, skv, 40) for skv, _ in K5_R_BOUNDARIES] + [
+    (1024, 1024, 1088), (256, 512, 1280), (64, 128, 4096), (8, 128, 17_856),
+    (3, 9, FLASH_MAX_C)]   # heads past one resident chunk of the sweep route
 
 
 @pytest.mark.parametrize("sq, skv, c", FLASH_PLAN_GRID,
@@ -284,8 +288,35 @@ def test_k5_constants_match_the_source():
     assert "(tq != 32 && tq != 64)" in src and set(K5_TQS) == {32, 64}
     sweep = (csrc / "int8_flash_sweep.cu").read_text()
     defs = {k: int(v) for k, v in re.findall(r"#define (\w+) (\d+)", sweep)}
-    assert (defs["FQ"], defs["FJ"], defs["FCH"], defs["FA_THREADS"], defs["FPAD"]) == (
-        SWEEP_FQ, SWEEP_FJ, SWEEP_FCH, SWEEP_THREADS, SWEEP_FPAD)
+    assert (defs["FQ"], defs["FJ"], defs["FCH"], defs["FA_THREADS"], defs["FPAD"],
+            defs["FCC"]) == (SWEEP_FQ, SWEEP_FJ, SWEEP_FCH, SWEEP_THREADS, SWEEP_FPAD,
+                             SWEEP_FCC)
+    assert "const int Cw = (C < FCC ? C : FCC) / 4;" in sweep
     assert ("4 * ((size_t)Cw * (FQ + FPAD) + (size_t)Cw * (FJ + FPAD)\n"
             "                           + (FJ / 4) * (FCH + FPAD) + FQ * WROW + FQ + FJ + FCH)"
             ) in sweep
+    assert "(C + FCH - 1) / FCH > 65535" in sweep and FLASH_MAX_C == SWEEP_FCH * 65535
+
+
+@pytest.mark.parametrize("cs", [(8, 32, 40, 64), (128, 384, 512, 1024),
+                                (1088, 1280, 2048, 4096)],
+                         ids=["narrow", "mid", "past-a-chunk"])
+def test_every_admitted_flash_shape_has_a_plan(cs):
+    """Every (Sq, Skv, C) that ``flash_attention_applicable`` admits (narrow
+    lanes on) over Sq, Skv in 64 … 8192 gets a ``flash_plan`` within the
+    H100's shared memory and passes the wrapper's shape check: no admitted
+    head is refused on the card (heads past ``SWEEP_FCC`` columns take the
+    sweep route chunk by chunk)."""
+    n = wide = 0
+    lengths = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
+    for sq in lengths:
+        for skv in lengths:
+            for c in cs:
+                if not flash_attention_applicable(sq, skv, c, narrow_lanes=True):
+                    continue
+                plan = flash_plan(sq, skv, c)
+                assert plan["smem"] <= BLOCK_SMEM_MAX
+                flash_shape_check(1, sq, skv, c)
+                n += 1
+                wide += c > SWEEP_FCC
+    assert n > 20 and (wide > 20) == (cs[-1] > SWEEP_FCC)

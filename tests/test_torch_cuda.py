@@ -13,8 +13,10 @@ padded codes, K not a
 multiple of 4 (K2's tail, SD's 77 context tokens), softmax rows that are
 not a power of two, query and key lengths that are not
 multiples of K5's 32-row and 64-key tiles, K5 on each side of its plan's
-cluster sizes and past them on its sweep route, GroupNorm groups of 3 and 21 channels
-and slices past 48 KB of shared memory (K6), and fake-quant matmuls with
+cluster sizes and past them on its sweep route (heads past its resident
+1024 columns included), GroupNorm groups of 3, 7, 21 and 40 channels, each
+side of K6's plan's cluster sizes, the gate's widest slice and spans past
+one warp's and one block's vectors (K6), and fake-quant matmuls with
 ragged M, N, K and strided weights (K7).  Integer accumulators
 must be bit-equal; the f32 epilogues run the same operations in the same
 order, so outputs must be equal too; softmax codes may flip by one where
@@ -213,7 +215,9 @@ FLASH = [  # n, sq, skv, c: ragged tiles, Sq != Skv, wide heads, SD's 4096
     # each side of the plan's cluster sizes at C = 40 (1 | 2 | 4 | 8 blocks)
     # and past them (the sweep route); a head too wide for the one pass
     (2, 40, 832, 40), (2, 40, 833, 40), (2, 40, 1665, 40), (2, 40, 3329, 40),
-    (2, 40, 6656, 40), (2, 40, 6657, 40), (2, 40, 100, 516), (2, 8, 300, 1024)]
+    (2, 40, 6656, 40), (2, 40, 6657, 40), (2, 40, 100, 516), (2, 8, 300, 1024),
+    # heads wider than the sweep route's resident chunk of 1024 columns
+    (1, 1024, 1024, 1088), (1, 256, 512, 1280), (1, 64, 128, 4096)]
 
 
 @pytest.mark.parametrize("case", FLASH, ids=lambda c: "x".join(map(str, c)))
@@ -282,14 +286,33 @@ def test_int8_attention_kernel_past_the_grid_limit(gen):
     assert float(close.float().mean()) >= 0.999
 
 
+SAME = ((1, 1), (1, 1))
 GN = [  # b, h, w, c, pads (None: gn_norm), swish
-    (3, 7, 9, 96, ((1, 1), (1, 1)), True),        # 3 channels a group, odd h·w
-    (2, 5, 6, 672, ((0, 1), (0, 1)), True),       # 21 channels: unaligned rows
+    (3, 7, 9, 96, SAME, True),                    # 3 channels a group, odd h·w
+    (2, 5, 6, 672, ((0, 1), (0, 1)), True),       # 21 channels: vectors across groups
     (2, 8, 8, 1280, ((0, 0), (0, 0)), False),
-    (1, 32, 32, 416, ((1, 1), (1, 1)), True),     # a 53 KB slice (> 48 KB)
-    (2, 32, 32, 384, ((1, 1), (1, 1)), True),     # 48 KB, + the static 64 B
+    (1, 32, 32, 416, SAME, True),                 # a 53 KB slice over 8 blocks
+    (2, 32, 32, 384, SAME, True),                 # a 96 KB tile in bf16: 2 blocks
     (2, 16, 16, 128, None, True),
     (3, 4, 4, 64, None, False),
+    # CIFAR's conv1 site at a reduced batch, each side of the plan's cluster
+    # sizes 1 | 2 | 4 | 8 in bf16 (4 spans × b × R blocks reach 132)
+    (40, 32, 32, 128, SAME, True), (33, 32, 32, 128, SAME, True),
+    (32, 32, 32, 128, SAME, True), (17, 32, 32, 128, SAME, True),
+    (16, 32, 32, 128, SAME, True), (9, 32, 32, 128, SAME, True),
+    (8, 32, 32, 128, SAME, True),
+    (1, 853, 16, 32, SAME, True),                 # the gate's widest slice: 13,648 a group
+    (2, 16, 16, 224, SAME, True),                 # 7 channels a group
+    (2, 16, 16, 672, ((0, 1), (0, 1)), False),    # 21
+    (3, 16, 16, 1280, SAME, True),                # 40
+    # SD's 1280 at 16×16 (32 one-group spans): each side of the plan's
+    # cluster sizes 1 | 2 | 4 | 8, SD's 8 rows
+    (8, 16, 16, 1280, None, True), (5, 16, 16, 1280, ((0, 1), (0, 1)), True),
+    (4, 16, 16, 1280, None, False), (3, 16, 16, 1280, ((0, 0), (0, 0)), False),
+    (2, 16, 16, 1280, SAME, True), (1, 16, 16, 1280, None, False),
+    (1, 16, 16, 320, SAME, True),                 # batch 1
+    (1, 2, 4, 16384, SAME, True),                 # 64 vectors a span: no shuffles
+    (1, 2, 4, 54560, SAME, True),                 # 1,705 vectors: columns of 512 threads
 ]
 
 
@@ -297,6 +320,9 @@ GN = [  # b, h, w, c, pads (None: gn_norm), swish
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_gn_int8_kernel(gen, case, dtype):
+    """K6 under ``gn_plan``'s plan against its plain version: the codes
+    within ±1 and ≥ 99.9 % equal (equal expected), the rim the code of 0;
+    ``gn_norm`` equal in bf16, within 1e-5 in f32."""
     from eda_dm_tpu_torch.ops.gn_int8 import NO_PADS, gn_norm, gn_plain, gn_swish_int8
     b, h, w, c, pads, act = case
     x = (2.1 * torch.randn(b, h, w, c, generator=gen, device="cuda") + 0.3).to(dtype)
@@ -322,6 +348,21 @@ def test_gn_int8_kernel(gen, case, dtype):
     rim = torch.ones(codes.shape[1:3], dtype=torch.bool, device="cuda")
     rim[pt:pt + h, pl:pl + w] = False
     assert (codes[:, rim] == int(-float(cc))).all()
+
+
+@pytest.mark.parametrize("delta, zp, levels", [
+    (0.043, 57.0, 256), (1.0 / 255.0, 0.0, 256), (0.5, 128.0, 256), (2.0 ** -20, 3.0, 256),
+    (2.0 ** 11, 200.0, 256), (0.0731, 7.0, 16), (3.3e-3, 255.0, 256), (2.0 ** -24, 0.0, 256)])
+def test_gn_int8_fast_arithmetic_matches_ieee(gen, delta, zp, levels):
+    """K6's swish reciprocal equals ``__frcp_rn`` at every float in [1, ∞],
+    and its codes equal those of ``__fdiv_rn`` → ``rintf`` →
+    ``__float2int_rn`` at every y with |y| ≤ 2¹⁰·Δ (every 4,099th float
+    beyond, ±∞, NaN; the clamp's reach), its fast quotients ``__fdiv_rn``'s
+    bits; Δ on both sides of the fast path's range."""
+    from eda_dm_tpu_torch.ops.gn_int8 import gn_check_arith
+    bad = gn_check_arith(delta, zp, levels)
+    torch.cuda.synchronize()
+    assert bad == {"reciprocals": 0, "codes": 0, "quotients": 0}, bad
 
 
 FQ = [  # m, k, n, split
@@ -686,7 +727,8 @@ def test_tiny_model_fused_paths_on_the_card_match_the_host(gen, path, monkeypatc
 def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     """K2 takes any K now (K % 4 != 0 through the tail path, checked
     above); it refuses float operands.  K5 refuses a C that is not a
-    multiple of 4 and K/V of different shapes."""
+    multiple of 4 and K/V of different shapes.  K6 refuses a shape no
+    plan fits."""
     from eda_dm_tpu_torch.ops.int8_attention import (
         _int8_flash_attention_cuda, attention_scalars)
     from eda_dm_tpu_torch.ops.int8_einsum import int8_bmm_nt
@@ -701,10 +743,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         _int8_flash_attention_cuda(Q, Q, _codes(gen, (2, 9, 8)), sc, 256, False)
     from eda_dm_tpu_torch.ops.gn_int8 import gn_norm
     from eda_dm_tpu_torch.ops.quant_matmul import fakequant_matmul
-    x = torch.zeros(1, 64, 64, 512, device="cuda")   # a 256 KB group slice
+    x = torch.zeros(1, 64, 64, 512, device="cuda")
     one = torch.ones(512, device="cuda")
-    with pytest.raises(ValueError, match="shared memory"):
-        gn_norm(x, one, one)
+    # a 4 MB span slice (65,536 pixels of one-channel groups): no cluster of
+    # 8 blocks holds it, so no plan fits
+    with pytest.raises(ValueError, match="no plan fits"):
+        gn_norm(torch.zeros(1, 256, 256, 32, device="cuda"), one[:32], one[:32])
     with pytest.raises(ValueError, match="shape mismatch"):
         fakequant_matmul(x[0, 0], torch.ones(511, 4, device="cuda"), one, one)
     from eda_dm_tpu_torch.ops.quant_matmul import quantized_matmul

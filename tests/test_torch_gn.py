@@ -22,7 +22,16 @@ package's Pallas kernel (``eda_dm_tpu/ops/pallas_gn.py``, interpret mode).
   a block took the fused kernel in both.  The whole tiny DDPM with fused
   GroupNorm is held in ``tests/test_torch_ddpm.py``, beside its
   JAX-calibrated fixture.
+* ``gn_plan`` (K6's launch plan): within the H100's shared memory, at most
+  8 blocks a cluster, and, replayed through a model of the kernel's loops,
+  every pixel, group and rim byte taken exactly once, at every shape the
+  gate admits over a grid; its fixed sizes and layout those of
+  ``csrc/gn_int8.cu``.
 """
+
+import collections
+import pathlib
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -182,3 +191,202 @@ def test_ldm_block_fused_gn_matches_jax(block, k6_spy, monkeypatch):
     assert all(fused for _, fused in k6_spy["jax_gate"])
     assert flips == 0
     np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-5)
+
+
+# --------------------------------------------------------------------------
+# K6's plan, replayed through a model of the kernel's loops
+
+
+def _shuffle_holders(v):
+    """The in-warp tree of ``publish`` (V ≤ 32): lane l adds lane l + d for
+    d = V, 2V, 4V, … < 32.  Returns, for each holder lane l < V, the lanes
+    whose values it ends with (each counted)."""
+    held = [[lane] for lane in range(32)]
+    d = v
+    while d < 32:
+        held = [held[lane] + held[lane + d] if lane + d < 32 else held[lane]
+                for lane in range(32)]
+        d *= 2
+    return held[:min(v, 32)]
+
+
+def _k6_model(h, w, c, esz, plan, pads, num_groups=32):
+    """One batch element through K6's loops under ``plan``: the writes of
+    every padded output byte, and, per group, the input slots its sum
+    gathers (through the fold, the holders and the group stage)."""
+    from eda_dm_tpu_torch.ops.gn_int8 import K6_MAX_THREADS, K6_SHFL_MAX_V, gn_partials
+    (pt, pb), (pl, pr) = pads
+    hp_, wp_ = h + pt + pb, w + pl + pr
+    npix, g, e = h * w, c // num_groups, 16 // esz
+    span, r, pix, lanes, threads = (plan[k] for k in ("span", "r", "pix", "lanes", "threads"))
+    v_, k = span // e, span // g
+    vc = min(v_, K6_MAX_THREADS)
+    ng = gn_partials(span, g, esz)
+    hv = threads // 32 if v_ <= K6_SHFL_MAX_V else lanes
+    writes = np.zeros((hp_, wp_, c), np.int64)
+    # the partials a (vector, index) holds: its slots' channels
+    part_slots = {}
+    for v in range(v_):
+        js = ((v * e) // g + 1) * g - v * e
+        for j in range(e):
+            i = j if ng == e else int(j >= js)
+            part_slots.setdefault((v, i), []).append(v * e + j)
+    # the group stage: group q reads (v, i) for v in its vectors
+    read = {}
+    for q in range(k):
+        for v in range(q * g // e, ((q + 1) * g - 1) // e + 1):
+            for i in (range(e) if ng == e else (q - (v * e) // g,)):
+                if ng == e and (v * e + i) // g != q:
+                    continue
+                read.setdefault((v, i), []).append(q)
+    # the holders: which threads' sums of a vector reach red[v][h]
+    holders = {}
+    for t in range(threads):
+        v0, pl0 = t % vc, t // vc
+        for v in range(v0, v_, vc):
+            if v_ <= K6_SHFL_MAX_V:
+                warp, lane = divmod(t, 32)
+                for hl, lanes_held in enumerate(_shuffle_holders(v_)):
+                    if lane in lanes_held:
+                        assert (32 * warp + hl) % v_ == v
+                        holders.setdefault((v, warp), []).append(t)
+            elif pl0 < lanes:
+                holders.setdefault((v, pl0), []).append(t)
+    for rank in range(r):
+        p_lo = rank * pix
+        np_ = min(pix, npix - p_lo)
+        for t in range(threads):
+            v0, pl0 = t % vc, t // vc
+            if pl0 >= lanes:
+                continue
+            # the kernel's incremental (h, w) walk
+            hh, ww = divmod(p_lo + pl0, w)
+            dh, dw = divmod(lanes, w)
+            for p in range(pl0, np_, lanes):
+                assert (hh, ww) == divmod(p_lo + p, w)
+                for v in range(v0, v_, vc):
+                    for s0 in range(0, c, span):
+                        cv = s0 + v * e
+                        writes[hh + pt, ww + pl, cv:cv + e] += 1
+                        if pads != ((0, 0), (0, 0)) and (hh in (0, h - 1) or ww in (0, w - 1)):
+                            h0 = 0 if hh == 0 else hh + pt
+                            h1 = hp_ - 1 if hh == h - 1 else hh + pt
+                            w0 = 0 if ww == 0 else ww + pl
+                            w1 = wp_ - 1 if ww == w - 1 else ww + pl
+                            for a in range(h0, h1 + 1):
+                                for bb in range(w0, w1 + 1):
+                                    if (a, bb) != (hh + pt, ww + pl):
+                                        writes[a, bb, cv:cv + e] += 1
+                ww += dw
+                hh += dh
+                if ww >= w:
+                    ww -= w
+                    hh += 1
+    gathered = {q: [] for q in range(k)}
+    for (v, i), chans in part_slots.items():
+        for q in read.get((v, i), []):
+            gathered[q] += chans
+    return writes, gathered, holders, (v_, hv, vc)
+
+
+# (h, w) pairs the gate admits (h·w a multiple of 8), widths by family
+GN_PLAN_HW = [(1, 8), (2, 4), (3, 8), (4, 4), (8, 8), (7, 8), (16, 16), (32, 32)]
+GN_PLAN_WIDTHS = {
+    "cifar": (128, 256, 384, 512),
+    "ldm": (224, 448, 672, 896),
+    "sd": (320, 640, 960, 1280, 1920, 2560),
+    "narrow": (32, 64, 96, 160, 192),
+}
+
+
+@pytest.mark.parametrize("family", list(GN_PLAN_WIDTHS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_gn_plan_covers_every_byte_once(family, dtype, monkeypatch):
+    """Every (h, w, c) of the grid that ``fused_gn_applicable`` admits
+    (``EDM_FUSED_GN_NARROW=1``) gets a plan within 232,448 B of shared
+    memory, at most 8 blocks a cluster and 512 threads; replayed through a
+    model of the kernel's loops, every pixel and channel of the padded
+    output is written exactly once (the rim by its clamped owner), each
+    group's sum gathers each of its slots exactly once, and each thread's
+    partials reach exactly one holder."""
+    from eda_dm_tpu_torch.ops.gn_int8 import BLOCK_SMEM_MAX, K6_R_MAX, gn_plan
+    monkeypatch.setenv("EDM_FUSED_GN_NARROW", "1")
+    esz = 2 if dtype == torch.bfloat16 else 4
+    n = 0
+    for h, w in GN_PLAN_HW:
+        for c in GN_PLAN_WIDTHS[family]:
+            if not tpolicy.fused_gn_applicable(h, w, c):
+                continue
+            for b in (1, 8, 50):
+                plan = gn_plan(b, h, w, c, dtype)
+                assert plan["smem"] <= BLOCK_SMEM_MAX and 1 <= plan["r"] <= K6_R_MAX
+                assert plan["threads"] <= 512 and plan["threads"] % 32 == 0
+                assert plan["r"] * plan["pix"] >= h * w > (plan["r"] - 1) * plan["pix"]
+            pads = ((1, 1), (1, 1)) if (h + w) % 2 else ((0, 1), (0, 1))
+            writes, gathered, holders, (v, hv, vc) = _k6_model(h, w, c, esz, plan, pads)
+            assert (writes == 1).all(), (h, w, c, plan)
+            span, g = plan["span"], c // 32
+            assert span * esz % 16 == 0 and span % g == 0 and c % span == 0
+            for q, chans in gathered.items():
+                assert sorted(chans) == list(range(q * g, (q + 1) * g)), (q, plan)
+            # each thread's sums of each of its vector columns reach one holder
+            held = collections.Counter(t for ts in holders.values() for t in ts)
+            if v <= 32:
+                assert held == collections.Counter(range(plan["threads"]))
+            else:
+                assert held == collections.Counter(
+                    {t: len(range(t % vc, v, vc)) for t in range(plan["threads"])
+                     if t // vc < plan["lanes"]})
+            assert all(key[1] < hv <= 32 for key in holders)
+            n += 1
+    assert n >= 8
+
+
+def test_gn_plan_reaches_the_gates_widest_slices(monkeypatch):
+    """The gate's widest slices fit: 13,648 pixels of 32 channels (one
+    channel a group: 13,648 elements a group, 873 KB a span in bf16) split
+    over 8 blocks, and 8 pixels of 54,560 channels (a span of 1,705 vectors
+    walked in columns of 512 threads)."""
+    from eda_dm_tpu_torch.ops.gn_int8 import BLOCK_SMEM_MAX, gn_plan
+    monkeypatch.setenv("EDM_FUSED_GN_NARROW", "1")
+    for h, w, c in ((853, 16, 32), (2, 4, 54_560), (2, 4, 54_592)):
+        assert tpolicy.fused_gn_applicable(h, w, c)
+        assert not tpolicy.fused_gn_applicable(h, 2 * w, c)
+        for dtype in (torch.bfloat16, torch.float32):
+            plan = gn_plan(1, h, w, c, dtype)
+            assert plan["smem"] <= BLOCK_SMEM_MAX
+    assert gn_plan(1, 853, 16, 32, torch.bfloat16)["r"] == 8
+    wide = gn_plan(1, 2, 4, 54_560, torch.bfloat16)
+    assert wide["span"] // 8 > 512 and wide["lanes"] == 1 and wide["threads"] == 512
+    writes, gathered, _, _ = _k6_model(2, 4, 54_560, 2, wide, ((1, 1), (1, 1)))
+    assert (writes == 1).all()
+    g = 54_560 // 32
+    assert all(sorted(ch) == list(range(q * g, (q + 1) * g)) for q, ch in gathered.items())
+
+
+def test_k6_constants_match_the_source():
+    """The plan's copy of K6's fixed sizes (threads a block, the largest
+    cluster, a vector's bytes, the widest span that reduces in-warp) equals
+    the constants of ``csrc/gn_int8.cu``, and the source's layout, partials
+    and thread count are those ``gn_smem_bytes``, ``gn_partials`` and
+    ``gn_launch_plan`` compute."""
+    from eda_dm_tpu_torch.ops.gn_int8 import (K6_MAX_THREADS, K6_PLAN_ARGS, K6_R_MAX,
+                                              K6_SHFL_MAX_V, K6_VEC)
+    src = (pathlib.Path(gn_int8.__file__).parent.parent / "csrc" / "gn_int8.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert (const["MAX_THREADS"], const["R_MAX"], const["VEC_BYTES"], const["SHFL_MAX_V"]) == (
+        K6_MAX_THREADS, K6_R_MAX, K6_VEC, K6_SHFL_MAX_V)
+    layout = src[src.index("inline Layout gn_layout("):]
+    layout = layout[:layout.index("return l;")]
+    for part in ("((long long)pix * span * esz + 15) / 16 * 16", "(long long)V * hv * ng * 8",
+                 "l.gp2 = l.gp1 + round_up(k * 8, 16)", "l.mean = l.gp2 + round_up(k * 8, 16)",
+                 "l.inv = l.mean + round_up(k * 4, 16)", "l.total = l.inv + round_up(k * 4, 16)"):
+        assert part in layout, part
+    for part in ("const int hv = V <= SHFL_MAX_V ? threads / 32 : lanes;",
+                 "const int ng = groups_a_vector(g, E, V) <= 2 ? 2 : E;",
+                 "threads != round_up(lanes * VC, 32)", "(V > MAX_THREADS && lanes != 1)",
+                 "const int V = span / E, VC = V < MAX_THREADS ? V : MAX_THREADS;"):
+        assert part in src, part
+    entry = src[src.index('extern "C" int edm_gn_int8('):]
+    entry = entry[:entry.index("{")]
+    assert re.findall(r"int (span|r|pix|lanes|threads|smem)\b", entry) == list(K6_PLAN_ARGS)

@@ -125,6 +125,16 @@ def test_flash_plans_probe_needs_a_card():
             flash_plans.main(device=device)
 
 
+def test_gn_plans_probe_needs_a_card():
+    """K6's plan probe builds and times kernels only: it refuses the host,
+    CPU included, before it builds anything."""
+    from eda_dm_tpu_torch.probes import gn_plans
+    for device, what in ((None, "no CUDA device"), ("cuda", "no CUDA device"),
+                         ("cpu", "needs a CUDA card")):
+        with pytest.raises(RuntimeError, match=what):
+            gn_plans.main(device=device)
+
+
 def test_modules_mirror_jax_paths():
     """Module paths map mechanically onto the JAX variable paths."""
     from eda_dm_tpu_torch.models.bridge import _child
