@@ -15,8 +15,10 @@ exits non-zero before the last line:
    LSUN-Bedroom ones: the symmetric-pad stride-2 conv of ``DownsampleL``, a
    concatenated input, the heads-layout einsums), outputs within the stated
    tolerance (K1's bf16 output, the serving carrier, equal); softmax codes
-   within ±1 and ≥ 99.9 % equal (K3 at the CIFAR shapes, the bedroom
-   8x8 site's and SD's cross-attention, K4 at its bedroom, CIFAR and SD
+   within ±1 and ≥ 99.9 % equal, the rows that differ counted (K3 at the
+   CIFAR shapes, bf16 logits too, the bedroom 8x8 site's and SD's
+   cross-attention, each with its ``softmax_plan`` and its device time by
+   the profiler beside the CUDA events; K4 at its bedroom, CIFAR and SD
    shapes and K5 at SD's 64×64 shapes, a query length other than the key
    length and a 16-level softmax quantizer (each on its plan's one-pass
    route) and past the one pass (the sweep route), whose outputs agree within
@@ -36,10 +38,12 @@ exits non-zero before the last line:
    and within 1e-5 in f32; K7 (fake-quant matmul) equal to ``fake_quant``
    through an identity weight, else within 1e-5·(|xq|·|w| + |bias|) of a
    float64 product (bf16: plus one bf16 step) at the DEPLOY_FUSED CIFAR
-   shapes; median times of kernel, plain version, one library call where
-   one computes the same function (for K4 and K5 the port's own einsum
-   chain K2 → K3 → K2 instead, for K6 the unfused GNorm → swish →
-   quantize chain, for K7 the DEPLOY chain fake_quant → matmul → bias),
+   shapes, in both weight layouts, the bf16 tensor-core route also by
+   device time with its ``fq_plan``; median times of kernel, plain
+   version, one library call where one computes the same function (for K3
+   the chain softmax → ``quantize_act_int8`` instead, for K4 and K5 the
+   port's own einsum chain K2 → K3 → K2, for K6 the unfused GNorm → swish
+   → quantize chain, for K7 the DEPLOY chain fake_quant → matmul → bias),
    and the bound;
 3b. K8 (int8 quantized matmul) against its plain version: int32
    accumulators and outputs bit-equal at the JAX test's shapes, ragged
@@ -496,39 +500,56 @@ def _plain_bmm(A, B, row_add=None, col_add=None, k_add=None, scale=None,
     return int8_bmm_nt_plain(A, B, row_add, col_add, k_add, scale, bias)
 
 
+def rows_differ(ck, cp):
+    """Rows of two code matrices (last axis a row) that differ anywhere."""
+    return int((ck != cp).reshape(-1, ck.shape[-1]).any(-1).sum())
+
+
 def check_softmax(g):
-    from eda_dm_tpu_torch.ops.softmax_codes import (softmax_int8_codes,
-                                                    softmax_int8_codes_plain)
+    """K3 against its plain version at its four main-path shapes, float32
+    logits (what the einsum attention hands it), and bf16 logits at
+    CIFAR's: codes within ±1 and ≥ 99.9 % equal, the rows that differ
+    counted (0 expected, apart from f64 sums that straddle an f32 rounding
+    boundary); timed by CUDA events and by the profiler's device time,
+    beside the bound, the plain version and the chain softmax →
+    ``quantize_act_int8``."""
+    from eda_dm_tpu_torch.ops.int8_einsum import quantize_act_int8
+    from eda_dm_tpu_torch.ops.softmax_codes import (K3_PLAN_ARGS, softmax_int8_codes,
+                                                    softmax_int8_codes_plain, softmax_plan)
+    from eda_dm_tpu_torch.probes.mma_int8 import device_ms
     d, z = torch.tensor(1.0 / 255.0, device="cuda"), torch.tensor(0.0, device="cuda")
-    err, timing, sd = 0.0, None, {}
+    err, shapes = 0.0, {}
     # CIFAR at batch 500 (256 and 16 tokens); the bedroom 8x8 site at batch
     # 50 (28 heads of 64 tokens); SD's cross-attention at 8 rows (8 heads of
     # 4096 queries over the 77 text tokens)
-    for n, s, q in ((BATCH, 256, 256), (BATCH, 16, 16), (LDM_BATCH * 28, 64, 64),
-                    (SD_ROWS * 8, 77, 4096)):
+    cases = [("CIFAR 16x16 site", BATCH, 256, 256), ("CIFAR 4x4 site", BATCH, 16, 16),
+             ("bedroom 8x8 site", LDM_BATCH * 28, 64, 64),
+             ("SD cross-attention", SD_ROWS * 8, 77, 4096)]
+    for what, n, s, q in cases:
         logits = 6.0 * torch.randn(n * q, s, generator=g, device="cuda")
-        ck, _ = softmax_int8_codes(logits, d, z, 256)
-        diff = codes_gate(ck, softmax_int8_codes_plain(logits, d, z, 256),
-                          f"K3 ({n}*{q}, {s})")
-        err = max(err, float(diff.max()))
-        if s == 77:
-            nel = logits.numel()
-            sd[f"SD cross-attention ({n}*{q}, {s}) f32 -> int8"] = dict(
-                ms=cuda_ms(lambda: softmax_int8_codes(logits, d, z, 256)),
-                **dict(zip(("bound_ms", "bound_by"), bound(5 * nel, 10 * nel, F32_PEAK))))
-        if timing is None:
-            nel = logits.numel()
-            timing = dict(
-                shape=f"({n}*{s}, {s}) f32 -> int8",
-                ms=cuda_ms(lambda: softmax_int8_codes(logits, d, z, 256)),
-                plain_ms=cuda_ms(lambda: softmax_int8_codes_plain(logits, d, z, 256)),
-                library_ms=None,
-                **dict(zip(("bound_ms", "bound_by"),
-                           bound(5 * nel, 10 * nel, F32_PEAK))))
-    return dict(name="softmax_codes", route="triton",
-                source="eda_dm_tpu_torch/ops/softmax_codes.py",
+        for x in ((logits, logits.to(torch.bfloat16)) if s == 256 else (logits,)):
+            ck, _ = softmax_int8_codes(x, d, z, 256)
+            cp = softmax_int8_codes_plain(x, d, z, 256)
+            name = f"K3 {what} ({n}*{q}, {s}) {str(x.dtype)[6:]}"
+            diff = codes_gate(ck, cp, name)
+            print(f"    {name}: {rows_differ(ck, cp)} of {x.shape[0]} rows differ")
+            err = max(err, float(diff.max()))
+        nel = logits.numel()
+        plan = softmax_plan(n * q, s, logits.dtype)
+        kern = lambda: softmax_int8_codes(logits, d, z, 256)
+        shapes[f"{what} ({n}*{q}, {s}) f32 -> int8"] = dict(
+            ms=cuda_ms(kern), device_ms=device_ms(kern, "softmax_codes_kernel"),
+            plain_ms=cuda_ms(lambda: softmax_int8_codes_plain(logits, d, z, 256), reps=5),
+            chain_ms=cuda_ms(lambda: quantize_act_int8(torch.softmax(logits, -1), d, z, 256),
+                             reps=5),
+            plan=" ".join(f"{k} {plan[k]}" for k in K3_PLAN_ARGS),
+            **dict(zip(("bound_ms", "bound_by"), bound(5 * nel, 10 * nel, F32_PEAK))))
+        del logits, ck, cp
+    main = next(iter(shapes))
+    return dict(name="softmax_codes", route="cuda",
+                source="eda_dm_tpu_torch/csrc/softmax_codes.cu",
                 replaces="eda_dm_tpu/ops/pallas_softmax.py:50", max_abs_err=err,
-                sd_ms=sd, **timing)
+                shape=main, library_ms=None, sd_ms={}, shapes_ms=shapes, **shapes[main])
 
 
 def check_attention(g, sms, clock_hz):
@@ -718,30 +739,19 @@ def check_gn(g):
                 shapes_ms=shapes, **shapes[main])
 
 
-def fq_error(out, x, w, dk, zk, n_levels, bias):
-    """(within tolerance?, max |Δ|) of a K7 output against the float64
-    product of the same fake-quantized operand: |Δ| ≤ 1e-5·(|xq|·|w| +
-    |bias|), plus one bf16 step at |ref| for a bf16 output."""
-    from eda_dm_tpu_torch.ops.quant_matmul import fakequant_rows
-    xq = fakequant_rows(x, dk, zk, n_levels, w.dtype).double()
-    b64 = (torch.zeros(w.shape[1], dtype=torch.float64, device=x.device)
-           if bias is None else bias.double())
-    ref = xq @ w.double() + b64
-    slack = 1e-5 * (xq.abs() @ w.double().abs() + b64.abs())
-    if out.dtype == torch.bfloat16:
-        slack += torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
-    e = (out.double() - ref).abs()
-    return bool((e <= slack).all()), float(e.max())
-
-
 def check_fq(g):
     """K7 against a float64 product of the same fake-quantized operand:
     with an identity weight in float32 the output is ``fake_quant(x)`` bit
-    for bit; otherwise |Δ| ≤ 1e-5·(|xq|·|w| + |bias|) in float32 and within
-    one bf16 step (plus that) in bf16, at the DEPLOY_FUSED CIFAR shapes;
-    timed beside the bound, the plain version and the DEPLOY chain
-    fake_quant → cuBLAS matmul → bias."""
-    from eda_dm_tpu_torch.ops.quant_matmul import fakequant_matmul, fakequant_matmul_plain
+    for bit (the float32 route); otherwise |Δ| ≤ 1e-5·(|xq|·|w| + |bias|)
+    in float32 and within one bf16 step (plus that) in bf16 (the
+    tensor-core route), at the DEPLOY_FUSED CIFAR shapes, with the port's
+    [out, in] weights and a contiguous (K, N); the bf16 route timed by CUDA
+    events and by the profiler's device time, with its ``fq_plan``, beside
+    the bound, the plain version and the DEPLOY chain fake_quant → cuBLAS
+    matmul → bias."""
+    from eda_dm_tpu_torch.ops.quant_matmul import (fakequant_matmul, fakequant_matmul_plain,
+                                                   fq_error, fq_plan)
+    from eda_dm_tpu_torch.probes.mma_int8 import device_ms
     from eda_dm_tpu_torch.quant.affine import fake_quant
     x = 3.0 * torch.randn(4096, 256, generator=g, device="cuda")
     dk, zk = torch.full((256,), 0.031, device="cuda"), torch.full((256,), 121.0, device="cuda")
@@ -761,13 +771,16 @@ def check_fq(g):
         zk = torch.where(first, 121.0, 64.0)
         bias = 0.3 * torch.randn(n, generator=g, device="cuda")
         for dt in (torch.float32, torch.bfloat16):
-            xx, ww = x.to(dt), w.to(dt).t()
-            ok, e = fq_error(fakequant_matmul(xx, ww, dk, zk, 256, bias), xx, ww, dk,
-                             zk, 256, bias)
-            check(ok, f"K7 {name}, {str(dt)[6:]}: within "
-                  f"{'one bf16 step + ' if dt == torch.bfloat16 else ''}"
-                  f"1e-5·(|xq|·|w| + |bias|) of the float64 product (max |d| {e:.3g})")
-            err = max(err, e)
+            for layout in ("[out, in] weights", "(K, N) weights"):
+                xx, ww = x.to(dt), w.to(dt).t()
+                if layout == "(K, N) weights":
+                    ww = ww.contiguous()
+                ok, e = fq_error(fakequant_matmul(xx, ww, dk, zk, 256, bias), xx, ww, dk,
+                                 zk, 256, bias)
+                check(ok, f"K7 {name}, {str(dt)[6:]}, {layout}: within "
+                      f"{'one bf16 step + ' if dt == torch.bfloat16 else ''}"
+                      f"1e-5·(|xq|·|w| + |bias|) of the float64 product (max |d| {e:.3g})")
+                err = max(err, e)
         xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16).t()
         rows = [(dk[0], zk[0], split or k)] + ([(dk[-1], zk[-1], k - split)] if split else [])
 
@@ -778,8 +791,10 @@ def check_fq(g):
                 s0 += kk
             return (torch.cat(parts, -1) if split else parts[0]) @ wb + bias
         nbytes = 2 * (m * k + k * n + m * n) + 2 * k * 4 + n * 4
+        kern = lambda: fakequant_matmul(xb, wb, dk, zk, 256, bias)
         shapes[name] = dict(
-            ms=cuda_ms(lambda: fakequant_matmul(xb, wb, dk, zk, 256, bias)),
+            ms=cuda_ms(kern), device_ms=device_ms(kern, "fakequant_matmul"),
+            plan=f"bn {fq_plan(m, n)}",
             plain_ms=cuda_ms(lambda: fakequant_matmul_plain(xb, wb, dk, zk, 256, bias),
                              reps=5),
             chain_ms=cuda_ms(chain, reps=5),
@@ -1087,16 +1102,21 @@ def check_recorded(record):
     rounding tie shows here as a ±1 code, apart from what it does
     downstream."""
     from eda_dm_tpu_torch.ops.gn_int8 import _gn_cuda, gn_plain
-    from eda_dm_tpu_torch.ops.quant_matmul import _fakequant_matmul_cuda
+    from eda_dm_tpu_torch.ops.quant_matmul import _fakequant_matmul_cuda, fq_error
     from eda_dm_tpu_torch.ops.int8_attention import (
         _int8_flash_attention_cuda, _int8_fused_attention_cuda,
         int8_flash_attention_plain, int8_fused_attention_plain)
     from eda_dm_tpu_torch.ops.softmax_codes import (softmax_int8_codes,
                                                     softmax_int8_codes_plain)
-    for i, (logits, d, z, n_levels) in enumerate(record.get("softmax_codes", [])):
-        codes_gate(softmax_int8_codes(logits, d, z, n_levels)[0],
-                   softmax_int8_codes_plain(logits, d, z, n_levels),
-                   f"K3 call {i} {tuple(logits.shape)}")
+    calls = record.get("softmax_codes", [])
+    n_rows = n_differ = 0
+    for i, (logits, d, z, n_levels) in enumerate(calls):
+        ck = softmax_int8_codes(logits, d, z, n_levels)[0]
+        cp = softmax_int8_codes_plain(logits, d, z, n_levels)
+        codes_gate(ck, cp, f"K3 call {i} {tuple(logits.shape)}")
+        n_rows, n_differ = n_rows + cp.numel() // cp.shape[-1], n_differ + rows_differ(ck, cp)
+    if calls:
+        print(f"    K3 on the {len(calls)} recorded calls: {n_differ} of {n_rows} rows differ")
     for i, (Q, K, V, sc, n_levels) in enumerate(record.get("int8_attention", [])):
         out_k, W_k = _int8_fused_attention_cuda(Q, K, V, sc, n_levels, True)
         out_p, W_p = int8_fused_attention_plain(Q, K, V, sc, n_levels, True)
@@ -1190,9 +1210,9 @@ def profile_forward(fn, top=12):
     # the hand-written kernels, each summed over its template instances
     mine = {}
     for e in kern:
-        for name in ("int8_conv_kernel", "int8_bmm_nt_kernel", "_softmax_codes_kernel",
+        for name in ("int8_conv_kernel", "int8_bmm_nt_kernel", "softmax_codes_kernel",
                      "int8_attention_kernel", "int8_flash_attention_kernel", "gn_kernel",
-                     "fakequant_matmul_kernel"):
+                     "fakequant_matmul"):
             if name in e.key:
                 t, c = mine.get(name, (0.0, 0))
                 mine[name] = (t + dev_ms(e), c + e.count)
@@ -1672,8 +1692,8 @@ def main():
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
-    extra = ("cifar_launches", "bedroom_launches", "per_forward", "chain_ms", "einsum_ms",
-             "bmm_f32_ms", "bf16_conv_ms", "plans", "transposing_ms", "streamed_ms",
+    extra = ("cifar_launches", "bedroom_launches", "per_forward", "device_ms", "chain_ms",
+             "einsum_ms", "bmm_f32_ms", "bf16_conv_ms", "plans", "transposing_ms", "streamed_ms",
              "acc_ms", "other_tile_ms", "sd_ms", "shapes_ms", "rates", "plain_by_shape",
              "library_peak")
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")

@@ -4,10 +4,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``_build/<name>-<hash>.so`` at first use, then loaded
 with ``ctypes``: no PyTorch headers, so a build takes seconds.  The hash
 covers the sources and flags, so an edited kernel is rebuilt and an
-unchanged one is reused.  Triton's own cache goes under ``_build/`` too.
+unchanged one is reused.
 
 Nothing here runs at import: the package imports on machines without
-``nvcc``, ``triton`` or a card.
+``nvcc`` or a card.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from typing import Dict, Iterable
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-CUDA_SOURCES = ("int8_conv", "int8_bmm", "int8_attention",
+CUDA_SOURCES = ("int8_conv", "int8_bmm", "softmax_codes", "int8_attention",
                 "int8_flash_attention", "int8_flash_sweep", "gn_int8", "fakequant_matmul",
                 "quantized_matmul", "mma_chain")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -110,13 +110,6 @@ def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(
             f"{what} launch failed: {lib.edm_error_string(err).decode()}")
-
-
-def import_triton():
-    """Import triton with its cache under the build directory."""
-    os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
-    import triton  # noqa: F401  (raises where triton is missing: no fallback)
-    return triton
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -3,7 +3,9 @@ fake-quant matmul (kernel K7) and the int8 quantized matmul with its
 weight packing (kernel K8).
 
 K7, the serving matmul with the activation fake-quant fused into the tile
-load.
+load: on bf16 x and w (the serving carrier) a tensor-core GEMM whose
+blocks take ``fq_plan``'s columns, on float32 or mixed operands a float32
+FMA GEMM (bf16 products would break float32's tolerance).
 
 Port of ``eda_dm_tpu/ops/pallas_quant.py::fakequant_matmul``, which the
 DEPLOY_FUSED mode runs for every 1×1 conv and dense:
@@ -48,7 +50,13 @@ from ._build import check_launch, cuda_lib, launch_counts, ptr, stream_ptr
 from .int8_einsum import int8_matmul_acc_plain, load_route, tf32_off
 
 _FQ_SIG = {"edm_fakequant_matmul": [ctypes.c_void_p] * 6
-           + [ctypes.c_int] * 8 + [ctypes.c_void_p]}
+           + [ctypes.c_int] * 9 + [ctypes.c_void_p]}
+# K7's tensor-core route (``csrc/fakequant_matmul.cu``, held equal by a
+# test): rows a block, and the columns a block may take
+FQ_BM = 64
+FQ_BNS = (64, 128, 256)
+# the H100's SMs: fewer row tiles than this split N into 64-wide tiles
+FQ_SMS = 132
 _QM_SIG = {"edm_quantized_matmul": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
            + [ctypes.c_void_p]}
 
@@ -62,6 +70,22 @@ def fakequant_rows(x: torch.Tensor, delta_k: torch.Tensor, zp_k: torch.Tensor,
     return (q * delta_k).to(dtype)
 
 
+def fq_error(out, x, w, delta_k, zp_k, n_levels, bias) -> Tuple[bool, float]:
+    """(within K7's tolerance?, max |Δ|) of an output against the float64
+    product of the same fake-quantized operand: |Δ| ≤ 1e-5·(|xq|·|w| +
+    |bias|), plus one bf16 step at |ref| for a bf16 output (the kernels and
+    the plain version add in other orders)."""
+    xq = fakequant_rows(x, delta_k, zp_k, n_levels, w.dtype).double()
+    b64 = (torch.zeros(w.shape[1], dtype=torch.float64, device=x.device) if bias is None
+           else bias.double())
+    ref = xq @ w.double() + b64
+    slack = 1e-5 * (xq.abs() @ w.double().abs() + b64.abs())
+    if out.dtype == torch.bfloat16:
+        slack += torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+    e = (out.double() - ref).abs()
+    return bool((e <= slack).all()), float(e.max())
+
+
 def fakequant_matmul_plain(x, w, delta_k, zp_k, n_levels, bias):
     xq = fakequant_rows(x, delta_k, zp_k, n_levels, w.dtype)
     with tf32_off():
@@ -71,7 +95,18 @@ def fakequant_matmul_plain(x, w, delta_k, zp_k, n_levels, bias):
     return acc.to(x.dtype)
 
 
-def _fakequant_matmul_cuda(x, w, delta_k, zp_k, n_levels, bias):
+def fq_plan(m: int, n: int) -> int:
+    """Columns a block of K7's tensor-core route takes for an (M, ·)·(·, N)
+    product: all of N (rounded up to 64, 128 or 256; N past 256 in tiles of
+    256), so each element of x is fake-quantized once, where the M rows
+    give at least ``FQ_SMS`` row tiles of ``FQ_BM``; else 64, so that more
+    blocks share the card (the temb dense, M = 500)."""
+    if -(-m // FQ_BM) < FQ_SMS:
+        return FQ_BNS[0]
+    return next((bn for bn in FQ_BNS if n <= bn), FQ_BNS[-1])
+
+
+def _fakequant_matmul_cuda(x, w, delta_k, zp_k, n_levels, bias, bn=None):
     dev = x.device
     for t, what in ((x, "x"), (w, "w")):
         if t.dtype not in (torch.float32, torch.bfloat16) or t.dim() != 2:
@@ -89,12 +124,15 @@ def _fakequant_matmul_cuda(x, w, delta_k, zp_k, n_levels, bias):
                              f"{tuple(t.shape)} on {t.device}")
         rows.append(None if t is None else t.float().contiguous())
     x = x.contiguous()
+    tensor_cores = x.dtype == w.dtype == torch.bfloat16
+    if tensor_cores and 1 not in w.stride():
+        w = w.contiguous()
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
     lib = cuda_lib("fakequant_matmul", _FQ_SIG)
     err = lib.edm_fakequant_matmul(
         ptr(x), ptr(w), ptr(rows[0]), ptr(rows[1]), ptr(rows[2]), ptr(out),
         int(x.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
-        m, n, k, w.stride(0), w.stride(1), n_levels, stream_ptr(dev))
+        m, n, k, w.stride(0), w.stride(1), n_levels, bn or fq_plan(m, n), stream_ptr(dev))
     check_launch(lib, err, "fakequant_matmul")
     launch_counts["fakequant_matmul"] += 1
     return out

@@ -52,7 +52,7 @@ from ..ops.gn_int8 import (_GN_SIG, K6_CLUSTERS, K6_PLAN_ARGS, K6_VEC, NO_PADS,
                            gn_launch_plan, gn_plan)
 from .attention_phases import card
 from .flash_plans import build
-from .mma_int8 import cuda_ms
+from .mma_int8 import cuda_ms, device_ms
 
 SAME = ((1, 1), (1, 1))
 # chip_smoke.py's K6 shapes: (b, h, w, c, pads or None for gn_norm, swish)
@@ -138,24 +138,6 @@ def launcher(lib, x, scale, bias, d, zp, out, pads, swish, plan=None):
         err = lib.edm_gn_int8(*args, *(p[k] for k in K6_PLAN_ARGS),
                               _build.stream_ptr(x.device))
     _build.check_launch(lib, err, "K6")
-
-
-def kernel_ms(fn, reps=20) -> float:
-    """Device time of one K6 kernel by the profiler (the mean over ``reps``
-    calls): at small shapes a call's CUDA-event time is the host's launch
-    path, not the kernel's."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and "gn_kernel" in e.key]
-    n = sum(e.count for e in ev)
-    return sum(e.self_device_time_total for e in ev) / 1e3 / n if n else float("nan")
 
 
 def run(fn, x, pads):
@@ -269,7 +251,7 @@ def main(parent=None, json_path=None, device=None) -> dict:
                                          p), x, pads)
             same = compare(ref, got, pads, c)
             del got
-            ms = kernel_ms(call("this", p))
+            ms = device_ms(call("this", p), "gn_kernel")
             key = f"{shape} span {p['span']} r {p['r']} lanes {p['lanes']}"
             result["plans"][key] = dict(ms=ms, plan=p, **same)
             print(f"K6 {key} pix {p['pix']} lanes {p['lanes']} threads {p['threads']} smem "
@@ -281,7 +263,7 @@ def main(parent=None, json_path=None, device=None) -> dict:
             result["turns"][shape] = list(zip(order, turns))
             print(f"K6 {shape} parent, this, this, parent: "
                   + " / ".join(f"{v:.4f}" for v in turns) + " ms", flush=True)
-            dev = [kernel_ms(call(tag, "parent" if tag == "parent" else None))
+            dev = [device_ms(call(tag, "parent" if tag == "parent" else None), "gn_kernel")
                    for tag in order]
             result["turns"][shape + " (profiler)"] = list(zip(order, dev))
             print(f"K6 {shape} device time by the profiler, parent, this, this, parent: "

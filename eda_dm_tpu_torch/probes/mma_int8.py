@@ -172,6 +172,24 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Device time of one call's kernels whose names hold ``kernel``, by the
+    profiler (the mean over ``reps`` calls): at small shapes a call's
+    CUDA-event time is the host's launch path, not the kernel's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and kernel in e.key]
+    n = sum(e.count for e in ev)
+    return sum(e.self_device_time_total for e in ev) / 1e3 / n if n else float("nan")
+
+
 def probe_shape(m: int, k: int, generator: torch.Generator, device,
                 steps: int = CHAIN) -> dict:
     """Both arms at one shape: the kernel's chain against its plain

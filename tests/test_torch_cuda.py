@@ -153,6 +153,74 @@ def test_softmax_codes_kernel(gen, s):
     assert float(c) == 128.0 - 7.0
 
 
+def _softmax_gate(codes, plain, what):
+    """K3's codes against the plain version's: within ±1, ≥ 99.9 % equal;
+    prints the rows that differ (0 expected, apart from f64 row sums that
+    straddle an f32 rounding boundary)."""
+    diff = (codes.int() - plain.int()).abs()
+    rows = int((diff != 0).reshape(-1, diff.shape[-1]).any(-1).sum())
+    print(f"\n  K3 {what}: {rows} of {diff.numel() // diff.shape[-1]} rows differ")
+    assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("s", [16, 64, 77, 256, 300])
+def test_softmax_codes_kernel_bf16_logits(gen, s):
+    """bf16 logits, upcast in the kernel as the JAX kernel upcasts them."""
+    from eda_dm_tpu_torch.ops.softmax_codes import (softmax_int8_codes,
+                                                    softmax_int8_codes_plain)
+    logits = (6.0 * torch.randn(333, s, generator=gen, device="cuda")).to(torch.bfloat16)
+    d, z = torch.tensor(0.004, device="cuda"), torch.tensor(7.0, device="cuda")
+    codes, _ = softmax_int8_codes(logits, d, z, 256)
+    torch.cuda.synchronize()
+    _softmax_gate(codes, softmax_int8_codes_plain(logits, d, z, 256), f"bf16 (333, {s})")
+
+
+@pytest.mark.parametrize("r,s", [(500 * 256, 256), (500 * 16, 16), (50 * 28 * 64, 64),
+                                 (64 * 4096, 77)], ids=["cifar", "cifar16", "bedroom", "sd"])
+def test_softmax_codes_kernel_smoke_shapes(gen, r, s):
+    """K3 at ``chip_smoke.py``'s four shapes, with its quantizer."""
+    from eda_dm_tpu_torch.ops.softmax_codes import (softmax_int8_codes,
+                                                    softmax_int8_codes_plain)
+    logits = 6.0 * torch.randn(r, s, generator=gen, device="cuda")
+    d, z = torch.tensor(1.0 / 255.0, device="cuda"), torch.tensor(0.0, device="cuda")
+    codes, _ = softmax_int8_codes(logits, d, z, 256)
+    torch.cuda.synchronize()
+    _softmax_gate(codes, softmax_int8_codes_plain(logits, d, z, 256), f"({r}, {s})")
+
+
+@pytest.mark.parametrize("r,s", [(7, 1), (5, 33), (40, 1024), (3, 4096), (2, 5000),
+                                 (2, 8193), (1, 32768)])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "off16"])
+def test_softmax_codes_kernel_rows_of_any_width(gen, r, s, offset):
+    """Rows of one element, rows a warp takes with several elements a
+    lane, rows over several warps (1024, 4096 and 5000), past a block of
+    256 threads (8193) and a block's widest; logits off a 16-byte boundary (a view one element in), so the
+    tile's ragged head and tail go by scalar loads."""
+    from eda_dm_tpu_torch.ops.softmax_codes import (softmax_int8_codes,
+                                                    softmax_int8_codes_plain)
+    buf = 4.0 * torch.randn(r * s + offset, generator=gen, device="cuda")
+    logits = buf[offset:].view(r, s)
+    d, z = torch.tensor(0.004, device="cuda"), torch.tensor(7.0, device="cuda")
+    codes, _ = softmax_int8_codes(logits, d, z, 256)
+    torch.cuda.synchronize()
+    _softmax_gate(codes, softmax_int8_codes_plain(logits, d, z, 256), f"({r}, {s}) +{offset}")
+
+
+@pytest.mark.parametrize("sigma", [1.0, 77.0, 4096.0, 8192.0 - 2.0 ** -11],
+                         ids=["1", "77", "4096", "below_8192"])
+@pytest.mark.parametrize("delta, zp, levels", [(1.0 / 255.0, 0.0, 256), (0.004, 7.0, 256),
+                                               (2.0 ** -24, 0.0, 256), (0.0731, 3.0, 16)])
+def test_softmax_fast_division_matches_ieee(gen, sigma, delta, zp, levels):
+    """K3's e/Σ on its fast path equals ``__fdiv_rn`` at every float e in
+    [2⁻⁸⁰, 1], and its code equals that of ``__fdiv_rn`` → ``__fdiv_rn`` →
+    ``rintf`` at every float e in [0, 1]; Δ inside the fast range and
+    below it (2⁻²⁴: both divisions by ``__fdiv_rn``)."""
+    from eda_dm_tpu_torch.ops.softmax_codes import softmax_check_arith
+    bad = softmax_check_arith(sigma, delta, zp, levels)
+    torch.cuda.synchronize()
+    assert bad == {"quotients": 0, "codes": 0}, bad
+
+
 def _attention_case(g, n, s, c):
     from eda_dm_tpu_torch.ops.int8_attention import attention_scalars
     Q, K, V = (_codes(g, (n, s, c)) for _ in range(3))
@@ -378,7 +446,7 @@ def test_fakequant_matmul_kernel(gen, case, dtype, layout, with_bias):
     """K7 on the port's [out, in] weights (the transposed view) and on a
     contiguous (K, N) one, against a float64 product of the same
     fake-quantized operand."""
-    from eda_dm_tpu_torch.ops.quant_matmul import fakequant_matmul, fakequant_rows
+    from eda_dm_tpu_torch.ops.quant_matmul import fakequant_matmul
     m, k, n, split = case
     x = (1.7 * torch.randn(m, k, generator=gen, device="cuda") + 0.2).to(dtype)
     w = (0.05 * torch.randn(n, k, generator=gen, device="cuda")).to(dtype)
@@ -389,13 +457,36 @@ def test_fakequant_matmul_kernel(gen, case, dtype, layout, with_bias):
     out = fakequant_matmul(x, w, dk, zk, 256, bias)
     torch.cuda.synchronize()
     assert out.dtype == dtype and out.shape == (m, n)
-    xq = fakequant_rows(x, dk, zk, 256, dtype).double()
-    b64 = bias.double() if with_bias else torch.zeros(n, device="cuda", dtype=torch.float64)
-    ref = xq @ w.double() + b64
-    slack = 1e-5 * (xq.abs() @ w.double().abs() + b64.abs())
-    if dtype == torch.bfloat16:
-        slack += torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
-    assert bool(((out.double() - ref).abs() <= slack).all())
+    _fq_gate(out, x, w, dk, zk, bias)
+
+
+def _fq_gate(out, x, w, dk, zk, bias):
+    """K7's output within 1e-5·(|xq|·|w| + |bias|) of the float64 product
+    of the same fake-quantized operand, plus one bf16 step on a bf16
+    output."""
+    from eda_dm_tpu_torch.ops.quant_matmul import fq_error
+    ok, e = fq_error(out, x, w, dk, zk, 256, bias)
+    assert ok, e
+
+
+@pytest.mark.parametrize("m,k,n,split", [(128000, 256, 256, 0), (128000, 512, 256, 256),
+                                         (500, 512, 256, 0)], ids=["attn", "nin", "temb"])
+@pytest.mark.parametrize("bn", [64, 128, 256])
+@pytest.mark.parametrize("layout", ["out_in", "in_out"])
+def test_fakequant_matmul_kernel_cifar_shapes(gen, m, k, n, split, bn, layout):
+    """K7's tensor-core route at ``chip_smoke.py``'s three CIFAR shapes,
+    bf16, under each of its column tiles (``fq_plan``'s and the others),
+    in both weight layouts, held to the same gate."""
+    from eda_dm_tpu_torch.ops.quant_matmul import _fakequant_matmul_cuda
+    x = (1.7 * torch.randn(m, k, generator=gen, device="cuda") + 0.2).to(torch.bfloat16)
+    w = (0.05 * torch.randn(n, k, generator=gen, device="cuda")).to(torch.bfloat16)
+    w = w.t() if layout == "out_in" else w.t().contiguous()
+    first = torch.arange(k, device="cuda") < (split or k)
+    dk, zk = torch.where(first, 0.031, 0.017), torch.where(first, 121.0, 64.0)
+    bias = 0.3 * torch.randn(n, generator=gen, device="cuda")
+    out = _fakequant_matmul_cuda(x, w, dk, zk, 256, bias, bn=bn)
+    torch.cuda.synchronize()
+    _fq_gate(out, x, w, dk, zk, bias)
 
 
 def test_fakequant_matmul_identity_is_the_fake_quant(gen):

@@ -4,7 +4,11 @@
 * int8 bmm (kernel K2's plain version) vs ``int8_code_einsum``: int32
   accumulators equal, outputs rtol 1e-6 (f32 epilogue in the same order);
 * softmax codes (K3's plain version) vs the Pallas kernel in interpret
-  mode: every code within ±1, ≥ 99.9 % equal (reduction order may differ);
+  mode: every code within ±1, ≥ 99.9 % equal (reduction order may differ),
+  at rows of 16, 64, 256 and the ragged 77 (SD's text context) and 300;
+* K3's plan (``softmax_plan``) at the widths the model zoos hand it: every
+  element of every row taken once by a model of the kernel's loops, within
+  the H100's shared memory, the constants read from the kernel's source;
 * int8 conv (K1's plain version) inside the port's QConv vs a JAX QConv
   in DEPLOY_INT8 on a shared input and a shared exported state:
   rtol = atol = 2e-5 (the bound of tests/test_export.py's exact-codes test);
@@ -91,7 +95,7 @@ def test_int8_code_einsum(eq, sa, sb):
     np.testing.assert_array_equal(acc.numpy(), j_acc)
 
 
-@pytest.mark.parametrize("s", [256, 64, 16])
+@pytest.mark.parametrize("s", [256, 64, 16, 77, 300])
 def test_softmax_codes(s):
     rng = np.random.default_rng(s)
     logits = (6.0 * rng.standard_normal((96, s))).astype(np.float32)
@@ -264,3 +268,91 @@ def test_conv_ring_fits_shared_memory(tile_n):
     k1 = {name: int(v) for name, v in re.findall(r"#define (K1_\w+) (\d+)", src)}
     for kstep, stages in ((k1["K1_KSTEP"], k1["K1_STAGES"]), (64, 4)):
         assert stages * (128 + tile_n) * (kstep + 16) <= 227 * 1024
+
+
+# K3's rows as the model zoos hand them (rows, S): CIFAR's 16x16 and 4x4
+# sites at batch 500, bedroom's 8x8 at batch 50 (28 heads), SD's
+# cross-attentions at 8 rows (8 heads of 4096 to 64 queries over 77 text
+# tokens), and the self-attention widths the einsum branch takes where the
+# fused kernels are switched off (EDM_FUSED_ATTN=0): 1024 and 4096
+K3_ZOO = [(500 * 256, 256), (500 * 16, 16), (50 * 28 * 64, 64), (64 * 4096, 77),
+          (64 * 1024, 77), (64 * 256, 77), (64 * 64, 77), (8 * 1024, 1024),
+          (64 * 4096, 4096), (333, 300), (7, 1), (5, 33), (2, 5000), (2, 8193),
+          (2, 32768)]
+
+
+def _k3_cover(r, s, plan):
+    """How many times the kernel's loops take each element of each row:
+    tile b holds rows b·rows …, thread (group, t) takes row group + k·rpi
+    of a tile and its elements t + i·tpr, i < nmax (the blocks of the
+    persistent grid walk whole tiles)."""
+    tpr, nmax, rows, threads = (plan[k] for k in ("tpr", "nmax", "rows", "threads"))
+    rpi = threads // tpr
+    counts = np.zeros((r, s), np.int64)
+    for row0 in range(0, r, rows):
+        nrows = min(rows, r - row0)
+        for grp in range(rpi):
+            for rr in range(grp, grp + rows, rpi):
+                if rr - grp >= rows or rr >= nrows:
+                    continue
+                for t in range(tpr):
+                    j = np.arange(nmax) * tpr + t
+                    np.add.at(counts[row0 + rr], j[j < s], 1)
+    return counts
+
+
+@pytest.mark.parametrize("r,s", K3_ZOO, ids=lambda v: str(v))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_softmax_plan_covers_every_element_once(r, s, dtype):
+    """``softmax_plan`` at the zoos' widths: a thread count the kernel
+    takes, tpr·nmax ≥ S with nmax a template constant, the tile and codes
+    within the H100's shared memory, enough blocks to fill the card where
+    the rows allow, and (on a cut of the rows) every element of every row
+    taken exactly once by a model of the kernel's loops."""
+    from eda_dm_tpu_torch.ops.softmax_codes import (K3_MAX_THREADS, K3_MIN_BLOCKS, K3_NMAX,
+                                                    K3_WIDE_THREADS, k3_smem_bytes,
+                                                    k3_stride, softmax_plan)
+    esz = torch.empty((), dtype=dtype).element_size()
+    plan = softmax_plan(r, s, dtype)
+    tpr, nmax, rows, threads = (plan[k] for k in ("tpr", "nmax", "rows", "threads"))
+    assert tpr & (tpr - 1) == 0 and (tpr <= 32 or tpr % 32 == 0)
+    assert threads % 32 == 0 and threads % tpr == 0 and threads <= K3_MAX_THREADS
+    assert threads <= K3_WIDE_THREADS or nmax == K3_NMAX[-1]
+    assert nmax in K3_NMAX and tpr * nmax >= s and (nmax == 1 or tpr * nmax < 2 * s)
+    assert rows % (threads // tpr) == 0
+    assert plan["smem"] == k3_smem_bytes(rows, s, esz, tpr, plan["buffers"]) <= 232_448
+    assert plan["buffers"] == 2 or k3_smem_bytes(rows, s, esz, tpr, 2) > 232_448
+    stride = k3_stride(s, esz, tpr)              # the rows of a warp in distinct banks
+    if stride != s:
+        banks = {(rr * stride + t) % 32 for rr in range(32 // tpr) for t in range(tpr)}
+        assert stride * esz % 16 == 0 and len(banks) == 32
+    if r >= K3_MIN_BLOCKS * (threads // tpr):     # rows enough for whole iterations
+        assert -(-r // rows) >= K3_MIN_BLOCKS // 2
+    cut = min(r, 2 * rows + 3)                    # two whole blocks and a ragged one
+    assert (_k3_cover(cut, s, plan) == 1).all()
+
+
+def test_k3_constants_match_the_source():
+    """The plan's copy of K3's fixed sizes (threads a block, the elements a
+    thread may hold) equals ``csrc/softmax_codes.cu``'s, the source's
+    layout is the one ``k3_smem_bytes`` computes, and its entry point takes
+    the plan's entries in ``K3_PLAN_ARGS``'s order."""
+    from eda_dm_tpu_torch.ops.softmax_codes import (K3_MAX_THREADS, K3_NMAX, K3_PLAN_ARGS,
+                                                    K3_WIDE_THREADS)
+    src = (Path(tein.__file__).parent.parent / "csrc" / "softmax_codes.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert (const["MAX_THREADS"], const["WIDE_THREADS"], const["NMAX_MAX"]) == (
+        K3_MAX_THREADS, K3_WIDE_THREADS, K3_NMAX[-1])
+    cases = [int(v) for v in re.findall(r"case (\d+): return launch<\1, InT>", src)]
+    assert tuple(cases) + (const["NMAX_MAX"],) == K3_NMAX
+    layout = src[src.index("inline Layout k3_layout("):]
+    layout = layout[:layout.index("return l;")]
+    for part in ("l.tile = (rows * P * esz + 16 + 15) / 16 * 16", "l.codes = buffers * l.tile",
+                 "l.rmax = l.codes + (rows * S + 16 + 15) / 16 * 16",
+                 "l.rsum = l.rmax + WARPS_MAX * 4", "l.dump = l.rsum + WARPS_MAX * 8",
+                 "l.total = l.dump + 16"):
+        assert part in layout, part
+    assert "return esz == 4 && S % 4 == 0 && tpr < 32 ? S + ((tpr - S) & 31) : S;" in src
+    entry = src[src.index('extern "C" int edm_softmax_codes('):]
+    entry = entry[:entry.index("{")]
+    assert re.findall(r"int (tpr|nmax|rows|buffers|threads|smem)\b", entry) == list(K3_PLAN_ARGS)

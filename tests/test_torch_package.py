@@ -135,6 +135,26 @@ def test_gn_plans_probe_needs_a_card():
             gn_plans.main(device=device)
 
 
+def test_softmax_plans_probe_needs_a_card():
+    """K3's plan probe builds and times kernels only: it refuses the host,
+    CPU included, before it builds anything."""
+    from eda_dm_tpu_torch.probes import softmax_plans
+    for device, what in ((None, "no CUDA device"), ("cuda", "no CUDA device"),
+                         ("cpu", "needs a CUDA card")):
+        with pytest.raises(RuntimeError, match=what):
+            softmax_plans.main(device=device)
+
+
+def test_fq_plans_probe_needs_a_card():
+    """K7's plan probe builds and times kernels only: it refuses the host,
+    CPU included, before it builds anything."""
+    from eda_dm_tpu_torch.probes import fq_plans
+    for device, what in ((None, "no CUDA device"), ("cuda", "no CUDA device"),
+                         ("cpu", "needs a CUDA card")):
+        with pytest.raises(RuntimeError, match=what):
+            fq_plans.main(device=device)
+
+
 def test_modules_mirror_jax_paths():
     """Module paths map mechanically onto the JAX variable paths."""
     from eda_dm_tpu_torch.models.bridge import _child

@@ -100,3 +100,53 @@ def test_fused_layers_match_deploy(layer):
         fused, ref = m(x, DEPLOY_FUSED), m(x, DEPLOY)
     assert fused.shape == ref.shape
     torch.testing.assert_close(fused, ref, rtol=0, atol=0)
+
+
+# K7's calls in a DEPLOY_FUSED CIFAR forward at batch 500, (M, K, N): the
+# attention 1x1s at 16x16, nin_shortcuts at each resolution (the up path's
+# concatenated inputs), the timestep denses; and the card tests' ragged ones
+FQ_SITES = [(500 * 256, 256, 256), (500 * 1024, 384, 128), (500 * 256, 128, 256),
+            (500 * 256, 512, 256), (500 * 64, 512, 256), (500 * 16, 512, 256),
+            (500, 128, 512), (500, 512, 512), (500, 512, 256), (37, 70, 45), (200, 33, 7)]
+
+
+@pytest.mark.parametrize("m,k,n", FQ_SITES, ids=lambda v: str(v))
+def test_fq_plan_at_the_cifar_sites(m, k, n):
+    """``fq_plan``'s columns a block: all of N (N ≤ 256; tiles of 256
+    past it), so x is fake-quantized once a tile of 256 columns, where the
+    rows give the card at least one row tile an SM; else 64-column tiles,
+    so the few row tiles still spread over the SMs."""
+    from eda_dm_tpu_torch.ops.quant_matmul import FQ_BM, FQ_BNS, FQ_SMS, fq_plan
+    bn = fq_plan(m, n)
+    assert bn in FQ_BNS
+    row_tiles = -(-m // FQ_BM)
+    if row_tiles < FQ_SMS:
+        assert bn == 64 and row_tiles * -(-n // bn) >= min(FQ_SMS, row_tiles * -(-n // 64))
+    else:
+        assert bn >= min(n, 256) and (bn == 64 or bn // 2 < n)
+
+
+def test_k7_constants_match_the_source():
+    """The plan's copy of K7's tensor-core tile (rows a block, the columns
+    a block may take) equals ``csrc/fakequant_matmul.cu``'s, its entry
+    point takes the plan's columns, and each instance's shared memory
+    lets two blocks share an SM (its launch bounds' two)."""
+    import re
+    from pathlib import Path
+    from eda_dm_tpu_torch.ops import quant_matmul as qm
+    src = (Path(qm.__file__).parent.parent / "csrc" / "fakequant_matmul.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert const["TC_BM"] == qm.FQ_BM
+    bns = [int(v) for v in re.findall(r"launch_tc<(\d+), KMAJOR>", src)]
+    assert tuple(sorted(set(bns))) == qm.FQ_BNS
+    assert "__launch_bounds__(TC_THREADS, 2)" in src
+    a_ld = const["TC_BK"] + 8
+    for bn in qm.FQ_BNS:
+        for kmajor in (True, False):
+            stage = bn * a_ld * 2 if kmajor else const["TC_BK"] * (bn + 8) * 2
+            smem = (const["TC_STAGES"] * stage + 2 * const["TC_BM"] * a_ld * 2
+                    + 3 * const["TC_BK"] * 16 + bn * 4)
+            assert 2 * (smem + 1024) <= 228 * 1024, (bn, kmajor)
+            assert const["TC_STAGES"] * stage >= const["TC_BM"] * (bn + 8) * 2  # the output tile
+    entry = src[src.index('extern "C" int edm_fakequant_matmul('):]
+    assert re.search(r"int n_levels,\s*int bn, void\* stream\)", entry[:entry.index("{")])
