@@ -55,12 +55,15 @@ exits non-zero before the last line:
    test drives it (``weight_qparams`` → ``pack_dense_weights`` →
    ``quantized_matmul`` at SD's GEGLU width, launch counts set to 0 just
    before and read just after, the output within 1e-4 of the fake-quant
-   product).  P1 (the tensor-core rate probe): int8 chains bit-equal to
-   the plain chains after 40 steps, bf16 chains within the probe's stated
-   tolerance, one_mm exact, at the probe's three shapes; then the probe's
-   own ``main()`` as its path (counts set to 0 just before, read just
-   after): int8 and bf16 rates beside the data sheet, the library chains,
-   one library product and the library's own rate at 8192³;
+   product).  P1 (the tensor-core rate probe) on both its routes, the
+   ``wgmma`` kernel and the ``mma.sync`` one: int8 chains bit-equal to the
+   plain chains after 40 steps, bf16 chains within the probe's stated
+   tolerance, one_mm exact, at the probe's three shapes, the wgmma build
+   free of spills; then the probe's own ``main()`` as its path (counts set
+   to 0 just before, read just after, both routes' counters and nothing
+   else): each route's int8 and bf16 rates beside the bound and the data
+   sheet, the SM clock after each shape's timed chains, the library
+   chains, one library product and the library's own rate at 8192³;
 4. the full CIFAR-10 ``DDPMConfig()`` UNet with seeded random weights and a
    smoke quant state (below), exported by the port's
    ``export_serving_int8``, in DEPLOY_INT8 through the kernels and through
@@ -897,29 +900,51 @@ def check_quantized_matmul(g):
 
 
 def check_mma_chain(g):
-    """P1 against its plain version at the probe's three shapes: the int8
+    """P1 against its plain version at the probe's three shapes, on both
+    routes (``wgmma``, the probe's default, and ``mma_sync``): the int8
     chain bit-equal after 40 steps, the bf16 chain within the probe's
-    stated tolerance; one_mm exact; the plain chains timed."""
+    stated tolerance; one_mm exact on each; the plain chains timed; the
+    wgmma build's ``ptxas`` report free of spills."""
+    from eda_dm_tpu_torch.ops import _build
     from eda_dm_tpu_torch.ops.int8_einsum import int8_matmul_acc_plain
     from eda_dm_tpu_torch.probes import mma_int8 as probe
     err, plain = 0.0, {}
     for m, k in probe.PROBE_SHAPES:
         x = probe.probe_inputs(m, k, g)
-        out, ref = probe.mma_chain(x["a8"], x["b8"]), probe.mma_chain_plain(x["a8"], x["b8"])
-        check(torch.equal(out, ref), f"P1 int8 chain ({m}, {k})x({k}, {k}), {probe.CHAIN} "
-              f"steps: bit-equal to the plain chain ({int((out != ref).sum())} differ)")
-        out, ref = probe.mma_chain(x["a16"], x["b16"]), probe.mma_chain_plain(x["a16"], x["b16"])
-        rel_l2, rel_max = probe.bf16_errors(out, ref)
-        check(bool(torch.isfinite(out.float()).all()) and rel_l2 <= probe.BF16_REL_L2
-              and rel_max <= probe.BF16_REL_MAX,
-              f"P1 bf16 chain ({m}, {k}): finite, relative L2 {rel_l2:.3g} <= "
-              f"{probe.BF16_REL_L2}, max |d| {rel_max:.3g} of max|ref| <= {probe.BF16_REL_MAX}")
-        err = max(err, float((out.float() - ref.float()).abs().max()))
+        ref8 = probe.mma_chain_plain(x["a8"], x["b8"])
+        ref16 = probe.mma_chain_plain(x["a16"], x["b16"])
+        for route in probe.ROUTES:
+            plan = probe.chain_plan(k, torch.int8) if route == "wgmma" else None
+            how = (f"{route}, {'resident' if plan['resident'] else 'streamed'} B, "
+                   f"{plan['wgs']} warpgroups" if plan else route)
+            out = probe.mma_chain(x["a8"], x["b8"], route=route)
+            check(torch.equal(out, ref8), f"P1 int8 chain ({m}, {k})x({k}, {k}), {probe.CHAIN} "
+                  f"steps, {how}: bit-equal to the plain chain ({int((out != ref8).sum())} differ)")
+            out = probe.mma_chain(x["a16"], x["b16"], route=route)
+            rel_l2, rel_max = probe.bf16_errors(out, ref16)
+            check(bool(torch.isfinite(out.float()).all()) and rel_l2 <= probe.BF16_REL_L2
+                  and rel_max <= probe.BF16_REL_MAX,
+                  f"P1 bf16 chain ({m}, {k}), {route}: finite, relative L2 {rel_l2:.3g} <= "
+                  f"{probe.BF16_REL_L2}, max |d| {rel_max:.3g} of max|ref| <= "
+                  f"{probe.BF16_REL_MAX}")
+            err = max(err, float((out.float() - ref16.float()).abs().max()))
         plain[(m, k)] = cuda_ms(lambda: probe.mma_chain_plain(x["a8"], x["b8"]), reps=5)
     x = probe.probe_inputs(512, 128, g)
-    check(torch.equal(probe.one_mm(x["a8"], x["b8"]), int8_matmul_acc_plain(x["a8"], x["b8"])),
-          "P1 one_mm (512, 128)x(128, 128): int32 product exact")
-    return dict(name="mma_chain", route="cuda", source="eda_dm_tpu_torch/csrc/mma_chain.cu",
+    want = int8_matmul_acc_plain(x["a8"], x["b8"])
+    for route in probe.ROUTES:
+        check(torch.equal(probe.one_mm(x["a8"], x["b8"], route=route), want),
+              f"P1 one_mm (512, 128)x(128, 128), {route}: int32 product exact")
+    regs = ptxas_report("wgmma_chain")
+    chains = [r for name, r, _, _ in regs if "wgmma_chain_kernel" in name]
+    check(len(chains) == 8 and all(st == 0 and ld == 0 for _, _, st, ld in regs),
+          f"P1 wgmma build: 8 chain instances and their B packs, no spills (chain registers "
+          f"{chains})")
+    log = _build.BUILD_DIR / "wgmma_chain.log"
+    notes = [line for line in log.read_text().splitlines() if "C75" in line]
+    check(not any("serialized" in line for line in notes),
+          f"P1 wgmma build: ptxas serializes no wgmma ({len(notes)} notes of fences it added)")
+    return dict(name="mma_chain", route="cuda", source="eda_dm_tpu_torch/csrc/wgmma_chain.cu",
+                mma_sync_source="eda_dm_tpu_torch/csrc/mma_chain.cu",
                 replaces="scripts/probes/mosaic_int8.py:60", max_abs_err=err, sd_ms={},
                 plain_by_shape=plain)
 
@@ -961,9 +986,12 @@ def k8_path(kernel):
 
 
 def p1_path(kernel, smi):
-    """P1's path: the probe's own ``main()`` at its three shapes, launch
-    counts set to 0 just before and read just after; its results held
-    (int8 chains bit-equal, bf16 within tolerance, one_mm exact)."""
+    """P1's path: the probe's own ``main()`` at its three shapes on both
+    routes, launch counts set to 0 just before and read just after; its
+    results held (int8 chains bit-equal, bf16 within tolerance, one_mm
+    exact, on each route); each route's time, rate, bound and share of
+    the data sheet, and the SM clock read right after each shape's timed
+    chains."""
     from eda_dm_tpu_torch.ops import _build
     from eda_dm_tpu_torch.probes import mma_int8 as probe
     torch.cuda.synchronize()
@@ -973,11 +1001,13 @@ def p1_path(kernel, smi):
     launches = dict(_build.launch_counts)
     shapes = [r for r in results if "k" in r]
     check(all(r["int8_equal"] and r["bf16_ok"] for r in shapes) and results[-1]["one_mm_exact"],
-          "the probe's own checks: int8 chains bit-equal, bf16 chains within tolerance, "
-          "one_mm exact")
-    kernel["launches"] = launches.get("mma_chain", 0)
-    check(kernel["launches"] > 0 and set(launches) == {"mma_chain"},
-          f"P1 launched {kernel['launches']} times by the probe (launches {launches})")
+          "the probe's own checks on both routes: int8 chains bit-equal, bf16 chains within "
+          "tolerance, one_mm exact")
+    counters = set(probe.LAUNCH_COUNTER.values())
+    kernel["launches"] = launches.get(probe.LAUNCH_COUNTER["wgmma"], 0)
+    kernel["mma_sync_launches"] = launches.get(probe.LAUNCH_COUNTER["mma_sync"], 0)
+    check(set(launches) == counters and all(launches[c] > 0 for c in counters),
+          f"P1 launched on both routes by the probe, nothing else (launches {launches})")
     peaks = {r["library_peak"]: r for r in results if "library_peak" in r}
     check(set(peaks) == {"int8", "bf16"}, "the library's own rates measured")
     rates = {}
@@ -987,16 +1017,19 @@ def p1_path(kernel, smi):
             t = r[arm]
             rates[name(arm, r["m"], r["k"])] = dict(
                 ms=t["ms"], tops=t["rate"] / 1e12, peak_share=t["rate"] / t["peak"],
+                event_ms=t["event_ms"], mma_sync_event_ms=t["mma_sync_event_ms"],
+                mma_sync_ms=t["mma_sync_ms"], mma_sync_tops=t["mma_sync_rate"] / 1e12,
+                mma_sync_peak_share=t["mma_sync_rate"] / t["peak"],
                 library_ms=t["library_ms"], library_tops=t["library_rate"] / 1e12,
                 library_mm_ms=t["library_mm_ms"],
                 library_mm_tops=t["library_mm_rate"] / 1e12,
-                library_peak_share=t["rate"] / peaks[arm]["rate"],
+                library_peak_share=t["rate"] / peaks[arm]["rate"], sm_clock=r["sm_clock"],
                 **dict(zip(("bound_ms", "bound_by"),
                            bound(0, r["ops"], INT8_PEAK if arm == "int8" else BF16_PEAK))))
     m, k = probe.PROBE_SHAPES[1]           # K = 256, as K1's 16x16x256 convs
     main_shape = name("int8", m, k)
     main = rates[main_shape]
-    kernel.update(shape=f"{main_shape}, on {smi}", ms=main["ms"],
+    kernel.update(shape=f"{main_shape}, on {smi}", ms=main["ms"], mma_sync_ms=main["mma_sync_ms"],
                   plain_ms=kernel["plain_by_shape"][(m, k)], library_ms=main["library_ms"],
                   bound_ms=main["bound_ms"], bound_by=main["bound_by"], rates=rates)
     kernel["plain_by_shape"] = {f"{m}x{k}": v for (m, k), v in kernel["plain_by_shape"].items()}
@@ -1004,11 +1037,15 @@ def p1_path(kernel, smi):
                                         peak_share=p["rate"] / p["peak"])
                               for arm, p in peaks.items()}
     for name, r in rates.items():
-        print(f"    P1 {name}: {r['ms']:.4f} ms = {r['tops']:.1f} T/s ({r['peak_share']:.1%} "
-              f"of the data sheet), bound {r['bound_ms']:.4f} ms; library chain "
-              f"{r['library_ms']:.4f} ms = {r['library_tops']:.1f} T/s; one library "
-              f"product {r['library_mm_ms']:.4f} ms = {r['library_mm_tops']:.1f} T/s; "
-              f"{r['library_peak_share']:.1%} of the library's own rate")
+        print(f"    P1 {name}, kernel device time: wgmma {r['ms']:.4f} ms = {r['tops']:.1f} T/s "
+              f"({r['peak_share']:.1%} of the data sheet; the call by events "
+              f"{r['event_ms']:.4f}); mma.sync {r['mma_sync_ms']:.4f} ms = "
+              f"{r['mma_sync_tops']:.1f} T/s ({r['mma_sync_peak_share']:.1%}; events "
+              f"{r['mma_sync_event_ms']:.4f}); bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']}; library chain {r['library_ms']:.4f} "
+              f"ms = {r['library_tops']:.1f} T/s; one library product {r['library_mm_ms']:.4f} "
+              f"ms = {r['library_mm_tops']:.1f} T/s; wgmma at {r['library_peak_share']:.1%} of "
+              f"the library's own rate; SM clock after the timed chains {r['sm_clock']}")
     for arm, p in kernel["library_peak"].items():
         print(f"    library {arm} product {p['n']}^3: {p['ms']:.4f} ms = {p['tops']:.1f} T/s "
               f"({p['peak_share']:.1%} of the data sheet)")
@@ -1695,7 +1732,7 @@ def main():
     extra = ("cifar_launches", "bedroom_launches", "per_forward", "device_ms", "chain_ms",
              "einsum_ms", "bmm_f32_ms", "bf16_conv_ms", "plans", "transposing_ms", "streamed_ms",
              "acc_ms", "other_tile_ms", "sd_ms", "shapes_ms", "rates", "plain_by_shape",
-             "library_peak")
+             "library_peak", "mma_sync_ms", "mma_sync_launches", "mma_sync_source")
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{**{k: kern[k] for k in keys},
                                    **{k: kern[k] for k in extra if k in kern},

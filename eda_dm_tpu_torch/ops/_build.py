@@ -27,7 +27,7 @@ CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 CUDA_SOURCES = ("int8_conv", "int8_bmm", "softmax_codes", "int8_attention",
                 "int8_flash_attention", "int8_flash_sweep", "gn_int8", "fakequant_matmul",
-                "quantized_matmul", "mma_chain")
+                "quantized_matmul", "mma_chain", "wgmma_chain")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

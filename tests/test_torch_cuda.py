@@ -556,23 +556,33 @@ def test_quantized_matmul_python_scalars(gen, case):
     assert torch.equal(out, quantized_matmul_plain(*args))
 
 
-@pytest.mark.parametrize("m,k", [(1024, 128), (512, 512), (300, 256), (77, 384)])
-def test_mma_chain_kernel(gen, m, k):
-    """P1: the int8 chain bit-equal to its plain version (40 steps, ragged
-    M included); the bf16 chain within the probe's stated tolerance; one
-    int8 step's int32 sums exact."""
+@pytest.mark.parametrize("route", ["wgmma", "mma_sync"])
+@pytest.mark.parametrize("m,k", [(1024, 128), (512, 512), (300, 256), (77, 384), (65, 256),
+                                 (65, 512)])
+def test_mma_chain_kernel(gen, m, k, route):
+    """P1 on each route: the int8 chain bit-equal to its plain version (40
+    steps, ragged M included: 65 is one row past a warpgroup); the bf16
+    chain within the probe's stated tolerance; one int8 step's int32 sums
+    exact.  Each dtype meets the wgmma route's plan with B resident (K ≤
+    256) and streamed through its ring (K = 384, 512)."""
     from eda_dm_tpu_torch.ops.int8_einsum import int8_matmul_acc_plain
     from eda_dm_tpu_torch.probes.mma_int8 import (
-        BF16_REL_L2, BF16_REL_MAX, bf16_errors, mma_chain, mma_chain_plain, one_mm,
+        BF16_REL_L2, BF16_REL_MAX, bf16_errors, chain_plan, mma_chain, mma_chain_plain, one_mm,
         probe_inputs)
     x = probe_inputs(m, k, gen)
-    out = mma_chain(x["a8"], x["b8"])
+    out = mma_chain(x["a8"], x["b8"], route=route)
     torch.cuda.synchronize()
-    assert torch.equal(out, mma_chain_plain(x["a8"], x["b8"]))
-    assert torch.equal(one_mm(x["a8"], x["b8"]), int8_matmul_acc_plain(x["a8"], x["b8"]))
-    out16 = mma_chain(x["a16"], x["b16"])
+    ref = mma_chain_plain(x["a8"], x["b8"])
+    plans = {dt: chain_plan(k, dt) for dt in (torch.int8, torch.bfloat16)}
+    print(f"[P1 {route} ({m}, {k})] int8 {int((out != ref).sum())} differ; plans "
+          + "; ".join(f"{str(dt)[6:]} {'resident' if p['resident'] else 'streamed'} "
+                      f"wgs {p['wgs']} passes {p['passes']}" for dt, p in plans.items()))
+    assert torch.equal(out, ref)
+    assert torch.equal(one_mm(x["a8"], x["b8"], route=route),
+                       int8_matmul_acc_plain(x["a8"], x["b8"]))
+    out16 = mma_chain(x["a16"], x["b16"], route=route)
     rel_l2, rel_max = bf16_errors(out16, mma_chain_plain(x["a16"], x["b16"]))
-    print(f"[P1 bf16 ({m}, {k})] rel L2 {rel_l2:.3g}, max {rel_max:.3g} of max|ref|")
+    print(f"[P1 {route} bf16 ({m}, {k})] rel L2 {rel_l2:.3g}, max {rel_max:.3g} of max|ref|")
     assert bool(torch.isfinite(out16.float()).all())
     assert rel_l2 <= BF16_REL_L2 and rel_max <= BF16_REL_MAX
 
