@@ -129,7 +129,9 @@ and the first-stage decode compute in full float32.
 
 import contextlib
 import json
+import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -1221,9 +1223,10 @@ def smoke_quant_state(model, x, t, *context):
     return len(ranges)
 
 
-def profile_forward(fn, top=12):
-    """One forward under torch.profiler: device busy share of the wall time
-    and the kernels with the most device time."""
+def profile_forward(fn, top=12, what="one forward"):
+    """One call of ``fn`` (a forward, unless ``what`` says otherwise) under
+    torch.profiler: device busy share of the wall time and the kernels with
+    the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1239,18 +1242,20 @@ def profile_forward(fn, top=12):
     if busy == 0:
         print("    profiler saw no device time")
         return
-    print(f"    one forward: wall {wall_ms:.2f} ms, kernels {busy:.2f} ms "
+    print(f"    {what}: wall {wall_ms:.2f} ms, kernels {busy:.2f} ms "
           f"(device busy {busy / wall_ms:.1%}, idle {1 - busy / wall_ms:.1%})")
     for e in sorted(kern, key=dev_ms, reverse=True)[:top]:
         print(f"      {dev_ms(e):8.3f} ms {dev_ms(e) / busy:6.1%} x{e.count:<4d} "
               f"{e.key[:90]}")
-    # the hand-written kernels, each summed over its template instances
+    # the hand-written kernels, each summed over its template instances (a
+    # name matches where it starts a word: cuBLAS's "..._align..._kernel" is
+    # no "gn_kernel")
     mine = {}
     for e in kern:
         for name in ("int8_conv_kernel", "int8_bmm_nt_kernel", "softmax_codes_kernel",
                      "int8_attention_kernel", "int8_flash_attention_kernel", "gn_kernel",
                      "fakequant_matmul"):
-            if name in e.key:
+            if re.search(rf"(?<!\w){name}", e.key):
                 t, c = mine.get(name, (0.0, 0))
                 mine[name] = (t + dev_ms(e), c + e.count)
     print("      hand-written kernels: " + "; ".join(
@@ -1563,6 +1568,230 @@ def sd(kernels, smi):
                 launches_per_forward=per_fwd)
 
 
+
+
+CAL_TRAJ, CAL_ROWS, CAL_ITERS, CAL_ACT_BATCH = 128, 256, 20, 128
+CAL_HOST_ROWS, CAL_TARGET_ROWS = 16, 32
+
+
+def calibration(kernels, smi, smoke_int8_sps):
+    """Phase 10: the CIFAR calibration path at full width (``DDPMConfig()``,
+    seed 0 weights) on the card, through ``CifarPipeline`` and the ``api``
+    verbs, then serving its export.  Cuts against the task, to keep the
+    run near twice its length before the phase: TDAC's trajectory batch
+    (``batch_samples``) 128 and its ``calib_num_samples`` 256 (the task's
+    1024 each; sample k takes position k % 128, as the reference reuses
+    its batch), 20 reconstruction iterations a target (the task's 5000);
+    the card-vs-host comparisons take the first 16 rows (CALIB_A) and the
+    first 32 (one reconstruction target), since the host runs them on the
+    CPU."""
+    import copy
+    import dataclasses
+    from eda_dm_tpu_torch import api
+    from eda_dm_tpu_torch.calib import recon, scale_init
+    from eda_dm_tpu_torch.models.ddpm_unet import DDPMUNet, ddpm_recon_plan
+    from eda_dm_tpu_torch.nn.layers import ActQuantizer, QConv, QDense
+    from eda_dm_tpu_torch.ops import _build
+    from eda_dm_tpu_torch.parity import tap
+    from eda_dm_tpu_torch.pipelines.cifar import CifarConfig, CifarPipeline
+    from eda_dm_tpu_torch.quant import DEPLOY_INT8
+    from eda_dm_tpu_torch.quant.export import export_serving_int8
+    from eda_dm_tpu_torch.samplers.schedules import get_beta_schedule, skip_sequence
+
+    print(f"[10] CIFAR calibration on the card: TDAC -> scale init -> AdaRound/FBR "
+          f"reconstruction -> export and bundle ({smi})")
+    cfg = CifarConfig(batch_samples=CAL_TRAJ, calib_num_samples=CAL_ROWS, iters=CAL_ITERS)
+    pipe = CifarPipeline(cfg, device="cuda")
+    model = DDPMUNet(cfg.arch, pipe.qc, device="cuda", seed=0)
+    host = copy.deepcopy(model).cpu()              # the same weights on the host
+    secs = {}
+
+    (cx, ct, sel), secs["tdac"] = timed(lambda: pipe.tdac_calibration(model))
+    check(tuple(cx.shape) == (CAL_ROWS, 32, 32, 3) and bool(torch.isfinite(cx).all())
+          and int(sel.t_num.sum()) == CAL_ROWS,
+          f"TDAC over {cfg.timesteps} quad DDIM steps at eta {cfg.eta}, batch "
+          f"{CAL_TRAJ}: {CAL_ROWS} rows, finite, in {secs['tdac']:.2f} s on {smi}")
+    print(f"    t_num {sel.t_num.tolist()}")
+    print(f"    density [{sel.density.min():.0f}, {sel.density.max():.0f}], diversity "
+          f"[{sel.diversity.min():.6g}, {sel.diversity.max():.6g}]")
+    cali = (cx, ct)
+
+    _, secs["calib_w"] = timed(lambda: scale_init.set_weight_quantize_params(
+        model, cali, device="cuda"))
+    card_w = copy.deepcopy(model)                  # CALIB_W state, before CALIB_A
+    _, secs["calib_a"] = timed(lambda: scale_init.set_act_quantize_params(
+        model, cali, batch_size=CAL_ACT_BATCH, device="cuda"))
+    used = recon._act_quantizers(model)
+    check(all(bool(q.inited) and bool(torch.isfinite(q.delta)) and float(q.delta) > 0
+              for q in used),
+          f"CALIB_W in {secs['calib_w']:.2f} s, CALIB_A ({CAL_ROWS} rows in batches of "
+          f"{CAL_ACT_BATCH}) in {secs['calib_a']:.2f} s on {smi}: all {len(used)} act "
+          f"quantizers inited, delta finite and > 0")
+
+    # card against host on the same inputs
+    _, secs["host_calib_w"] = timed(lambda: scale_init.set_weight_quantize_params(
+        host, tuple(a.cpu() for a in cali), device="cpu"))
+    layers = [(n, m) for n, m in card_w.named_modules() if isinstance(m, (QConv, QDense))]
+    hosts = dict(host.named_modules())
+    n_el = diff_alpha = diff_mask = 0
+    max_alpha = 0.0
+    unequal = []
+    for n, m in layers:
+        for part, _, _ in m._parts:
+            unequal += [f"{n}.{part}_{leaf}" for leaf in ("delta", "zp") if not torch.equal(
+                getattr(m, f"{part}_{leaf}").cpu(), getattr(hosts[n], f"{part}_{leaf}"))]
+            a, b = getattr(m, f"{part}_alpha").cpu(), getattr(hosts[n], f"{part}_alpha")
+            n_el += a.numel()
+            diff_alpha += int((a != b).sum())
+            diff_mask += int(((a >= 0) != (b >= 0)).sum())
+            max_alpha = max(max_alpha, float((a - b).abs().max()))
+    print(f"    CALIB_W host in {secs['host_calib_w']:.2f} s; alphas: {diff_alpha} of {n_el} "
+          f"differ from the card's (max |d| {max_alpha:.3g}), {diff_mask} hard masks")
+    # alpha = -log(1.2/(rest + 0.1) - 1): the card's logf and division round
+    # the last bit otherwise than the host's on some elements
+    check(not unequal and diff_mask == 0 and max_alpha <= 1e-6,
+          f"CALIB_W card vs host: delta and zp of all {len(layers)} layers bit-equal "
+          f"(unequal: {unequal[:5]}); alphas' hard masks equal, the alphas within 1e-6 "
+          f"({diff_alpha} of {n_el} not bit-equal, max |d| {max_alpha:.3g})")
+    # CALIB_A on the same inputs: the card's quantizers each on the host's
+    # input (parity.tap), so that the card's own float sums upstream (its
+    # convs sum in another order, a code on a tie flips, the prefix
+    # drifts) move no search; the free run is printed beside
+    rows = tuple(a[:CAL_HOST_ROWS] for a in cali)
+    with tap(host, ActQuantizer) as rec:
+        _, secs["host_calib_a_32"] = timed(lambda: scale_init.set_act_quantize_params(
+            host, tuple(a.cpu() for a in rows), batch_size=CAL_HOST_ROWS, device="cpu"))
+    card_free, card_a = card_w, copy.deepcopy(card_w)
+    scale_init.set_act_quantize_params(card_free, rows, batch_size=CAL_HOST_ROWS,
+                                       device="cuda")
+    with tap(card_a, ActQuantizer, replace=rec):
+        scale_init.set_act_quantize_params(card_a, rows, batch_size=CAL_HOST_ROWS,
+                                           device="cuda")
+    del rec
+    qh = recon._act_quantizers(host)
+    names = {q: n for n, q in card_a.named_modules()}
+
+    def differing(card):
+        return [(names.get(a, "?"), float(a.delta), float(b.delta))
+                for a, b in zip(recon._act_quantizers(card), qh)
+                if int(a.one_side) != int(b.one_side)
+                or abs(float(a.delta) - float(b.delta)) > 1e-5 * abs(float(b.delta))]
+    free, off = differing(card_free), differing(card_a)
+    for n, d_card, d_host in off:
+        print(f"      differs: {n} delta card {d_card:.9g} host {d_host:.9g}")
+    print(f"    the free run (each on its own prefix): {len(qh) - len(free)} of {len(qh)} "
+          f"within rel 1e-5")
+    check(len(off) <= 0.01 * len(qh),
+          f"CALIB_A on the first {CAL_HOST_ROWS} rows, card vs host on the same inputs "
+          f"({secs['host_calib_a_32']:.1f} s on the host): one_side equal and delta within "
+          f"rel 1e-5 at {len(qh) - len(off)} of {len(qh)} act quantizers (>= 99 %)")
+    del card_a, card_free, card_w
+
+    # the whole plan
+    plan = ddpm_recon_plan(cfg.arch, pipe.qc)
+    pre = copy.deepcopy(model)
+    log = []
+    _, secs["recon"] = timed(lambda: pipe.reconstruct(model, cali, log=log))
+    check(len(log) == len(plan) and all(math.isfinite(r["last_loss"]) and
+                                        math.isfinite(r["first_loss"]) for r in log),
+          f"reconstruct: {len(plan)} targets of ddpm_recon_plan, {CAL_ITERS} iterations "
+          f"each, batch {cfg.recon_batch_size}, groups of {cfg.recon_group_size}, every "
+          f"loss finite, in {secs['recon']:.2f} s on {smi}")
+    loops = sum(r["seconds"] for r in log)
+    per_kind = {}
+    for r in log:
+        per_kind.setdefault(r["kind"], []).append(r)
+    for kind, rs in per_kind.items():
+        ms = 1e3 * sum(r["seconds"] for r in rs) / sum(r["iters"] for r in rs)
+        print(f"    {kind}: {len(rs)} targets, {ms:.3f} ms an iteration, first/last loss "
+              f"(mean) {statistics.mean(r['first_loss'] for r in rs):.5g} / "
+              f"{statistics.mean(r['last_loss'] for r in rs):.5g} on {smi}")
+    full_loops = loops * 5000 / CAL_ITERS
+    full_rest = (secs["recon"] - loops) * 1024 / CAL_ROWS
+    print(f"    loops {loops:.2f} s, captures and the rest {secs['recon'] - loops:.2f} s; "
+          f"EXTRAPOLATED to the task (5000 iterations, 1024 rows): loops {full_loops:.0f} s "
+          f"+ captures {full_rest:.0f} s = {full_loops + full_rest:.0f} s on {smi}")
+
+    # one target on the card and the host, nothing drawn
+    target = next(t for t in plan if t.name == "down_0.block_0")
+    args = dataclasses.replace(pipe.recon_args(), batch_size=CAL_TARGET_ROWS, input_prob=1.0)
+    sub = tuple(a[:CAL_TARGET_ROWS] for a in cali)
+    data = recon.build_target_data(pre, sub, target, args)
+    hpre = copy.deepcopy(pre).cpu()
+    for m in (pre, hpre):
+        for q in recon._act_quantizers(target.module(m)):
+            q.spec = dataclasses.replace(q.spec, prob=1.0)          # no QDrop draw
+    gen = lambda d: torch.Generator(device=d).manual_seed(0)
+    lc, secs["target_card"] = timed(lambda: recon.reconstruct_target(
+        target, pre, data, args, gen("cuda")))
+    hdata = {k: (tuple(a.cpu() for a in v) if isinstance(v, tuple) else v.cpu())
+             for k, v in data.items()}
+    lh, secs["target_host"] = timed(lambda: recon.reconstruct_target(
+        target, hpre, hdata, args, gen("cpu")))
+    same = total = 0
+    for (n, a), (_, b) in zip(target.module(pre).named_buffers(),
+                              target.module(hpre).named_buffers()):
+        if n.endswith("_alpha"):
+            same += int(((a.cpu() >= 0) == (b >= 0)).sum())
+            total += a.numel()
+    check(same > 0.98 * total and bool(torch.isfinite(lc).all()),
+          f"down_0.block_0, {CAL_ITERS} iterations on {CAL_TARGET_ROWS} rows (batch = rows, "
+          f"input_prob 1, QDrop 1): hard masks card vs host agree on {same / total:.5f} of "
+          f"{total} (> 0.98); last loss card {float(lc[-1]):.6g} host {float(lh[-1]):.6g}; "
+          f"{secs['target_card']:.2f} s on the card, {secs['target_host']:.2f} s on the host")
+    print(f"    profile of 5 reconstruction iterations of {target.name} at batch "
+          f"{CAL_TARGET_ROWS} (the rows; no QDrop draw) on {smi}:")
+    args5 = dataclasses.replace(args, iters=5)
+    profile_forward(lambda: recon.reconstruct_target(target, pre, data, args5,
+                                                     gen("cuda")), top=6,
+                    what="5 iterations")
+    del pre, hpre, host, data, hdata
+    torch.cuda.empty_cache()
+
+    # serve the calibrated state
+    ex, mode = api.export_for_serving(model, pipe.qc, kind="int8")
+    check(mode == DEPLOY_INT8, "export_for_serving(kind='int8') serves DEPLOY_INT8")
+    path = str(_build.BUILD_DIR / "calib_bundle.pt")          # ignored by git
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    stats = api.save_bundle(model, pipe.qc, path)
+    loaded, lmode = api.load_bundle(path, device="cuda")
+    os.remove(path)
+    os.remove(path + ".meta.json")
+    print(f"    bundle {stats['bundle_bytes']:,} bytes, fp32 {stats['fp32_bytes']:,}, "
+          f"compression {stats['compression']:.3f}")
+    gx = torch.Generator(device="cuda").manual_seed(5)
+    x8 = torch.randn(8, 32, 32, 3, generator=gx, device="cuda")
+    t8 = torch.full((8,), 500.0, device="cuda")
+    with torch.no_grad():
+        a, b = ex(x8.bfloat16(), t8, DEPLOY_INT8), loaded(x8.bfloat16(), t8, lmode)
+    check(torch.equal(a, b), "the loaded bundle's DEPLOY_INT8 output bit-equal to the "
+          "in-memory export's (batch 8, bf16 carrier)")
+    f32 = export_serving_int8(copy.deepcopy(model), pipe.qc, torch.float32)
+    kernels_vs_plain(lambda: f32(x8, t8, DEPLOY_INT8), "calibrated CIFAR, batch 8, f32")
+    del f32, loaded
+    betas = get_beta_schedule("linear", beta_start=1e-4, beta_end=0.02,
+                              num_diffusion_timesteps=1000)
+    seq = skip_sequence("quad", STEPS, 1000)
+    xb = torch.randn(BATCH, 32, 32, 3, generator=gx, device="cuda")
+    sps, out = steps_per_s(lambda x, t: ex(x.to(torch.bfloat16), t, DEPLOY_INT8),
+                           xb, seq, betas)
+    launches = dict(_build.launch_counts)
+    check(bool(torch.isfinite(out).all()) and out.shape == (BATCH, 32, 32, 3),
+          f"calibrated samples finite, shape {tuple(out.shape)}")
+    check({k: v / STEPS for k, v in launches.items()} == DEFAULT_LAUNCHES["cifar"],
+          f"the calibrated export on the default branches: {launches} = "
+          f"{DEFAULT_LAUNCHES['cifar']} per forward")
+    for k in kernels[:3]:
+        k["calibrated_launches"] = launches.get(k["name"], 0)
+    print(f"    steps/s at batch {BATCH} on {smi}: calibrated int8 W4A8 {sps:.4f} | the "
+          f"smoke state's int8 W4A8 (phase 5) {smoke_int8_sps:.4f}")
+    return dict(seconds=secs, targets=len(plan), iters=CAL_ITERS, rows=CAL_ROWS,
+                loops_s=loops, extrapolated_task_s=full_loops + full_rest,
+                ms_per_iter={k: 1e3 * sum(r["seconds"] for r in rs) /
+                             sum(r["iters"] for r in rs) for k, rs in per_kind.items()},
+                bundle=stats, int8_steps_per_s=sps, smoke_int8_steps_per_s=smoke_int8_sps)
+
+
 # --------------------------------------------------------------------------
 
 
@@ -1726,13 +1955,18 @@ def main():
     serving = bedroom(kernels, smi)
     torch.cuda.empty_cache()
     sd_serving = sd(kernels, smi)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    calibrated = calibration(kernels, smi, int8_sps)
+    print(f"    phase 10: {time.perf_counter() - t0:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     extra = ("cifar_launches", "bedroom_launches", "per_forward", "device_ms", "chain_ms",
              "einsum_ms", "bmm_f32_ms", "bf16_conv_ms", "plans", "transposing_ms", "streamed_ms",
              "acc_ms", "other_tile_ms", "sd_ms", "shapes_ms", "rates", "plain_by_shape",
-             "library_peak", "mma_sync_ms", "mma_sync_launches", "mma_sync_source")
+             "library_peak", "mma_sync_ms", "mma_sync_launches", "mma_sync_source",
+             "calibrated_launches")
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{**{k: kern[k] for k in keys},
                                    **{k: kern[k] for k in extra if k in kern},
@@ -1741,7 +1975,8 @@ def main():
         "int8": int8_sps, "int8_fused_gn": gn_sps, "folded_deploy": deploy_sps,
         "folded_deploy_fused": fused_sps, "bf16_fp": bf16_sps, "fp32_fp": fp32_sps,
         "batch": BATCH},
-        "bedroom_serving": serving, "sd_serving": sd_serving}))
+        "bedroom_serving": serving, "sd_serving": sd_serving,
+        "cifar_calibration": calibrated}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

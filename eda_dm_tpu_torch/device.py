@@ -20,3 +20,13 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device='cuda' requested but no CUDA device")
     return device
+
+
+def model_device(model: torch.nn.Module, device=None) -> torch.device:
+    """Resolve ``device`` as :func:`resolve_device` does and check that the
+    model's parameters live there; returns the device."""
+    device = resolve_device(device)
+    here = next(model.parameters()).device
+    if here.type != device.type:
+        raise RuntimeError(f"the model is on {here}, not on {device}")
+    return here

@@ -20,8 +20,13 @@ and the text encoder's ``kernel``, kept in the flax layout) keeps its
 name; a bias-free dense (``to_q``) has no ``bias`` on either side.
 Layouts: conv kernels HWIO ↔ ``[Cout, Cin, kh, kw]``, dense kernels
 ``[in, out]`` ↔ ``[out, in]``, weight codes HWIO ↔ ``[Cout, kh, kw, Cin]``,
-per-channel ``(1, 1, 1, Cout)`` / ``(1, Cout)`` ↔ ``(Cout,)``.  The act
-quantizers' calibration state (EMA range, one-side flag) is not read.
+per-channel ``(1, 1, 1, Cout)`` / ``(1, Cout)`` ↔ ``(Cout,)``.  An act
+quantizer's leaves (``delta``, ``zero_point``, the calibration state
+``running_min``, ``running_max``, ``one_side``, ``inited``, and ``a_bits``)
+cross in both directions; a tree without the calibration state loads and
+leaves the module's.  AdaRound alphas stay float32 (soft rounding trains
+them); a stripped alpha (the ``(1,)`` placeholder) loads as it is.  The
+quantizer of a layer whose act quantization is disabled has no leaves.
 """
 
 from __future__ import annotations
@@ -34,22 +39,11 @@ import torch
 import torch.nn as nn
 
 from ..nn.layers import ActQuantizer, QConv, QDense
+from ..utils.tree import child as _child
 from .ddpm_unet import DDPMConfig, DDPMUNet
 from .vae import FirstStage, VAEConfig
 
-_LIST = re.compile(r"(down|up|block|attn)_(\d+)")
 _WLEAF = re.compile(r"(w\d)_(delta|zp|alpha|bits|int|isum)")
-_ACT_CALIB_STATE = ("running_min", "running_max", "one_side", "inited")
-
-
-def _child(module: nn.Module, name: str) -> nn.Module:
-    child = getattr(module, name, None)
-    if isinstance(child, nn.Module):
-        return child
-    m = _LIST.fullmatch(name)
-    if m and isinstance(getattr(module, m.group(1), None), nn.ModuleList):
-        return getattr(module, m.group(1))[int(m.group(2))]
-    raise KeyError(f"{type(module).__name__} has no submodule {name!r}")
 
 
 def _tensor(v, device) -> torch.Tensor:
@@ -69,16 +63,26 @@ def _to_port(arr: torch.Tensor, leaf: str, dense: bool) -> torch.Tensor:
     """JAX layout -> port layout for one weight-side leaf."""
     if leaf in ("delta", "zp"):
         return arr.reshape(-1).float()
+    if leaf == "alpha" and arr.dim() == 1:               # stripped placeholder
+        return arr.float()
     if leaf in ("alpha", "kernel"):
-        return arr.t() if dense else arr.permute(3, 2, 0, 1)
+        arr = arr.t() if dense else arr.permute(3, 2, 0, 1)
+        return arr.float() if leaf == "alpha" else arr
     if leaf == "int":
         return arr.t() if dense else arr.permute(3, 0, 1, 2)
     return arr
 
 
+_ACT_LEAVES = {"delta": torch.float32, "zero_point": torch.float32,
+               "running_min": torch.float32, "running_max": torch.float32,
+               "one_side": torch.int32, "inited": torch.bool}
+
+
 def _to_jax(arr: torch.Tensor, leaf: str, dense: bool) -> torch.Tensor:
     if leaf in ("delta", "zp"):
         return arr.reshape((1, -1) if dense else (1, 1, 1, -1))
+    if leaf == "alpha" and arr.dim() == 1:
+        return arr
     if leaf in ("alpha", "kernel"):
         return arr.t() if dense else arr.permute(2, 3, 1, 0)
     if leaf == "int":
@@ -114,13 +118,13 @@ def _load_quant(module: nn.Module, tree: Dict[str, Any], device, path):
             _load_quant(_child(module, k), v, device, f"{path}{k}/")
             continue
         if isinstance(module, ActQuantizer):
-            if k in ("delta", "zero_point"):
-                setattr(module, k, _tensor(v, device).float().reshape(()))
+            if k in _ACT_LEAVES:
+                setattr(module, k, _tensor(v, device).to(_ACT_LEAVES[k]).reshape(()))
             elif k == "a_bits":
                 if int(np.asarray(v)) != module.spec.n_bits:
                     raise ValueError(f"{path}a_bits {int(np.asarray(v))} != "
                                      f"{module.spec.n_bits}")
-            elif k not in _ACT_CALIB_STATE:
+            else:
                 raise KeyError(f"unexpected act-quant leaf {path}{k}")
             continue
         m = _WLEAF.fullmatch(k)
@@ -166,10 +170,12 @@ def first_stage_from_jax(tree: Dict[str, Any], cfg: VAEConfig,
 
 
 def to_jax_variables(module: nn.Module) -> Dict[str, Any]:
-    """The module's weights and serving state as a JAX-layout tree of numpy
+    """The module's weights and quant state as a JAX-layout tree of numpy
     arrays (bf16 leaves come back as float32)."""
     params, quant = {}, {}
     for name, child in module.named_children():
+        if name == "act_quantizer" and getattr(module, "disable_act_quant", False):
+            continue                      # never called: JAX has no leaves
         entries = ([(f"{name}_{i}", c) for i, c in enumerate(child)]
                    if isinstance(child, nn.ModuleList) else [(name, child)])
         for key, c in entries:
@@ -179,8 +185,7 @@ def to_jax_variables(module: nn.Module) -> Dict[str, Any]:
             if sub["quant"]:
                 quant[key] = sub["quant"]
     if isinstance(module, ActQuantizer):
-        quant.update(delta=_numpy(module.delta),
-                     zero_point=_numpy(module.zero_point),
+        quant.update({k: _numpy(getattr(module, k)) for k in _ACT_LEAVES},
                      a_bits=np.asarray(module.spec.n_bits, np.int32))
     for name, p in module.named_parameters(recurse=False):
         if name == "weight":

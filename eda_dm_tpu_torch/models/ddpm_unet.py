@@ -9,6 +9,13 @@ NHWC; dropout is omitted (inference only).
 The first/last policy: the first weight quantizer (``temb_dense_0``) and
 the last (``conv_out``) are 8-bit, ``conv_out``'s act quant is disabled and
 the top level's upsample conv has an 8-bit act quantizer.
+
+:func:`ddpm_recon_plan` and :func:`ddpm_layer_plan` list the
+reconstruction targets as the JAX package does (names, paths, kinds,
+inner taps, order).  A block's ``block_in`` / ``block_out`` and a layer's
+``in`` / ``out`` are its forward's first argument and its output, read by
+forward hooks (``calib/recon.py``); the timestep embedding the blocks take
+is ``temb_dense_1``'s output (``DDPMUNet.temb_module``).
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from ..calib.recon import ReconTarget, module_spec
 from ..device import resolve_device
 from ..nn.layers import (ActQuantizer, GNorm, QConv, QDense, lecun_normal_,
                          norm_act, norm_conv, swish, timestep_embedding)
@@ -228,6 +236,8 @@ class DDPMUNet(nn.Module):
     caller passes ``"cpu"``) with N(0, 1/fan_in) weights drawn from
     ``seed``; real weights come through ``models/bridge.py``."""
 
+    temb_module = "temb_dense_1"       # its output is the blocks' temb
+
     def __init__(self, cfg: DDPMConfig = DDPMConfig(),
                  qc: QuantConfig = QuantConfig(), device=None, seed: int = 0):
         super().__init__()
@@ -289,3 +299,139 @@ class DDPMUNet(nn.Module):
         for i in reversed(range(self.cfg.num_resolutions)):
             h = self.up[i](h, hs, temb, mode)
         return self.conv_out(norm_act(self.norm_out, h, mode, act=True), mode)
+
+
+# --------------------------------------------------------------------------
+# reconstruction plans
+# --------------------------------------------------------------------------
+
+def _dense(features, wq, aq):
+    return module_spec("QDense", features=features, wq=wq, aq=aq,
+                       disable_act_quant=False, use_bias=True)
+
+
+def _conv(features, kernel_size, wq, aq, strides=(1, 1), padding="SAME",
+          split=0, disable_act_quant=False):
+    return module_spec("QConv", features=features, kernel_size=kernel_size,
+                       strides=strides, padding=padding, wq=wq, aq=aq,
+                       split=split, disable_act_quant=disable_act_quant,
+                       use_bias=True)
+
+
+def ddpm_recon_plan(cfg: DDPMConfig, qc: QuantConfig):
+    """Ordered reconstruction targets: the temb denses and conv_in as
+    layers, the down levels (blocks and attentions interleaved in forward
+    order, each downsample conv a layer), mid, the up levels in reversed
+    index order, conv_out last.  The order matters: each target's
+    quantized-input capture runs under the state earlier targets left."""
+    wq, aq = qc.wq, qc.aq
+    aq_w = qc.aq_softmax(always_zero=False)
+    ch, temb_ch = cfg.ch, cfg.temb_ch
+    in_ch_mult = (1,) + tuple(cfg.ch_mult)
+    res_taps = lambda in_ch, out_ch: tuple(
+        (t,) for t in (["conv1", "temb_proj", "conv2"] +
+                       (["nin_shortcut"] if in_ch != out_ch else [])))
+    attn_taps = (("q",), ("k",), ("v",), ("proj_out",))
+
+    plan = [
+        ReconTarget("temb_dense_0", ("temb_dense_0",),
+                    _dense(temb_ch, wq.with_bits(8), aq), "layer"),
+        ReconTarget("temb_dense_1", ("temb_dense_1",), _dense(temb_ch, wq, aq),
+                    "layer"),
+        ReconTarget("conv_in", ("conv_in",), _conv(ch, (3, 3), wq, aq), "layer"),
+    ]
+
+    def resblock(path, name, in_ch, out_ch, split=0):
+        return ReconTarget(name, path,
+                           module_spec("ResnetBlockD", out_ch=out_ch,
+                                       temb_ch=temb_ch, wq=wq, aq=aq,
+                                       split=split, conv_shortcut=False),
+                           "block", has_temb=True,
+                           inner_taps=res_taps(in_ch, out_ch))
+
+    def attnblock(path, name):
+        return ReconTarget(name, path,
+                           module_spec("AttnBlockD", wq=wq, aq=aq, aq_w=aq_w),
+                           "block", inner_taps=attn_taps)
+
+    for i in range(cfg.num_resolutions):
+        has_attn = cfg.resolution // (2 ** i) in cfg.attn_resolutions
+        block_in, block_out = ch * in_ch_mult[i], ch * cfg.ch_mult[i]
+        for j in range(cfg.num_res_blocks):
+            plan.append(resblock((f"down_{i}", f"block_{j}"),
+                                 f"down_{i}.block_{j}", block_in, block_out))
+            block_in = block_out
+            if has_attn:
+                plan.append(attnblock((f"down_{i}", f"attn_{j}"),
+                                      f"down_{i}.attn_{j}"))
+        if i != cfg.num_resolutions - 1:
+            plan.append(ReconTarget(
+                f"down_{i}.downsample.conv", (f"down_{i}", "downsample", "conv"),
+                _conv(block_out, (3, 3), wq, aq, strides=(2, 2),
+                      padding=((0, 1), (0, 1))), "layer"))
+
+    mid_ch = ch * cfg.ch_mult[-1]
+    plan.append(resblock(("mid_block_1",), "mid_block_1", mid_ch, mid_ch))
+    plan.append(attnblock(("mid_attn_1",), "mid_attn_1"))
+    plan.append(resblock(("mid_block_2",), "mid_block_2", mid_ch, mid_ch))
+
+    for i in reversed(range(cfg.num_resolutions)):
+        has_attn = cfg.resolution // (2 ** i) in cfg.attn_resolutions
+        block_out = ch * cfg.ch_mult[i]
+        h_first = ch * (cfg.ch_mult[-1] if i == cfg.num_resolutions - 1
+                        else cfg.ch_mult[i + 1])
+        splits = ((h_first,) + (block_out,) * cfg.num_res_blocks if qc.split
+                  else (0,) * (cfg.num_res_blocks + 1))
+        for j in range(cfg.num_res_blocks + 1):
+            skip_in = ch * (in_ch_mult[i] if j == cfg.num_res_blocks
+                            else cfg.ch_mult[i])
+            h_ch = h_first if j == 0 else block_out
+            plan.append(resblock((f"up_{i}", f"block_{j}"), f"up_{i}.block_{j}",
+                                 h_ch + skip_in, block_out, split=splits[j]))
+            if has_attn:
+                plan.append(attnblock((f"up_{i}", f"attn_{j}"),
+                                      f"up_{i}.attn_{j}"))
+        if i != 0:
+            plan.append(ReconTarget(
+                f"up_{i}.upsample.conv", (f"up_{i}", "upsample", "conv"),
+                _conv(block_out, (3, 3), wq,
+                      aq.with_bits(8) if i == cfg.num_resolutions - 1 else aq),
+                "layer"))
+
+    plan.append(ReconTarget("conv_out", ("conv_out",),
+                            _conv(cfg.out_ch, (3, 3), wq.with_bits(8), aq,
+                                  disable_act_quant=True), "layer"))
+    return plan
+
+
+def ddpm_layer_plan(cfg: DDPMConfig, qc: QuantConfig):
+    """Layer-mode plan (the reference's ablation path): every quantized
+    layer reconstructs alone; an attention block gets q/k/v as layers, a
+    whole-block target that trains only its act deltas, then proj_out."""
+    wq, aq = qc.wq, qc.aq
+    plan = []
+    last_ch = cfg.ch
+    for t in ddpm_recon_plan(cfg, qc):
+        cls, fields = t.spec[0], dict(t.spec[1])
+        if t.kind == "layer":
+            plan.append(t)
+        elif cls == "AttnBlockD":
+            # attention always follows a res block at the same width
+            one_by_one = _conv(last_ch, (1, 1), wq, aq, padding="VALID")
+            for leaf in ("q", "k", "v"):
+                plan.append(ReconTarget(f"{t.name}.{leaf}", t.path + (leaf,),
+                                        one_by_one, "layer"))
+            plan.append(ReconTarget(f"{t.name}.acts", t.path, t.spec, "block",
+                                    act_only=True, inner_taps=t.inner_taps))
+            plan.append(ReconTarget(f"{t.name}.proj_out", t.path + ("proj_out",),
+                                    one_by_one, "layer"))
+        else:                                 # ResnetBlockD: its layers in order
+            out_ch = last_ch = fields["out_ch"]
+            for (leaf,) in t.inner_taps:
+                spec = (_dense(out_ch, wq, aq) if leaf == "temb_proj" else
+                        _conv(out_ch, (1, 1), wq, aq, padding="VALID",
+                              split=fields["split"]) if leaf == "nin_shortcut"
+                        else _conv(out_ch, (3, 3), wq, aq))
+                plan.append(ReconTarget(f"{t.name}.{leaf}", t.path + (leaf,),
+                                        spec, "layer"))
+    return plan

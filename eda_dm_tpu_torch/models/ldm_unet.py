@@ -449,9 +449,10 @@ class LDMUNet(nn.Module):
         device = resolve_device(device)
         self.cfg, self.qc = cfg, qc
         wq, aq = qc.wq, qc.aq
-        # LDM SMV softmax quantizer: always_zero (and an asymmetric search,
-        # which only calibration reads)
-        aq_w = qc.aq_softmax(always_zero=True)
+        # softmax quantizers: always_zero; the attention blocks' search is
+        # asymmetric, the transformers' inherits the config's symmetry
+        aq_w = qc.aq_softmax(always_zero=True, symmetric=False)
+        aq_w_tx = qc.aq_softmax(always_zero=True)
         self.layout = build_layout(cfg, qc.split)
         mc, ted = cfg.model_channels, cfg.time_embed_dim
         last_key = self.layout.output_blocks[-1].key
@@ -469,7 +470,7 @@ class LDMUNet(nn.Module):
             if it.kind == "tx":
                 return SpatialTransformerL(it.out_ch, it.heads, it.dim_head,
                                            cfg.transformer_depth,
-                                           cfg.context_dim, wq, aq, aq_w,
+                                           cfg.context_dim, wq, aq, aq_w_tx,
                                            aq_last)
             if it.kind == "down":
                 return DownsampleL(it.out_ch, wq, aq)

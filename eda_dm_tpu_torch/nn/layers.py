@@ -1,4 +1,4 @@
-"""Quantization-aware layers, serving part (port of ``eda_dm_tpu/nn/layers.py``).
+"""Quantization-aware layers (port of ``eda_dm_tpu/nn/layers.py``).
 
 Activations are NHWC ``(N, H, W, C)`` tensors as in the JAX package.  Float
 conv weights are ``[Cout, Cin, kh, kw]`` (what ``F.conv2d`` takes), dense
@@ -6,22 +6,29 @@ weights ``[out, in]``; integer weight codes are ``[Cout, kh, kw, Cin]`` and
 ``[out, in]``, K contiguous, as the int8 kernels take them.  Quantizer
 state is buffers:
 
-* ``ActQuantizer``: ``delta``, ``zero_point`` (per tensor);
+* ``ActQuantizer``: ``delta``, ``zero_point``, the calibration state
+  ``running_min``, ``running_max``, ``one_side``, ``inited`` and the width
+  ``a_bits`` (per tensor);
 * ``QConv``/``QDense``, per channel group ``w0`` (and ``w1`` for split
   layers): ``w{i}_delta``, ``w{i}_zp`` (Cout,), ``w{i}_alpha`` (weight
   shaped), and after ``export_serving_int8`` ``w{i}_int``, ``w{i}_isum``.
 
-Modes: FP, DEPLOY (folded weights + act fake-quant), DEPLOY_FUSED (DEPLOY
+Modes: the calibration modes CALIB_W (weight scales and alphas from the
+weights), CALIB_A (act-range search + EMA per batch), WQ/WAQ and, in
+reconstruction, soft AdaRound and QDrop (``quant/config.py``); the serving
+modes FP, DEPLOY (folded weights + act fake-quant), DEPLOY_FUSED (DEPLOY
 with the act fake-quant of 1×1 convs and denses inside the matmul, K7) and
 DEPLOY_INT8.  On the int8 path a GroupNorm (+ swish) in front of a conv can
 run fused with the conv's input quantize and pad (K6, :func:`norm_conv`),
-and a norm with several consumers in one pass (:func:`norm_act`).
+and a norm with several consumers in one pass (:func:`norm_act`).  Layer
+and block inputs and outputs are captured with forward hooks
+(``calib/recon.py``), not by the layers.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -32,27 +39,88 @@ from ..ops.int8_conv import border_map, int8_conv, same_pads
 from ..ops.int8_einsum import int8_dense, quantize_act_int8
 from ..ops.quant_matmul import fakequant_matmul
 from ..ops.serving_policy import int8_conv_serving, int8_serving, use_fused_gn
-from ..quant.adaround import adaround_fake_quant, adaround_int
-from ..quant.affine import fake_quant
+from ..quant import search
+from ..quant.adaround import adaround_fake_quant, adaround_int, init_alpha
+from ..quant.affine import ema_update, fake_quant, qdrop
 from ..quant.config import QuantizerSpec, QuantMode
 
 
 class ActQuantizer(nn.Module):
-    """Frozen per-tensor activation fake-quantizer."""
+    """Per-tensor activation fake-quantizer with streaming MSE calibration.
+
+    Under ``mode.calib_a`` each forward searches the range of the live
+    batch (``search_range``, or ``search_range_hist`` past 4·``search_bins``
+    elements), EMA-updates the running range (the first batch seeds it)
+    and re-derives (delta, zero_point); the one-sidedness found on the
+    first batch is kept (``mode.static_sides`` may give it by quantizer
+    name).  Otherwise the frozen state is used.  Under ``mode.training``
+    QDrop keeps each quantized value with probability ``spec.prob``, the
+    mask drawn from ``self.generator`` (set by the caller; a QDrop forward
+    without one raises).  ``name`` is the quantizer's module name in its
+    model, which ``static_sides`` keys on (``scale_init.name_quantizers``).
+    """
 
     def __init__(self, spec: QuantizerSpec):
         super().__init__()
         self.spec = spec
-        self.register_buffer("delta", torch.ones((), dtype=torch.float32))
-        self.register_buffer("zero_point", torch.zeros((), dtype=torch.float32))
+        self.generator: Optional[torch.Generator] = None
+        self.name = ""
+        f32 = dict(dtype=torch.float32)
+        self.register_buffer("delta", torch.ones((), **f32))
+        self.register_buffer("zero_point", torch.zeros((), **f32))
+        self.register_buffer("running_min", torch.zeros((), **f32))
+        self.register_buffer("running_max", torch.zeros((), **f32))
+        self.register_buffer("one_side", torch.zeros((), dtype=torch.int32))
+        self.register_buffer("inited", torch.zeros((), dtype=torch.bool))
+        self.register_buffer("a_bits", torch.tensor(spec.n_bits, dtype=torch.int32))
 
     def forward(self, x: torch.Tensor, mode: QuantMode,
                 params_only: bool = False):
         if params_only:
             return self.delta, self.zero_point
-        if not mode.a_quant:
+        if not (mode.a_quant or mode.calib_a):
             return x
-        return fake_quant(x, self.delta, self.zero_point, self.spec.n_levels)
+        if mode.calib_a:
+            self.calibrate(x, mode)
+        x_fq = fake_quant(x, self.delta, self.zero_point, self.spec.n_levels)
+        if mode.training and self.spec.prob < 1.0:
+            if self.generator is None:
+                raise RuntimeError("a QDrop forward needs the quantizer's "
+                                   "generator (calib/recon.py sets it)")
+            x_fq = qdrop(x_fq, x, self.spec.prob, self.generator)
+        return x_fq
+
+    @torch.no_grad()
+    def calibrate(self, x: torch.Tensor, mode: QuantMode) -> None:
+        spec = self.spec
+        xf = x.reshape(-1).float()
+        static_side = (dict(mode.static_sides).get(self.name)
+                       if mode.static_sides is not None else None)
+        if static_side is not None:
+            side = torch.tensor(static_side, dtype=torch.int32, device=x.device)
+        elif int(self.one_side) == search.ONE_SIDE_UNSET:
+            side = search.detect_one_side(xf)
+        else:
+            side = self.one_side
+        if spec.search_bins and xf.numel() > 4 * spec.search_bins:
+            lo, hi = search.search_range_hist(
+                xf, spec.n_levels, side, spec.symmetric, spec.num_candidates,
+                spec.search_bins, static_side=static_side)
+        else:
+            lo, hi = search.search_range(xf, spec.n_levels, side, spec.symmetric,
+                                         spec.num_candidates,
+                                         static_side=static_side)
+        if bool(self.inited):
+            lo, hi = ema_update(self.running_min, self.running_max, lo, hi)
+        d, zp = search.range_qparams(lo, hi, spec.n_levels)
+        if spec.always_zero:
+            zp = torch.zeros_like(d)
+        self.one_side.copy_(side)
+        self.running_min.copy_(lo)
+        self.running_max.copy_(hi)
+        self.delta.copy_(d)
+        self.zero_point.copy_(zp)
+        self.inited.fill_(True)
 
 
 class GNorm(nn.Module):
@@ -169,15 +237,48 @@ class _WeightQuantMixin:
     def _per_channel(self, v: torch.Tensor) -> torch.Tensor:
         return v.reshape((-1,) + (1,) * (self.weight.dim() - 1))
 
-    def folded_weight(self) -> torch.Tensor:
-        """Hard-AdaRound dequantized weight, ``[Cout, Cin, ...]``."""
+    @torch.no_grad()
+    def calibrate_weights(self) -> None:
+        """CALIB_W: each group's (delta, zp) by the per-output-channel MSE
+        search on the weight, and the alphas that make hard rounding
+        round-to-nearest.  The search runs on the JAX package's layout
+        (output channel, then kh, kw, Cin), so its sums go in JAX's
+        order."""
+        spec = self.wq
+        for name, s, e in self._parts:
+            w = self.weight[:, s:e].float()
+            wj = w.permute(0, 2, 3, 1) if w.dim() == 4 else w
+            d, zp = search.weight_qparams(wj, spec.n_levels, spec.symmetric,
+                                          0 if spec.channel_wise else None,
+                                          spec.num_candidates, spec.always_zero)
+            d = d.reshape(-1).expand(w.shape[0]).contiguous()
+            zp = zp.reshape(-1).expand(w.shape[0]).contiguous()
+            setattr(self, f"{name}_delta", d)
+            setattr(self, f"{name}_zp", zp)
+            setattr(self, f"{name}_alpha", init_alpha(w, self._per_channel(d)))
+
+    def quantized_weight(self, mode: QuantMode) -> torch.Tensor:
+        """The weight under ``mode``: AdaRound fake-quant (soft under
+        ``mode.soft_targets``, hard otherwise) when ``mode.w_quant``, after
+        the CALIB_W search when ``mode.calib_w``; else the float weight."""
+        if mode.calib_w:
+            self.calibrate_weights()
+        if not mode.w_quant:
+            return self.weight
+        return self._fake_quant_weight(mode.soft_targets)
+
+    def _fake_quant_weight(self, soft: bool) -> torch.Tensor:
         parts = []
         for name, s, e in self._parts:
             parts.append(adaround_fake_quant(
                 self.weight[:, s:e], self._per_channel(getattr(self, f"{name}_delta")),
                 self._per_channel(getattr(self, f"{name}_zp")),
-                getattr(self, f"{name}_alpha"), self.wq.n_levels))
-        return torch.cat(parts, dim=1)
+                getattr(self, f"{name}_alpha"), self.wq.n_levels, soft))
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+    def folded_weight(self) -> torch.Tensor:
+        """Hard-AdaRound dequantized weight, ``[Cout, Cin, ...]``."""
+        return self._fake_quant_weight(False)
 
     def weight_codes(self):
         """Centered integer codes per group, in the kernel layout (int8), and
@@ -253,10 +354,10 @@ class QConv(_WeightQuantMixin, nn.Module):
                               dim=-1)
             else:
                 x = self.act_quantizer(x, mode)
-        x, w = _promote(x, self.weight)
+        x, w = _promote(x, self.quantized_weight(mode))
         (top, bottom), (left, right) = self.pads(x.shape[1], x.shape[2])
         if (self.kernel_size == (1, 1) and self.strides == (1, 1)
-                and self.padding == "VALID" and mode.a_quant):
+                and self.padding == "VALID" and (mode.a_quant or mode.calib_a)):
             n, h, ww, ci = x.shape
             out = (x.reshape(-1, ci) @ w.reshape(self.features, ci).t()
                    ).reshape(n, h, ww, self.features)
@@ -341,7 +442,7 @@ class QDense(_WeightQuantMixin, nn.Module):
                                  self.aq.n_levels, self.bias)
         if not self.disable_act_quant:
             x = self.act_quantizer(x, mode)
-        x, w = _promote(x, self.weight)
+        x, w = _promote(x, self.quantized_weight(mode))
         out = x @ w.t()
         return out if self.bias is None else out + self.bias
 

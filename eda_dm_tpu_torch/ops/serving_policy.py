@@ -62,8 +62,11 @@ def _env3(name: str) -> Optional[bool]:
 def int8_serving(mode) -> bool:
     """'This forward is the int8 deployment graph'.  It reads no switch,
     so that choices that are not about int8 (the fused GroupNorm sites)
-    do not move when one is set."""
-    return mode.int8 and mode.a_quant
+    do not move when one is set.  Never a calibration, reconstruction or
+    capture forward."""
+    return (mode.int8 and mode.a_quant and not mode.calib_a
+            and not mode.w_quant and not mode.training and not mode.capture
+            and not mode.soft_targets)
 
 
 def int8_attention_serving(mode) -> bool:

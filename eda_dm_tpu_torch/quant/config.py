@@ -1,16 +1,14 @@
 """Static quantization configuration (port of ``eda_dm_tpu/quant/config.py``).
 
 Frozen dataclasses select which forward a module runs; they never hold
-runtime state.  Quantizer state (scales, zero-points, AdaRound alphas,
-integer weight codes) lives in buffers on the modules.  The serving slice
-carries only the fields serving reads; the calibration knobs (search
-method, QDrop probability, EMA, the calibration modes) come with the
-calibration slice.
+runtime state.  Quantizer state (scales, zero-points, AdaRound alphas, EMA
+ranges, integer weight codes) lives in buffers on the modules.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -18,7 +16,16 @@ class QuantizerSpec:
     """Static description of one uniform affine quantizer."""
 
     n_bits: int = 8
-    always_zero: bool = False    # force zero_point = 0
+    symmetric: bool = False      # symmetric *search range*; zero-point stays affine
+    channel_wise: bool = False   # per-output-channel (weights) vs per-tensor (acts)
+    scale_method: str = "mse"    # 'mse' (search) or 'max'
+    leaf_param: bool = False     # activation quantizer: EMA running range
+    always_zero: bool = False    # force zero_point = 0 (softmax outputs)
+    prob: float = 1.0            # QDrop bypass probability during reconstruction
+    num_candidates: int = 100    # thresholds in the MSE grid search
+    # activations with more than 4·search_bins elements are scored on an
+    # exact histogram of search_bins bins (0 = always on the raw tensor)
+    search_bins: int = 4096
 
     @property
     def n_levels(self) -> int:
@@ -30,17 +37,37 @@ class QuantizerSpec:
 
 @dataclasses.dataclass(frozen=True)
 class QuantMode:
-    """Which forward runs: FP (all False), DEPLOY (act fake-quant on
+    """Which forward runs.  Calibration: CALIB_W (weight scales and AdaRound
+    alphas from the weights), CALIB_A (act-range search and EMA on the live
+    batch), WQ / WAQ (weight / weight+act fake-quant), and in
+    reconstruction ``soft_targets`` (soft AdaRound), ``training`` (QDrop)
+    and ``capture``.  Serving: FP (all False), DEPLOY (act fake-quant on
     folded weights), DEPLOY_FUSED (DEPLOY with the act fake-quant of every
-    1×1 conv and dense fused into its matmul, kernel K7) or DEPLOY_INT8
+    1×1 conv and dense fused into its matmul, kernel K7) and DEPLOY_INT8
     (native int8 on exported codes)."""
 
-    a_quant: bool = False
-    fused: bool = False
-    int8: bool = False
+    w_quant: bool = False        # fake-quantize weights
+    a_quant: bool = False        # fake-quantize activations
+    calib_w: bool = False        # weight-scale MSE search, writes the buffers
+    calib_a: bool = False        # act-scale MSE search + EMA, writes the buffers
+    soft_targets: bool = False   # AdaRound soft rounding (target under reconstruction)
+    training: bool = False       # QDrop stochastic bypass (needs a generator)
+    capture: bool = False        # a capture forward (taps are forward hooks)
+    fused: bool = False          # serving: fused quantize+matmul (K7)
+    int8: bool = False           # serving: native int8 on exported codes
+    # ((quantizer name, side), ...): act one-sidedness frozen after the
+    # first calibration batch (calib/scale_init.py::host_sides)
+    static_sides: Optional[tuple] = None
+
+    def replace(self, **kw) -> "QuantMode":
+        return dataclasses.replace(self, **kw)
 
 
 FP = QuantMode()
+CALIB_W = QuantMode(w_quant=True, calib_w=True)
+CALIB_A = QuantMode(w_quant=True, a_quant=True, calib_a=True)
+WQ = QuantMode(w_quant=True)
+WAQ = QuantMode(w_quant=True, a_quant=True)
 # serving after folding: activations quantize, weights are pre-baked
 DEPLOY = QuantMode(a_quant=True)
 # folded weights; 1×1 convs and denses quantize their input inside the
@@ -58,16 +85,25 @@ class QuantConfig:
     weight_bit: int = 4
     act_bit: int = 8
     sm_abit: int = 8             # softmax-output activation bits
+    a_sym: bool = False          # if True quantizers use the asymmetric (2-D) search
+    quant_act: bool = True
     split: bool = True           # split shortcut-concat quantization
+    prob: float = 0.5            # QDrop probability for act quantizers
 
     @property
     def wq(self) -> QuantizerSpec:
-        return QuantizerSpec(n_bits=self.weight_bit)
+        return QuantizerSpec(n_bits=self.weight_bit, symmetric=not self.a_sym,
+                             channel_wise=True, scale_method="mse")
 
     @property
     def aq(self) -> QuantizerSpec:
-        return QuantizerSpec(n_bits=self.act_bit)
+        return QuantizerSpec(n_bits=self.act_bit, symmetric=not self.a_sym,
+                             channel_wise=False, scale_method="mse",
+                             leaf_param=self.quant_act, prob=self.prob)
 
-    def aq_softmax(self, always_zero: bool = True) -> QuantizerSpec:
+    def aq_softmax(self, always_zero: bool = True,
+                   symmetric: Optional[bool] = None) -> QuantizerSpec:
         """Quantizer spec for softmax attention weights (sm_abit bits)."""
-        return QuantizerSpec(n_bits=self.sm_abit, always_zero=always_zero)
+        spec = self.aq.with_bits(self.sm_abit)
+        sym = spec.symmetric if symmetric is None else symmetric
+        return dataclasses.replace(spec, always_zero=always_zero, symmetric=sym)

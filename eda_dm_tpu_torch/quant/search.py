@@ -51,6 +51,14 @@ def _pinned_qparams(new_min, new_max, n_levels: int):
     return scale, zp
 
 
+def range_qparams(x_min, x_max, n_levels: int):
+    """``calculate_qparams`` of a searched range as the jitted JAX package
+    computes it: the range widened to include 0, its division by
+    ``n_levels − 1`` a product with the float32 reciprocal."""
+    return _pinned_qparams(torch.clamp(x_min, max=0.0),
+                           torch.clamp(x_max, min=0.0), n_levels)
+
+
 def _score(x_flat: torch.Tensor, new_min: torch.Tensor, new_max: torch.Tensor,
            n_levels: int) -> torch.Tensor:
     """L^2.4 error of quantizing ``x_flat`` (*, K) to range (new_min,
@@ -264,8 +272,7 @@ def weight_qparams(w: torch.Tensor, n_levels: int, symmetric: bool,
     flat = w.reshape(-1) if channel_axis is None else channelwise_view(w, channel_axis)
     one_side = detect_one_side(w)
     best_min, best_max = search_range(flat, n_levels, one_side, symmetric, num)
-    delta, zp = _pinned_qparams(torch.clamp(best_min, max=0.0),
-                                torch.clamp(best_max, min=0.0), n_levels)
+    delta, zp = range_qparams(best_min, best_max, n_levels)
     if always_zero:
         zp = torch.zeros_like(delta)
     if channel_axis is not None:
