@@ -111,15 +111,31 @@ exits non-zero before the last line:
    the bf16 export: what the JAX package serves this family with),
    bf16-FP and fp32-FP (each warmed up at 8 rows and timed twice), the
    decode ms, img/s, peak memory and one profiled forward of each int8
-   arm.
+   arm;
+10. the CIFAR calibration path at ``DDPMConfig()`` (``calibration``'s
+    docstring lists its cuts), served from its export;
+11. the latent family's calibration, this slice's main path
+    (``latent_calibration``'s docstring lists every cut): LSUN-Bedroom at
+    ``bedroom_config()`` width through ``LDMPipeline`` — TDAC, scale init,
+    AdaRound/FBR over the whole ``ldm_recon_plan``, the int8 export, its
+    bundle, kernels vs plain versions at batch 5, ``sample_batch`` at
+    batch 50 beside phase 7's smoke-state ms a step — with card-vs-host
+    checks on the first res block's and the first attention block's
+    quantizers; COCO (``sd_v1_config()``): TDAC under guidance, scale init
+    and the plan through its first transformer block (the first capture
+    with a text context), served at 8 rows through K5; LSUN-Church
+    (``church_config()``, smoke state): DEPLOY_INT8 kernels vs plain
+    versions at batch 5 on the attention branches of batch 100 (K4 at
+    24-channel heads), then ``sample_batch`` at batch 100, 10 DDIM steps,
+    KL-f8 decode.
 
 The serving switches (``EDM_FUSED_ATTN`` and the others that
 ``eda_dm_tpu_torch/ops/serving_policy.py`` reads) are unset for the run,
 outside the blocks that set one; each serving path's launches per forward
 are held to those of the default branches (``DEFAULT_LAUNCHES``).
 
-The smoke quant state stands in for calibration (a later slice): weight
-scales from the per-output-channel symmetric range ``[-max|w|, max|w|]``
+The smoke quant state stands in for calibration in the serving phases
+(phases 10 and 11 calibrate with the port's own path): weight scales from the per-output-channel symmetric range ``[-max|w|, max|w|]``
 with round-to-nearest AdaRound alphas, activation scales from the min/max
 that one FP forward records at every act quantizer.
 
@@ -128,6 +144,8 @@ and the first-stage decode compute in full float32.
 """
 
 import contextlib
+import copy
+import gc
 import json
 import math
 import os
@@ -141,6 +159,7 @@ import torch
 
 BATCH, STEPS = 500, 10
 LDM_BATCH = 50                         # the bedroom task's batch
+CHURCH_BATCH = 100                     # the church task's batch
 SD_ROWS = 8                            # 4 prompts under classifier-free guidance
 INT8_PEAK, BF16_PEAK, F32_PEAK, HBM = 1979e12, 989e12, 67e12, 3.35e12  # H100 SXM
 SFU_PER_CLOCK = 16                     # exponentials per SM per clock, sm_90
@@ -150,7 +169,8 @@ DEFAULT_LAUNCHES = {
     "cifar": {"int8_bmm": 35, "int8_conv": 76, "softmax_codes": 6},
     "bedroom": {"int8_attention": 10, "int8_bmm": 67, "int8_conv": 54, "softmax_codes": 6},
     "sd": {"int8_attention": 11, "int8_bmm": 215, "int8_conv": 85,
-           "int8_flash_attention": 5, "softmax_codes": 16}}
+           "int8_flash_attention": 5, "softmax_codes": 16},
+    "church": {"int8_attention": 5, "int8_bmm": 110, "int8_conv": 73, "softmax_codes": 16}}
 SERVING_SWITCHES = ("EDM_FUSED_ATTN", "EDM_FUSED_ATTN_NARROW", "EDM_FUSED_SOFTMAX",
                     "EDM_INT8_CONV", "EDM_INT8_ATTN", "EDM_FUSED_GN", "EDM_FUSED_GN_NARROW",
                     "EDM_SERVE_KIND")
@@ -560,16 +580,18 @@ def check_softmax(g):
 def check_attention(g, sms, clock_hz):
     """K4 against its plain version at its main-path shapes: the two
     fused LSUN-Bedroom sites at batch 50 (32x32 and 16x16, 32-channel
-    heads), the two CIFAR sites at batch 8 and SD's three fused sites at
-    8 rows (32x32, 16x16, 8x8)."""
+    heads), the two CIFAR sites at batch 8, SD's three fused sites at
+    8 rows (32x32, 16x16, 8x8) and LSUN-Church's 32x32 site at batch 100
+    (24-channel heads)."""
     from eda_dm_tpu_torch.ops.int8_attention import (
         K4_PLAN_ARGS, _int8_fused_attention_cuda, attention_plan, attention_scalars,
         int8_fused_attention_plain)
     from eda_dm_tpu_torch.ops.int8_einsum import int8_code_einsum
     from eda_dm_tpu_torch.ops.softmax_codes import softmax_int8_codes
-    err, timing, sd = 0.0, None, {}
+    err, timing, sd, shapes = 0.0, None, {}, {}
     for n, s, c in ((700, 1024, 32), (1050, 256, 32), (8, 256, 256), (8, 16, 256),
-                    (64, 1024, 80), (64, 256, 160), (64, 64, 160)):
+                    (64, 1024, 80), (64, 256, 160), (64, 64, 160),
+                    (CHURCH_BATCH * 8, 1024, 24)):
         Q, K, V = (codes(g, (n, s, c)) for _ in range(3))
         cq, ck, cv = 3.0, -5.0, 1.0
         dq, dk, dv, dw, zw = 0.021, 0.017, 0.025, 1.0 / 255.0, 0.0
@@ -579,6 +601,13 @@ def check_attention(g, sms, clock_hz):
         out_p, W_p = int8_fused_attention_plain(Q, K, V, sc, 256, True)
         err = max(err, attention_gate(out_k, W_k, out_p, W_p, f"K4 ({n}, {s}, {c})"))
         del W_k, W_p, out_p
+        if n == CHURCH_BATCH * 8:          # church's 32x32 site: C = 24, 8-byte units
+            exp_ch = n * s * s / (sms * SFU_PER_CLOCK * clock_hz) * 1e3
+            shapes[f"church ({n}, {s}, {c})"] = dict(
+                ms=cuda_ms(lambda: _int8_fused_attention_cuda(Q, K, V, sc, 256, False)),
+                plan=" ".join(f"{k} {attention_plan(s, c)[k]}" for k in K4_PLAN_ARGS),
+                **dict(zip(("bound_ms", "bound_by"),
+                           bound(n * 7 * s * c, 4 * n * s * s * c, INT8_PEAK, exp_ch))))
         if n == SD_ROWS * 8:
             exp_sd = n * s * s / (sms * SFU_PER_CLOCK * clock_hz) * 1e3
             sd[f"SD ({n}, {s}, {c})"] = dict(
@@ -609,7 +638,7 @@ def check_attention(g, sms, clock_hz):
     return dict(name="int8_attention", route="cuda",
                 source="eda_dm_tpu_torch/csrc/int8_attention.cu",
                 replaces="eda_dm_tpu/ops/pallas_attention.py:115",
-                max_abs_err=err, sd_ms=sd, **timing)
+                max_abs_err=err, sd_ms=sd, shapes_ms=shapes, **timing)
 
 
 def check_flash(g, sms, clock_hz):
@@ -1322,6 +1351,14 @@ def flip_gate(out_k, out_p, what):
           f"share {share:.4f} > 0.7")
 
 
+def free_memory(when):
+    """Collect what the last part left and print the card's memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"    memory {when}: {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved")
+
+
 def timed(fn):
     """(result, wall seconds) of one call, synchronised."""
     torch.cuda.synchronize()
@@ -1793,6 +1830,363 @@ def calibration(kernels, smi, smoke_int8_sps):
 
 
 # --------------------------------------------------------------------------
+# phase 11: the latent family's calibration
+LCAL_TRAJ, LCAL_STEPS, LCAL_ITERS, LCAL_HOST_ROWS = 32, 20, 4, 8
+COCO_PROMPTS = ("a red bus on a bridge", "two dogs on a beach", "a bowl of fruit",
+                "a lighthouse at night")
+
+
+def _card_vs_host_weights(unet, prefixes):
+    """CALIB_W of the layers under ``prefixes``, the card's state against
+    the host's CALIB_W of a copy: (layers, delta/zp leaves unequal, alphas
+    not bit-equal, hard masks that differ, max |Δalpha|)."""
+    from eda_dm_tpu_torch.nn.layers import QConv, QDense
+    layers = [(n, m) for n, m in unet.named_modules()
+              if n.startswith(prefixes) and isinstance(m, (QConv, QDense))]
+    unequal, n_el, diff, masks, worst = [], 0, 0, 0, 0.0
+    for n, m in layers:
+        host = copy.deepcopy(m).cpu()
+        host.calibrate_weights()
+        for part, _, _ in m._parts:
+            unequal += [f"{n}.{part}_{leaf}" for leaf in ("delta", "zp") if not torch.equal(
+                getattr(m, f"{part}_{leaf}").cpu(), getattr(host, f"{part}_{leaf}"))]
+            a, b = getattr(m, f"{part}_alpha").cpu(), getattr(host, f"{part}_alpha")
+            n_el, diff = n_el + a.numel(), diff + int((a != b).sum())
+            masks += int(((a >= 0) != (b >= 0)).sum())
+            worst = max(worst, float((a - b).abs().max()))
+    return len(layers), unequal, n_el, diff, masks, worst
+
+
+def latent_calibration(kernels, smi, bedroom_serving):
+    """Phase 11: the latent family's calibration on the card, through
+    ``LDMPipeline``, and church's serving.
+
+    Bedroom (``bedroom_config()``, seed 0 weights), with these cuts against
+    the task (so that the phase runs in a few minutes): TDAC runs one
+    trajectory batch of ``LCAL_TRAJ`` = 32 over ``LCAL_STEPS`` = 20 DDIM
+    steps (the task: 1024 samples in batches of 64 over 200 steps); the
+    reconstruction runs ``LCAL_ITERS`` = 4 iterations a target (the task:
+    5000) over the whole ``ldm_recon_plan``; the recipe's own
+    ``calib_batch_size`` 32, recon batch 32, groups of 4 and bf16 caches
+    stay.  The card-vs-host checks take the first res block's and the
+    first attention block's quantizers: CALIB_W of their layers, CALIB_A
+    of their act quantizers on the first ``LCAL_HOST_ROWS`` = 8 rows of
+    each one's input in the card's run (the same input on both sides), and
+    one target (the first res block) for 4 iterations on 8 rows, nothing
+    drawn.  The task's time is extrapolated (marked so): TDAC by its
+    forward rows, CALIB_A and the captures by the rows, the loops by the
+    iterations.
+
+    COCO (``sd_v1_config()``): 4 prompts through the stand-in text encoder
+    (8 rows under guidance), TDAC over 10 PLMS steps, scale init, and the
+    plan through its first transformer-block target (the recipe's recon
+    batch 2; 4 iterations a target); the export served at 8 rows.
+
+    Church (``church_config()``): the smoke quant state, DEPLOY_INT8
+    through the kernels and the plain versions at batch 5 with every
+    attention site on the branch batch 100 takes (``attention_impl`` sees
+    20× the batch), then ``sample_batch`` at batch 100, 10 DDIM steps at
+    the task's eta 0, bf16 carrier, the KL-f8 decode."""
+    import dataclasses
+    from eda_dm_tpu_torch import api
+    from eda_dm_tpu_torch.calib import recon, scale_init
+    import eda_dm_tpu_torch.models.ldm_unet as ldm_unet
+    from eda_dm_tpu_torch.models.ldm_unet import ldm_recon_plan
+    from eda_dm_tpu_torch.nn.layers import ActQuantizer
+    from eda_dm_tpu_torch.ops import _build
+    from eda_dm_tpu_torch.pipelines.latent import LDMPipeline, task_config
+    from eda_dm_tpu_torch.quant import CALIB_A, DEPLOY_INT8
+    from eda_dm_tpu_torch.quant.export import export_serving_int8, serving_bundle
+    from eda_dm_tpu_torch.samplers.latent import make_ldm_schedule
+
+    print(f"[11] latent calibration on the card: bedroom TDAC -> scale init -> "
+          f"AdaRound/FBR over ldm_recon_plan -> export, bundle, serving; COCO under "
+          f"guidance through its first transformer block; church serving ({smi})")
+    secs = {}
+    pipe = LDMPipeline(task_config("bedroom", custom_steps=LCAL_STEPS,
+                                   calib_num_samples=LCAL_TRAJ, batch_samples=LCAL_TRAJ,
+                                   iters=LCAL_ITERS), device="cuda", seed=0)
+    unet, cfg = pipe.ld.unet, pipe.cfg
+    shape = lambda p, n: (n, p.mc.unet.image_size, p.mc.unet.image_size,
+                          p.mc.unet.in_channels)
+    img_shape = lambda p, n: (n, p.mc.vae.resolution, p.mc.vae.resolution, 3)
+    sel, secs["tdac"] = timed(lambda: pipe.tdac_calibration())
+    cali = pipe.build_cali_data(sel)
+    check(tuple(cali[0].shape) == shape(pipe, LCAL_TRAJ)
+          and bool(torch.isfinite(cali[0]).all()) and int(sel.t_num.sum()) == LCAL_TRAJ,
+          f"bedroom TDAC over {LCAL_STEPS} DDIM steps at eta {cfg.eta}, batch "
+          f"{LCAL_TRAJ}: {LCAL_TRAJ} rows, finite, in {secs['tdac']:.2f} s on {smi}")
+    print(f"    t_num {sel.t_num.tolist()}")
+
+    items = unet.layout.input_blocks
+    res = f"input_blocks_{next(it.key for it in items if it.kind == 'res')}"
+    attn = f"input_blocks_{next(it.key for it in items if it.kind == 'attn')}"
+    _, secs["calib_w"] = timed(lambda: scale_init.set_weight_quantize_params(
+        unet, cali, device="cuda"))
+    (n_layers, unequal, n_el, n_diff, n_masks, worst), secs["host_calib_w"] = timed(
+        lambda: _card_vs_host_weights(unet, (res + ".", attn + ".")))
+    check(not unequal and n_masks == 0 and worst <= 1e-6,
+          f"CALIB_W card vs host at the {n_layers} layers of {res} and {attn}: delta and "
+          f"zp bit-equal (unequal: {unequal[:4]}), hard masks equal, alphas within 1e-6 "
+          f"({n_diff} of {n_el} not bit-equal, max |d| {worst:.3g}; host "
+          f"{secs['host_calib_w']:.1f} s)")
+    names = {q: n for n, q in unet.named_modules() if isinstance(q, ActQuantizer)
+             and n.startswith((res + ".", attn + "."))}
+    inputs = {}
+
+    def keep(mod, args):                         # each quantizer's first input
+        if names[mod] not in inputs:
+            inputs[names[mod]] = args[0][:LCAL_HOST_ROWS].clone()
+    hooks = [q.register_forward_pre_hook(keep) for q in names]
+    _, secs["calib_a"] = timed(lambda: scale_init.set_act_quantize_params(
+        unet, cali, batch_size=cfg.calib_batch_size, device="cuda"))
+    for h in hooks:
+        h.remove()
+    used = recon._act_quantizers(unet)
+    check(all(bool(q.inited) and float(q.delta) > 0 and math.isfinite(float(q.delta))
+              for q in used),
+          f"CALIB_W in {secs['calib_w']:.2f} s, CALIB_A ({LCAL_TRAJ} rows in batches of "
+          f"{cfg.calib_batch_size}) in {secs['calib_a']:.2f} s on {smi}: all {len(used)} "
+          f"act quantizers inited, delta finite and > 0")
+    off = []
+    for q, n in names.items():
+        x = inputs[n]
+        card, host = ActQuantizer(q.spec).cuda(), ActQuantizer(q.spec)
+        card(x, CALIB_A)
+        host(x.cpu(), CALIB_A)
+        if (int(card.one_side) != int(host.one_side) or abs(float(card.delta) - float(
+                host.delta)) > 1e-5 * abs(float(host.delta))
+                or float(card.zero_point) != float(host.zero_point)):
+            off.append((n, float(card.delta), float(host.delta)))
+    check(not off, f"CALIB_A card vs host on the same input ({LCAL_HOST_ROWS} rows of each "
+          f"one's input in the card's run): one_side, zero_point and delta (rel 1e-5) equal "
+          f"at all {len(names)} act quantizers of {res} and {attn} (differ: {off})")
+    del inputs
+
+    plan = ldm_recon_plan(pipe.mc.unet, pipe.qc)
+    pre = copy.deepcopy(unet)
+    log = []
+    _, secs["recon"] = timed(lambda: pipe.reconstruct(cali, log=log))
+    check(len(log) == len(plan) and all(math.isfinite(r["last_loss"]) and
+                                        math.isfinite(r["first_loss"]) for r in log),
+          f"reconstruct: the {len(plan)} targets of ldm_recon_plan, {LCAL_ITERS} iterations "
+          f"each, batch {cfg.recon_batch_size}, groups of {cfg.recon_group_size}, "
+          f"{cfg.cache_dtype} caches, every loss finite, in {secs['recon']:.2f} s on {smi}")
+    loops = sum(r["seconds"] for r in log)
+    per_kind = {}
+    for r in log:
+        per_kind.setdefault(r["kind"], []).append(r)
+    ms_iter = {k: 1e3 * sum(r["seconds"] for r in rs) / sum(r["iters"] for r in rs)
+               for k, rs in per_kind.items()}
+    for kind, rs in per_kind.items():
+        print(f"    {kind}: {len(rs)} targets, {ms_iter[kind]:.3f} ms an iteration, "
+              f"first/last loss (mean) {statistics.mean(r['first_loss'] for r in rs):.5g} / "
+              f"{statistics.mean(r['last_loss'] for r in rs):.5g} on {smi}")
+    rows = 1024 / LCAL_TRAJ
+    task_s = {"tdac": secs["tdac"] * (1024 * 200) / (LCAL_TRAJ * LCAL_STEPS),
+              "calib_w": secs["calib_w"], "calib_a": secs["calib_a"] * rows,
+              "loops": loops * 5000 / LCAL_ITERS, "captures": (secs["recon"] - loops) * rows}
+    print(f"    loops {loops:.2f} s, captures and the rest {secs['recon'] - loops:.2f} s; "
+          f"EXTRAPOLATED to the task (1024 rows, 200 steps, 5000 iterations): "
+          + ", ".join(f"{k} {v:.0f} s" for k, v in task_s.items())
+          + f" = {sum(task_s.values()) / 3600:.2f} h on {smi}")
+
+    # one target on the card and the host, nothing drawn
+    target = next(t for t in plan if t.path == (res,))
+    args = dataclasses.replace(pipe.recon_args(), batch_size=LCAL_HOST_ROWS,
+                               input_prob=1.0, iters=LCAL_ITERS)
+    data = recon.build_target_data(pre, tuple(a[:LCAL_HOST_ROWS] for a in cali),
+                                   target, args)
+    holder = torch.nn.Module()
+    setattr(holder, res, copy.deepcopy(target.module(pre)).cpu())
+    for m in (pre, holder):
+        for q in recon._act_quantizers(target.module(m)):
+            q.spec = dataclasses.replace(q.spec, prob=1.0)          # no QDrop draw
+    gen = lambda d: torch.Generator(device=d).manual_seed(0)
+    lc, secs["target_card"] = timed(lambda: recon.reconstruct_target(
+        target, pre, data, args, gen("cuda")))
+    hdata = {k: (tuple(a.cpu() for a in v) if isinstance(v, tuple) else v.cpu())
+             for k, v in data.items()}
+    lh, secs["target_host"] = timed(lambda: recon.reconstruct_target(
+        target, holder, hdata, args, gen("cpu")))
+    same = total = 0
+    for (n, a), (_, b) in zip(target.module(pre).named_buffers(),
+                              target.module(holder).named_buffers()):
+        if n.endswith("_alpha"):
+            same += int(((a.cpu() >= 0) == (b >= 0)).sum())
+            total += a.numel()
+    check(same > 0.98 * total and bool(torch.isfinite(lc).all()),
+          f"{target.name}, {LCAL_ITERS} iterations on {LCAL_HOST_ROWS} rows (batch = rows, "
+          f"input_prob 1, QDrop 1): hard masks card vs host agree on {same / total:.5f} of "
+          f"{total} (> 0.98); last loss card {float(lc[-1]):.6g} host {float(lh[-1]):.6g}")
+    data32 = recon.build_target_data(pre, cali, target, pipe.recon_args())
+    for q in recon._act_quantizers(target.module(pre)):
+        q.spec = dataclasses.replace(q.spec, prob=1.0)
+    print(f"    profile of 3 reconstruction iterations of {target.name} at batch "
+          f"{cfg.recon_batch_size} (no QDrop draw) on {smi}:")
+    args3 = dataclasses.replace(pipe.recon_args(), iters=3)
+    profile_forward(lambda: recon.reconstruct_target(target, pre, data32, args3,
+                                                     gen("cuda")), top=6,
+                    what="3 iterations")
+    del pre, holder, data, hdata, data32
+    torch.cuda.empty_cache()
+
+    # serve the calibrated state
+    ex, mode = pipe.serving_variables(serve="int8")
+    check(mode == DEPLOY_INT8, "serving_variables(serve='int8') serves DEPLOY_INT8")
+    path = str(_build.BUILD_DIR / "latent_bundle.pt")          # ignored by git
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    stats = api.save_bundle(unet, pipe.qc, path)
+    loaded, lmode = api.load_bundle(path, device="cuda")
+    os.remove(path)
+    os.remove(path + ".meta.json")
+    gx = torch.Generator(device="cuda").manual_seed(7)
+    x5 = torch.randn(shape(pipe, 5), generator=gx, device="cuda")
+    t5 = torch.tensor([900.0, 500.0, 200.0, 50.0, 20.0], device="cuda")
+    with torch.no_grad():
+        a, b = ex(x5.bfloat16(), t5, mode=DEPLOY_INT8), loaded(x5.bfloat16(), t5, mode=lmode)
+    check(torch.equal(a, b), f"the loaded bundle ({stats['bundle_bytes']:,} bytes, "
+          f"{stats['compression']:.3f}x smaller than fp32) serves DEPLOY_INT8 bit-equal to "
+          f"the in-memory export (batch 5, bf16 carrier)")
+    del loaded
+    f32 = export_serving_int8(copy.deepcopy(unet), pipe.qc, torch.float32)
+    launches = kernels_vs_plain(lambda: f32(x5, t5, mode=DEPLOY_INT8),
+                                "calibrated bedroom, batch 5, f32")
+    check(launches == DEFAULT_LAUNCHES["bedroom"],
+          f"batch 5 takes batch {LDM_BATCH}'s branches: {launches}")
+    del f32
+    torch.cuda.empty_cache()
+    # serve on phase 7's schedule (TDAC ran the pipeline's 20 steps)
+    pipe.sched = make_ldm_schedule(
+        num_timesteps=pipe.mc.timesteps, linear_start=pipe.mc.linear_start,
+        linear_end=pipe.mc.linear_end, ddim_steps=STEPS, eta=cfg.eta)
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x50 = torch.randn(shape(pipe, LDM_BATCH), generator=g, device="cuda")
+    with torch.no_grad():
+        ex(x50.bfloat16(), torch.full((LDM_BATCH,), 500.0, device="cuda"), mode=mode)
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    imgs, wall = timed(lambda: pipe.sample_batch(mode, generator=g, unet=ex))  # the main path
+    launches = dict(_build.launch_counts)
+    check(bool(torch.isfinite(imgs).all()) and imgs.shape == img_shape(pipe, LDM_BATCH)
+          and float(imgs.min()) >= 0.0 and float(imgs.max()) <= 1.0,
+          f"calibrated bedroom images finite, shape {tuple(imgs.shape)}, in [0, 1] "
+          f"(mean {float(imgs.mean()):.4f}, std {float(imgs.std()):.4f})")
+    check({k: v / STEPS for k, v in launches.items()} == DEFAULT_LAUNCHES["bedroom"],
+          f"the calibrated export on the default branches over {STEPS} steps: {launches}"
+          f" = {DEFAULT_LAUNCHES['bedroom']} per forward")
+    for k in kernels[:4]:
+        k["latent_calibrated_launches"] = launches.get(k["name"], 0)
+    step_ms = lambda: timed(lambda: pipe.sample_batch(mode, generator=g, unet=ex,
+                                                       decode=False))[1] / STEPS * 1e3
+    ms = [step_ms(), step_ms()]
+    smoke = statistics.mean(bedroom_serving["ms_per_step"]["int8"])
+    rel = statistics.mean(ms) / smoke - 1.0
+    check(abs(rel) <= 0.03,
+          f"calibrated bedroom {ms[0]:.3f} / {ms[1]:.3f} ms a step at batch {LDM_BATCH} "
+          f"against the smoke state's {smoke:.3f} (phase 7): {rel:+.2%}, within 3 % "
+          f"on {smi}")
+    del ex, unet, pipe, cali, imgs, names, used
+    free_memory("after the bedroom calibration")
+
+    # COCO: guidance, a text context in the reconstruction, K5 on the path
+    pipe = LDMPipeline(task_config("coco", custom_steps=STEPS, calib_num_samples=len(
+        COCO_PROMPTS), batch_samples=len(COCO_PROMPTS), iters=LCAL_ITERS),
+        device="cuda", seed=0)
+    ctx = pipe.ld.get_learned_conditioning(list(COCO_PROMPTS))
+    unc = pipe.ld.get_learned_conditioning([""] * len(COCO_PROMPTS))
+    sel, secs["coco_tdac"] = timed(lambda: pipe.tdac_calibration(ctx, unc))
+    cali = pipe.build_cali_data(sel, ctx, unc)
+    n = len(COCO_PROMPTS)
+    check(tuple(cali[0].shape) == shape(pipe, 2 * n) and torch.equal(cali[2][n:], ctx)
+          and torch.equal(cali[2][:n], unc) and bool(torch.isfinite(cali[0]).all()),
+          f"COCO TDAC under guidance {pipe.cfg.scale} over {STEPS} PLMS steps: {2 * n} "
+          f"rows [x; x] with [uncond; cond], finite, in {secs['coco_tdac']:.2f} s")
+    _, secs["coco_calibrate"] = timed(lambda: pipe.calibrate(cali))
+    cplan = ldm_recon_plan(pipe.mc.unet, pipe.qc)
+    first_tx = next(i for i, t in enumerate(cplan) if t.has_ctx)
+    log = []
+    _, secs["coco_recon"] = timed(lambda: recon.reconstruct(
+        pipe.ld.unet, cali, cplan[:first_tx + 1], pipe.recon_args(), pipe.generator(4),
+        group_size=pipe.cfg.recon_group_size, log=log))
+    tx = log[-1]
+    check(len(log) == first_tx + 1 and cplan[first_tx].name == tx["name"]
+          and all(math.isfinite(r["last_loss"]) for r in log),
+          f"COCO scale init in {secs['coco_calibrate']:.2f} s; reconstruct through "
+          f"{tx['name']} (a text-context capture, {tx['kind']}): {len(log)} targets, "
+          f"batch {pipe.cfg.recon_batch_size}, every loss finite, {secs['coco_recon']:.2f} s "
+          f"({1e3 * tx['seconds'] / tx['iters']:.1f} ms an iteration of the transformer "
+          f"block)")
+    ex, mode = pipe.serving_variables(serve="int8")
+    xs = torch.randn(shape(pipe, n), generator=g, device="cuda")
+    ts = torch.full((2 * n,), 500.0, device="cuda")
+    args = (torch.cat([xs, xs]).bfloat16(), ts, torch.cat([unc, ctx]).bfloat16())
+    with torch.no_grad():
+        ex(*args, mode=mode)
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        out = ex(*args, mode=mode)
+        launches = dict(_build.launch_counts)
+    check(bool(torch.isfinite(out).all()) and launches == DEFAULT_LAUNCHES["sd"],
+          f"the COCO export at {2 * n} rows: output finite, launches {launches} = "
+          f"{DEFAULT_LAUNCHES['sd']}")
+    kernels[4]["latent_calibrated_launches"] = launches.get("int8_flash_attention", 0)
+    del ex, pipe, cali, out
+    free_memory("after COCO")
+
+    # church: the smoke state served at its batch
+    pipe = LDMPipeline(task_config("church", custom_steps=STEPS), device="cuda", seed=0)
+    unet = pipe.ld.unet
+    x5 = torch.randn(shape(pipe, 5), generator=g, device="cuda")
+    n_aq = smoke_quant_state(unet, x5, t5)
+    _, church_bundle = serving_bundle(unet, pipe.qc)
+    print(f"    church UNet {sum(p.numel() for p in unet.parameters()):,} params: bundle "
+          f"{church_bundle['bundle_bytes']:,} bytes, fp32 {church_bundle['fp32_bytes']:,}, "
+          f"compression {church_bundle['compression']:.3f}")
+    export_serving_int8(unet, pipe.qc, torch.float32)
+    impl = ldm_unet.attention_impl
+    with swapped(ldm_unet, "attention_impl",
+                 lambda b, *a: impl(b * CHURCH_BATCH // 5, *a)):
+        launches = kernels_vs_plain(lambda: unet(x5, t5, mode=DEPLOY_INT8),
+                                    f"church batch 5 on batch {CHURCH_BATCH}'s branches")
+    check(launches == DEFAULT_LAUNCHES["church"],
+          f"church ({n_aq} act quantizers set): K4 at the 32x32 sites, K2 -> K3 -> K2 at "
+          f"the others: {launches}")
+    for p in unet.parameters():                  # the export's carrier cast
+        p.data = p.data.to(torch.bfloat16)
+    x100 = torch.randn(shape(pipe, CHURCH_BATCH), generator=g, device="cuda")
+    with torch.no_grad():
+        unet(x100.bfloat16(), torch.full((CHURCH_BATCH,), 500.0, device="cuda"),
+             mode=DEPLOY_INT8)
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    z, church_s = timed(lambda: pipe.sample_batch(DEPLOY_INT8, generator=g,
+                                                  decode=False))
+    launches = dict(_build.launch_counts)
+    imgs, decode_s = timed(lambda: torch.clamp(
+        (pipe.ld.decode_first_stage(z) + 1.0) / 2.0, 0.0, 1.0))
+    check(bool(torch.isfinite(imgs).all()) and imgs.shape == img_shape(pipe, CHURCH_BATCH)
+          and {k: v / STEPS for k, v in launches.items()} == DEFAULT_LAUNCHES["church"],
+          f"church sample_batch at batch {CHURCH_BATCH}, {STEPS} DDIM steps at eta "
+          f"{pipe.cfg.eta}: images finite, shape {tuple(imgs.shape)}; launches per forward "
+          f"{ {k: v / STEPS for k, v in launches.items()} }")
+    for k in kernels[:4]:
+        k["church_launches"] = launches.get(k["name"], 0)
+    church_ms = [church_s / STEPS * 1e3, timed(lambda: pipe.sample_batch(
+        DEPLOY_INT8, generator=g, decode=False))[1] / STEPS * 1e3]
+    print(f"    church on {smi}: {church_ms[0]:.3f} / {church_ms[1]:.3f} ms a step at batch "
+          f"{CHURCH_BATCH} (int8 W4A8, smoke state), decode {decode_s * 1e3:.1f} ms; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    del pipe, unet, z, imgs
+    torch.cuda.empty_cache()
+    return dict(seconds=secs, targets=len(plan), iters=LCAL_ITERS, rows=LCAL_TRAJ,
+                loops_s=loops, ms_per_iter=ms_iter, extrapolated_task_s=task_s,
+                bundle=stats, int8_ms_per_step=ms, smoke_int8_ms_per_step=smoke,
+                church_ms_per_step=church_ms, church_decode_ms=decode_s * 1e3,
+                church_bundle=church_bundle)
+
+
+# --------------------------------------------------------------------------
 
 
 def main():
@@ -1959,6 +2353,10 @@ def main():
     t0 = time.perf_counter()
     calibrated = calibration(kernels, smi, int8_sps)
     print(f"    phase 10: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    latent = latent_calibration(kernels, smi, serving)
+    print(f"    phase 11: {time.perf_counter() - t0:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
@@ -1966,7 +2364,7 @@ def main():
              "einsum_ms", "bmm_f32_ms", "bf16_conv_ms", "plans", "transposing_ms", "streamed_ms",
              "acc_ms", "other_tile_ms", "sd_ms", "shapes_ms", "rates", "plain_by_shape",
              "library_peak", "mma_sync_ms", "mma_sync_launches", "mma_sync_source",
-             "calibrated_launches")
+             "calibrated_launches", "latent_calibrated_launches", "church_launches")
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{**{k: kern[k] for k in keys},
                                    **{k: kern[k] for k in extra if k in kern},
@@ -1976,7 +2374,7 @@ def main():
         "folded_deploy_fused": fused_sps, "bf16_fp": bf16_sps, "fp32_fp": fp32_sps,
         "batch": BATCH},
         "bedroom_serving": serving, "sd_serving": sd_serving,
-        "cifar_calibration": calibrated}))
+        "cifar_calibration": calibrated, "latent_calibration": latent}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -56,18 +56,20 @@ def reconstruct(model, cali_data: Sequence[torch.Tensor], plan=None,
                 args: Optional[ReconArgs] = None,
                 generator: Optional[torch.Generator] = None, mode: str = "block",
                 progress=None, device=None):
-    """AdaRound + FBR reconstruction over a plan (``ddpm_recon_plan`` or,
-    with ``mode='layer'``, ``ddpm_layer_plan`` when omitted)."""
+    """AdaRound + FBR reconstruction over a plan: when omitted, the model
+    family's block plan (``ddpm_recon_plan`` / ``ldm_recon_plan``) or, with
+    ``mode='layer'``, its layer plan (``ddpm_layer_plan`` /
+    ``ldm_layer_plan``)."""
     model_device(model, device)
     if plan is None:
         from .models.ddpm_unet import DDPMUNet, ddpm_layer_plan, ddpm_recon_plan
-        from .models.ldm_unet import LDMUNet
+        from .models.ldm_unet import LDMUNet, ldm_layer_plan, ldm_recon_plan
         if isinstance(model, DDPMUNet):
             plan = (ddpm_recon_plan if mode == "block"
                     else ddpm_layer_plan)(model.cfg, model.qc)
         elif isinstance(model, LDMUNet):
-            raise NotImplementedError("the latent family's plan (ldm_recon_plan) "
-                                      "is not ported yet")
+            plan = (ldm_recon_plan if mode == "block"
+                    else ldm_layer_plan)(model.cfg, model.qc)
         else:
             raise ValueError("pass an explicit plan for custom models")
     return _reconstruct(model, cali_data, plan, args or ReconArgs(), generator,

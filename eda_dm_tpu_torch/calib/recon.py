@@ -2,7 +2,8 @@
 
 * **Capture.**  Forward hooks on the target modules record a block's
   input and output (``block_in`` / ``block_out``), a layer's (``in`` /
-  ``out``) and the inner layers' outputs; the hook that records the last
+  ``out``), a transformer block's context (``block_ctx``, its forward's
+  second argument) and the inner layers' outputs; the hook that records the last
   tap a forward needs raises :class:`StopForward`, so the model's suffix
   after the targets never runs (the JAX package gets the same saving from
   XLA's dead-code elimination).  The quantized-input capture runs the same
@@ -53,6 +54,19 @@ def module_spec(cls: str, **fields) -> Tuple:
     its configuration (the JAX package's flax-module fields).  Targets with
     equal specs share a signature in :func:`group_plan`."""
     return (cls, tuple(fields.items()))
+
+
+def dense_spec(features, wq, aq):
+    return module_spec("QDense", features=features, wq=wq, aq=aq,
+                       disable_act_quant=False, use_bias=True)
+
+
+def conv_spec(features, kernel_size, wq, aq, strides=(1, 1), padding="SAME",
+              split=0, disable_act_quant=False):
+    return module_spec("QConv", features=features, kernel_size=kernel_size,
+                       strides=strides, padding=padding, wq=wq, aq=aq,
+                       split=split, disable_act_quant=disable_act_quant,
+                       use_bias=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,7 +123,8 @@ class ReconArgs:
 # --------------------------------------------------------------------------
 
 FP_CAPTURE = QuantMode(capture=True)
-_INPUT_TAPS = ("in", "block_in")
+# taps read before the forward: its first argument, or (block_ctx) its second
+_INPUT_TAPS = {"in": 0, "block_in": 0, "block_ctx": 1}
 
 
 class StopForward(Exception):
@@ -139,7 +154,7 @@ def _hook_taps(model: nn.Module, keep: Sequence[Tuple[str, ...]], store: dict,
     def pre_hook(kps):
         def hook(mod, args):
             for kp in kps:
-                put(kp, args[0])
+                put(kp, args[_INPUT_TAPS[kp[-1]]])
         return hook
 
     def post_hook(kps):
@@ -271,7 +286,8 @@ def reconstruct_target(target: ReconTarget, model: nn.Module,
     the per-iteration losses (iters,).
 
     ``data``: ``inp_q``, ``inp_s`` (quantized / FP target inputs),
-    ``out_fp`` (FP output), ``temb_q`` for targets that take a temb, and
+    ``out_fp`` (FP output), ``temb_q`` for targets that take a temb,
+    ``ctx_q`` for those that take a context (``has_ctx``), and
     ``inner_fp`` (FP inner-layer outputs in ``target.inner_taps`` order).
     ``generator`` (on the model's device) draws the minibatches, the input
     mixing and QDrop.
@@ -284,6 +300,7 @@ def reconstruct_target(target: ReconTarget, model: nn.Module,
                      soft_targets=args.recon_w, training=True, capture=True)
     inp_q, inp_s, out_fp_all = data["inp_q"], data["inp_s"], data["out_fp"]
     temb_q = data.get("temb_q") if target.has_temb else None
+    ctx_q = data.get("ctx_q") if target.has_ctx else None
     inner_fp = tuple(data.get("inner_fp", ()))
     use_inner = (target.kind == "block" and len(inner_fp) > 1
                  and args.add_loss > 0.0)
@@ -318,7 +335,8 @@ def reconstruct_target(target: ReconTarget, model: nn.Module,
                 x = torch.where(m, xq, xs)
             else:
                 x = xs
-            inputs = (x, take(temb_q)) if target.has_temb else (x,)
+            inputs = ((x, take(temb_q)) if target.has_temb else
+                      (x, take(ctx_q)) if target.has_ctx else (x,))
             store.clear()
             out = module(*inputs, mode)
             loss = lp_loss(out, take(out_fp_all), args.p, channel_axis=-1)
@@ -402,6 +420,9 @@ def build_group_data(model: nn.Module, cali_data: Sequence[torch.Tensor],
                 "out_fp": fp_sub[t.path + out_key]}
         if t.has_temb:
             data["temb_s"], data["temb_q"] = fp_temb, q_temb
+        if t.has_ctx:
+            data["ctx_s"] = fp_sub[t.path + ("block_ctx",)]
+            data["ctx_q"] = q_sub[t.path + ("block_ctx",)]
         if t.kind == "block":
             data["inner_fp"] = tuple(fp_sub[t.path + tp + ("out",)]
                                      for tp in t.inner_taps)

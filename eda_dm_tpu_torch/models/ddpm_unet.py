@@ -26,7 +26,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from ..calib.recon import ReconTarget, module_spec
+from ..calib.recon import ReconTarget, conv_spec, dense_spec, module_spec
 from ..device import resolve_device
 from ..nn.layers import (ActQuantizer, GNorm, QConv, QDense, lecun_normal_,
                          norm_act, norm_conv, swish, timestep_embedding)
@@ -305,19 +305,6 @@ class DDPMUNet(nn.Module):
 # reconstruction plans
 # --------------------------------------------------------------------------
 
-def _dense(features, wq, aq):
-    return module_spec("QDense", features=features, wq=wq, aq=aq,
-                       disable_act_quant=False, use_bias=True)
-
-
-def _conv(features, kernel_size, wq, aq, strides=(1, 1), padding="SAME",
-          split=0, disable_act_quant=False):
-    return module_spec("QConv", features=features, kernel_size=kernel_size,
-                       strides=strides, padding=padding, wq=wq, aq=aq,
-                       split=split, disable_act_quant=disable_act_quant,
-                       use_bias=True)
-
-
 def ddpm_recon_plan(cfg: DDPMConfig, qc: QuantConfig):
     """Ordered reconstruction targets: the temb denses and conv_in as
     layers, the down levels (blocks and attentions interleaved in forward
@@ -335,10 +322,10 @@ def ddpm_recon_plan(cfg: DDPMConfig, qc: QuantConfig):
 
     plan = [
         ReconTarget("temb_dense_0", ("temb_dense_0",),
-                    _dense(temb_ch, wq.with_bits(8), aq), "layer"),
-        ReconTarget("temb_dense_1", ("temb_dense_1",), _dense(temb_ch, wq, aq),
+                    dense_spec(temb_ch, wq.with_bits(8), aq), "layer"),
+        ReconTarget("temb_dense_1", ("temb_dense_1",), dense_spec(temb_ch, wq, aq),
                     "layer"),
-        ReconTarget("conv_in", ("conv_in",), _conv(ch, (3, 3), wq, aq), "layer"),
+        ReconTarget("conv_in", ("conv_in",), conv_spec(ch, (3, 3), wq, aq), "layer"),
     ]
 
     def resblock(path, name, in_ch, out_ch, split=0):
@@ -367,7 +354,7 @@ def ddpm_recon_plan(cfg: DDPMConfig, qc: QuantConfig):
         if i != cfg.num_resolutions - 1:
             plan.append(ReconTarget(
                 f"down_{i}.downsample.conv", (f"down_{i}", "downsample", "conv"),
-                _conv(block_out, (3, 3), wq, aq, strides=(2, 2),
+                conv_spec(block_out, (3, 3), wq, aq, strides=(2, 2),
                       padding=((0, 1), (0, 1))), "layer"))
 
     mid_ch = ch * cfg.ch_mult[-1]
@@ -394,12 +381,12 @@ def ddpm_recon_plan(cfg: DDPMConfig, qc: QuantConfig):
         if i != 0:
             plan.append(ReconTarget(
                 f"up_{i}.upsample.conv", (f"up_{i}", "upsample", "conv"),
-                _conv(block_out, (3, 3), wq,
+                conv_spec(block_out, (3, 3), wq,
                       aq.with_bits(8) if i == cfg.num_resolutions - 1 else aq),
                 "layer"))
 
     plan.append(ReconTarget("conv_out", ("conv_out",),
-                            _conv(cfg.out_ch, (3, 3), wq.with_bits(8), aq,
+                            conv_spec(cfg.out_ch, (3, 3), wq.with_bits(8), aq,
                                   disable_act_quant=True), "layer"))
     return plan
 
@@ -417,7 +404,7 @@ def ddpm_layer_plan(cfg: DDPMConfig, qc: QuantConfig):
             plan.append(t)
         elif cls == "AttnBlockD":
             # attention always follows a res block at the same width
-            one_by_one = _conv(last_ch, (1, 1), wq, aq, padding="VALID")
+            one_by_one = conv_spec(last_ch, (1, 1), wq, aq, padding="VALID")
             for leaf in ("q", "k", "v"):
                 plan.append(ReconTarget(f"{t.name}.{leaf}", t.path + (leaf,),
                                         one_by_one, "layer"))
@@ -428,10 +415,10 @@ def ddpm_layer_plan(cfg: DDPMConfig, qc: QuantConfig):
         else:                                 # ResnetBlockD: its layers in order
             out_ch = last_ch = fields["out_ch"]
             for (leaf,) in t.inner_taps:
-                spec = (_dense(out_ch, wq, aq) if leaf == "temb_proj" else
-                        _conv(out_ch, (1, 1), wq, aq, padding="VALID",
+                spec = (dense_spec(out_ch, wq, aq) if leaf == "temb_proj" else
+                        conv_spec(out_ch, (1, 1), wq, aq, padding="VALID",
                               split=fields["split"]) if leaf == "nin_shortcut"
-                        else _conv(out_ch, (3, 3), wq, aq))
+                        else conv_spec(out_ch, (3, 3), wq, aq))
                 plan.append(ReconTarget(f"{t.name}.{leaf}", t.path + (leaf,),
                                         spec, "layer"))
     return plan

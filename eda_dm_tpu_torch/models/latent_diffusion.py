@@ -5,8 +5,8 @@ serving part of the unconditional and text-conditioned models).
 The JAX package holds flax module definitions and passes variable trees;
 here the object holds the modules.  Text conditioning runs through the
 weightless stand-in ``TinyTextEncoder`` (the CLIP weights are not in the
-repository).  Class conditioning, the checkpoint loader and the church and
-ImageNet configs come with later slices.
+repository).  Class conditioning, the checkpoint loader and the ImageNet
+config come with later slices.
 """
 
 from __future__ import annotations
@@ -79,6 +79,24 @@ def bedroom_config() -> LatentDiffusionConfig:
                       z_channels=3, double_z=False, embed_dim=3,
                       n_embed=8192),
         linear_start=0.0015, linear_end=0.0195)
+
+
+def church_config() -> LatentDiffusionConfig:
+    """LDM-8 LSUN-Church (models/ldm/lsun_churches256/config.yaml): 32×32
+    latents of 4 channels, attention at every level with 8 heads,
+    scale-shift norm and resampling res blocks, the KL-f8 first stage.
+    ``scale_by_std``: the checkpoint holds the scale factor; 1.0 without
+    one."""
+    return LatentDiffusionConfig(
+        unet=LDMUNetConfig(image_size=32, in_channels=4, model_channels=192,
+                           out_channels=4, num_res_blocks=2,
+                           attention_resolutions=(1, 2, 4, 8),
+                           channel_mult=(1, 2, 2, 4, 4), num_heads=8,
+                           use_scale_shift_norm=True, resblock_updown=True),
+        vae=VAEConfig(ch=128, out_ch=3, ch_mult=(1, 2, 4, 4), num_res_blocks=2,
+                      attn_resolutions=(), in_channels=3, resolution=256,
+                      z_channels=4, double_z=True, embed_dim=4, n_embed=None),
+        linear_start=0.0015, linear_end=0.0155, scale_factor=1.0)
 
 
 def sd_v1_config() -> LatentDiffusionConfig:

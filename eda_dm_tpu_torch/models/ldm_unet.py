@@ -9,7 +9,11 @@ Module names are the JAX package's flax names: a dict entry
 ``transformer_blocks_0``, ``attn1``, ``to_q``, ``net_0_proj``).  Layout is
 NHWC; dropout is omitted (inference only).
 
-Modes: FP, DEPLOY, DEPLOY_FUSED, DEPLOY_INT8.  Both attention families
+Modes: the calibration modes (CALIB_W, CALIB_A, WQ/WAQ and, in
+reconstruction, soft AdaRound and QDrop: the layers' own, ``nn/layers.py``)
+and the serving modes FP, DEPLOY, DEPLOY_FUSED, DEPLOY_INT8.  Outside
+DEPLOY_INT8 every attention site runs the float path, its q, k, softmax
+and v quantizers in the JAX package's call order.  Both attention families
 are ported: the legacy ``AttentionBlockL`` (bedroom, church) and the
 spatial transformer (SD v1.4: ``SpatialTransformerL`` →
 ``BasicTransformerBlockL`` with self- and cross-attention and a GEGLU
@@ -29,6 +33,16 @@ The first/last policy: ``time_embed_0`` and ``out_2`` are 8-bit (so they
 serve on the folded path), ``out_2``'s act quant is disabled, and the
 registration-last act quantizer of the last output-block item (a skip
 conv, ``proj_out`` or the upsample conv) is 8-bit (``aq_last``).
+
+:func:`ldm_recon_plan` and :func:`ldm_layer_plan` list the reconstruction
+targets as the JAX package does (names, paths, kinds, ``has_temb``,
+``has_ctx``, inner taps, order).  As in ``ddpm_unet.py``, a block's
+``block_in`` / ``block_out`` and a layer's ``in`` / ``out`` are its
+forward's first argument and its output, read by forward hooks
+(``calib/recon.py``); a transformer block's ``block_ctx`` is its forward's
+second argument, and the timestep embedding the res blocks take is
+``time_embed_2``'s output (``LDMUNet.temb_module``).  TDAC's feature is
+``middle_block_1``'s input (``pipelines/latent.py``).
 """
 
 from __future__ import annotations
@@ -40,6 +54,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..calib.recon import ReconTarget, conv_spec, dense_spec, module_spec
 from ..device import resolve_device
 from ..nn.layers import (ActQuantizer, GNorm, LayerNorm, QConv, QDense,
                          gelu_tanh, lecun_normal_, norm_act, norm_conv, swish,
@@ -184,6 +199,13 @@ def _avg_pool2(x: torch.Tensor) -> torch.Tensor:
 class ResBlockL(nn.Module):
     """LDM ResBlock, with scale-shift norm and resblock up/down."""
 
+    @staticmethod
+    def inner_taps(in_ch: int, out_ch: int) -> Tuple[Tuple[str, ...], ...]:
+        taps = [("in_layers_2",), ("emb_layers_1",), ("out_layers_3",)]
+        if in_ch != out_ch:
+            taps.append(("skip_connection",))
+        return tuple(taps)
+
     def __init__(self, in_ch: int, out_ch: int, emb_ch: int, wq: QuantizerSpec,
                  aq: QuantizerSpec, use_scale_shift_norm: bool = False,
                  updown: str = "", split: int = 0,
@@ -285,6 +307,8 @@ class AttentionBlockL(_QKVAttention):
     The ``qkv`` channels are heads × (q|k|v) × ch.  As in the JAX package,
     the residual adds the normalized input."""
 
+    inner_taps = (("qkv",), ("proj_out",))
+
     def __init__(self, ch: int, num_heads: int, wq: QuantizerSpec,
                  aq: QuantizerSpec, aq_w: QuantizerSpec,
                  aq_last: Optional[QuantizerSpec] = None):
@@ -363,6 +387,13 @@ class BasicTransformerBlockL(nn.Module):
     """attn1 (self) → attn2 (cross) → ff, each after its LayerNorm and
     with a residual add."""
 
+    # the reference's hook order over its modules: attn1's projections,
+    # the feed-forward, then attn2's
+    inner_taps = (("attn1", "to_q"), ("attn1", "to_k"), ("attn1", "to_v"),
+                  ("attn1", "to_out_0"), ("ff", "net_0_proj"), ("ff", "net_2"),
+                  ("attn2", "to_q"), ("attn2", "to_k"), ("attn2", "to_v"),
+                  ("attn2", "to_out_0"))
+
     def __init__(self, dim: int, heads: int, dim_head: int,
                  context_dim: Optional[int], wq: QuantizerSpec,
                  aq: QuantizerSpec, aq_w: QuantizerSpec):
@@ -438,7 +469,10 @@ class LDMUNet(nn.Module):
     """The LDM UNet.  Built on ``device`` (the card unless the caller passes
     ``"cpu"``) with N(0, 1/fan_in) weights drawn from ``seed``; real
     weights come through ``models/bridge.py``.  Positional order
-    ``(x, t, context, y, mode)`` as in the JAX package."""
+    ``(x, t, context, y, mode)`` as in the JAX package, so a calibration
+    tuple ``(x, t, ctx)`` is passed as it is."""
+
+    temb_module = "time_embed_2"       # its output is the res blocks' temb
 
     def __init__(self, cfg: LDMUNetConfig = LDMUNetConfig(),
                  qc: QuantConfig = QuantConfig(), device=None, seed: int = 0):
@@ -531,3 +565,120 @@ class LDMUNet(nn.Module):
             h = self._run("output_blocks", items, torch.cat([h, hs.pop()], -1),
                           emb, context, mode)
         return self.out_2(norm_act(self.out_0, h, mode, act=True), mode)
+
+
+# --------------------------------------------------------------------------
+# reconstruction plans
+# --------------------------------------------------------------------------
+
+def ldm_recon_plan(cfg: LDMUNetConfig, qc: QuantConfig) -> List[ReconTarget]:
+    """Ordered reconstruction targets, the reference's walk over the UNet:
+    the time-embedding denses as layers; every res block and attention
+    block as a block; a spatial transformer as ``proj_in`` (layer), its
+    transformer blocks (blocks, with the text context where the config
+    has one) and ``proj_out`` (layer); the down- and upsample convs and
+    ``out_2`` as layers; the output blocks in execution order.  Each
+    target's spec carries the JAX package's module fields, so targets
+    group as they do there."""
+    wq, aq = qc.wq, qc.aq
+    aq_w_attn = qc.aq_softmax(always_zero=True, symmetric=False)
+    aq_w_tx = qc.aq_softmax(always_zero=True)
+    layout = build_layout(cfg, qc.split)
+    plan = [ReconTarget("time_embed_0", ("time_embed_0",),
+                        dense_spec(cfg.time_embed_dim, wq.with_bits(8), aq), "layer"),
+            ReconTarget("time_embed_2", ("time_embed_2",),
+                        dense_spec(cfg.time_embed_dim, wq, aq), "layer")]
+
+    def add_item(prefix: str, it: LayerItem):
+        base, name = (f"{prefix}_{it.key}",), f"{prefix}.{it.key}"
+        if it.kind == "conv":
+            plan.append(ReconTarget(name, base,
+                                    conv_spec(cfg.model_channels, (3, 3), wq, aq),
+                                    "layer"))
+        elif it.kind == "res":
+            plan.append(ReconTarget(
+                name, base, module_spec(
+                    "ResBlockL", out_ch=it.out_ch, wq=wq, aq=aq,
+                    use_scale_shift_norm=cfg.use_scale_shift_norm,
+                    updown=it.updown, split=it.split, use_conv_skip=False,
+                    aq_last=None),
+                "block", has_temb=True,
+                inner_taps=ResBlockL.inner_taps(it.in_ch, it.out_ch)))
+        elif it.kind == "attn":
+            plan.append(ReconTarget(
+                name, base, module_spec("AttentionBlockL", num_heads=it.heads,
+                                        wq=wq, aq=aq, aq_w=aq_w_attn, aq_last=None),
+                "block", inner_taps=AttentionBlockL.inner_taps))
+        elif it.kind == "tx":
+            inner = it.heads * it.dim_head
+            plan.append(ReconTarget(f"{name}.proj_in", base + ("proj_in",),
+                                    conv_spec(inner, (1, 1), wq, aq, padding="VALID"),
+                                    "layer"))
+            for d in range(cfg.transformer_depth):
+                plan.append(ReconTarget(
+                    f"{name}.tx_{d}", base + (f"transformer_blocks_{d}",),
+                    module_spec("BasicTransformerBlockL", heads=it.heads,
+                                dim_head=it.dim_head, dim=inner, wq=wq, aq=aq,
+                                aq_w=aq_w_tx),
+                    "block", has_ctx=cfg.context_dim is not None,
+                    inner_taps=BasicTransformerBlockL.inner_taps))
+            plan.append(ReconTarget(f"{name}.proj_out", base + ("proj_out",),
+                                    conv_spec(it.out_ch, (1, 1), wq, aq, padding="VALID"),
+                                    "layer"))
+        elif it.kind == "down":
+            plan.append(ReconTarget(name, base + ("op",),
+                                    conv_spec(it.out_ch, (3, 3), wq, aq, strides=(2, 2),
+                                              padding=((1, 1), (1, 1))), "layer"))
+        elif it.kind == "up":
+            plan.append(ReconTarget(name, base + ("conv",),
+                                    conv_spec(it.out_ch, (3, 3), wq, aq), "layer"))
+
+    for prefix in ("input_blocks", "middle_block", "output_blocks"):
+        for it in getattr(layout, prefix):
+            add_item(prefix, it)
+    plan.append(ReconTarget("out_2", ("out_2",),
+                            conv_spec(cfg.out_channels, (3, 3), wq.with_bits(8), aq,
+                                      disable_act_quant=True), "layer"))
+    return plan
+
+
+def ldm_layer_plan(cfg: LDMUNetConfig, qc: QuantConfig) -> List[ReconTarget]:
+    """Layer-mode plan (the reference's ablation path): every quantized
+    layer reconstructs alone; an attention block becomes its ``qkv``, a
+    whole-block target that trains only its act deltas (``act_only``) and
+    its ``proj_out``; transformer blocks keep their block targets."""
+    wq, aq = qc.wq, qc.aq
+    plan = []
+    for t in ldm_recon_plan(cfg, qc):
+        cls, fields = t.spec[0], dict(t.spec[1])
+        if t.kind == "layer" or cls == "BasicTransformerBlockL":
+            plan.append(t)
+        elif cls == "AttentionBlockL":
+            ch = _layer_item(cfg, qc, t.path).out_ch
+            plan.append(ReconTarget(f"{t.name}.qkv", t.path + ("qkv",),
+                                    dense_spec(3 * ch, wq, aq), "layer"))
+            plan.append(ReconTarget(f"{t.name}.acts", t.path, t.spec, "block",
+                                    act_only=True, inner_taps=t.inner_taps))
+            plan.append(ReconTarget(f"{t.name}.proj_out", t.path + ("proj_out",),
+                                    dense_spec(ch, wq, aq), "layer"))
+        else:                                   # ResBlockL: its layers in order
+            out_ch = fields["out_ch"]
+            emb = 2 * out_ch if cfg.use_scale_shift_norm else out_ch
+            for (leaf,) in t.inner_taps:
+                spec = (dense_spec(emb, wq, aq) if leaf == "emb_layers_1" else
+                        conv_spec(out_ch, (1, 1), wq, aq, padding="VALID",
+                                  split=fields["split"]) if leaf == "skip_connection"
+                        else conv_spec(out_ch, (3, 3), wq, aq))
+                plan.append(ReconTarget(f"{t.name}.{leaf}", t.path + (leaf,), spec,
+                                        "layer"))
+    return plan
+
+
+def _layer_item(cfg: LDMUNetConfig, qc: QuantConfig, path) -> LayerItem:
+    """The layout item whose module is at ``path`` (``("input_blocks_1_1",)``)."""
+    layout = build_layout(cfg, qc.split)
+    for prefix in ("input_blocks", "middle_block", "output_blocks"):
+        for it in getattr(layout, prefix):
+            if (f"{prefix}_{it.key}",) == tuple(path):
+                return it
+    raise KeyError(path)

@@ -123,12 +123,21 @@ def tree_nbytes(tree) -> int:
     return 0
 
 
+def _families():
+    from ..models.ddpm_unet import DDPMConfig, DDPMUNet
+    from ..models.ldm_unet import LDMUNet, LDMUNetConfig
+    return {"ddpm": (DDPMUNet, DDPMConfig), "ldm": (LDMUNet, LDMUNetConfig)}
+
+
 def _arch(model) -> Dict[str, Any]:
-    from ..models.ddpm_unet import DDPMUNet
-    if not isinstance(model, DDPMUNet):
-        raise NotImplementedError("serving bundles of this model family are "
-                                  "not ported yet")
-    return {"family": "ddpm", "cfg": dataclasses.asdict(model.cfg),
+    """The bundle's model description: the family and the configs the
+    model is rebuilt from."""
+    family = next((f for f, (cls, _) in _families().items()
+                   if isinstance(model, cls)), None)
+    if family is None:
+        raise NotImplementedError(f"serving bundles of {type(model).__name__} "
+                                  "are not ported")
+    return {"family": family, "cfg": dataclasses.asdict(model.cfg),
             "qc": dataclasses.asdict(model.qc)}
 
 
@@ -194,13 +203,13 @@ def restore_serving_bundle(bundle: Dict[str, Any], device=None, dtype=None):
     (``codes·Δ`` in float32, cast to the carrier) rebuilt, ``(1,)``
     placeholder alphas.  DEPLOY / DEPLOY_INT8 forwards are bit-identical to
     the in-memory export's."""
-    from ..models.ddpm_unet import DDPMConfig, DDPMUNet
     arch = bundle["arch"]
-    if arch["family"] != "ddpm":
+    if arch["family"] not in _families():
         raise NotImplementedError(f"bundle family {arch['family']!r}")
+    cls, cfg_cls = _families()[arch["family"]]
     tup = lambda d: {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
-    model = DDPMUNet(DDPMConfig(**tup(arch["cfg"])), QuantConfig(**tup(arch["qc"])),
-                     device=device)
+    model = cls(cfg_cls(**tup(arch["cfg"])), QuantConfig(**tup(arch["qc"])),
+                device=device)
     dev = next(model.parameters()).device
     params, quant = bundle["params"], bundle["quant"]
     dtype = dtype or next(v.dtype for v in params.values() if v.is_floating_point())

@@ -104,6 +104,12 @@ def _candidates_1d(x_min, x_max, one_side, n_levels: int, num: int, dtype):
             new_max.reshape(*new_max.shape[:-2], 2 * num))
 
 
+# elements of one (channels, candidates, K) score tensor: the per-channel
+# search scores its channels in chunks below this (SD's 1280×2560×3×3 conv
+# would otherwise take 22 GiB a temporary)
+SCORE_ELEMS = 1 << 28
+
+
 def search_range_1d(x_flat: torch.Tensor, n_levels: int, one_side, num: int = 100,
                     x_min: Optional[torch.Tensor] = None,
                     x_max: Optional[torch.Tensor] = None):
@@ -112,15 +118,26 @@ def search_range_1d(x_flat: torch.Tensor, n_levels: int, one_side, num: int = 10
     ``x_flat``: (K,) per tensor or (C, K) per channel.  Returns (best_min,
     best_max) shaped () or (C,).  ``x_min``/``x_max`` anchor the candidate
     grid when ``x_flat`` is a subsample (by default its own min and max).
+    Channels are searched independently, in chunks of at most
+    ``SCORE_ELEMS`` scored elements.
     """
     x_min = torch.amin(x_flat, dim=-1) if x_min is None else x_min
     x_max = torch.amax(x_flat, dim=-1) if x_max is None else x_max
     new_min, new_max = _candidates_1d(x_min, x_max, one_side, n_levels, num,
                                       x_flat.dtype)
-    scores = _score(x_flat[..., None, :], new_min, new_max, n_levels)
-    idx = torch.argmin(scores, dim=-1, keepdim=True)
-    return (torch.take_along_dim(new_min, idx, -1)[..., 0],
-            torch.take_along_dim(new_max, idx, -1)[..., 0])
+    rows = (max(1, SCORE_ELEMS // (new_min.shape[-1] * x_flat.shape[-1]))
+            if x_flat.dim() == 2 else 1)
+    best = []
+    for r in range(0, x_flat.shape[0] if x_flat.dim() == 2 else 1, rows):
+        part = (slice(r, r + rows),) if x_flat.dim() == 2 else ()
+        lo, hi = new_min[part], new_max[part]
+        idx = torch.argmin(_score(x_flat[part][..., None, :], lo, hi, n_levels),
+                           dim=-1, keepdim=True)
+        best.append((torch.take_along_dim(lo, idx, -1)[..., 0],
+                     torch.take_along_dim(hi, idx, -1)[..., 0]))
+    if len(best) == 1:
+        return best[0]
+    return torch.cat([b[0] for b in best]), torch.cat([b[1] for b in best])
 
 
 def _search_2d(score_fn, x_min, x_max, n_levels: int, num: int, zp_chunk: int,

@@ -91,15 +91,28 @@ def ddim_update(x, e_t, a_t, a_prev, sigma_t, sqrt_one_minus_at, noise):
     return x_prev, pred_x0
 
 
+def _records(ys: dict, keys) -> dict:
+    """The per-step records stacked: tensors along a new first axis, the
+    integer timesteps and indices as int32 numpy arrays."""
+    out = {k: torch.stack(ys[k]) for k in ("x", "aux") if k in ys}
+    out.update({k: np.asarray(ys[k], np.int32) for k in keys if k in ys})
+    return out
+
+
 @torch.no_grad()
 def ldm_ddim_sample(x_T: torch.Tensor, sched: LDMSchedule, model_fn: Callable,
                     generator: Optional[torch.Generator] = None,
                     noise: Optional[Sequence[torch.Tensor]] = None,
-                    device=None) -> torch.Tensor:
+                    device=None, record_xt: bool = False,
+                    model_returns_aux: bool = False):
     """The reverse DDIM over the sub-schedule.  ``model_fn(x, t) -> eps``
-    with ``t`` float32 of shape (N,).  The noise of step k (k = 0 first)
-    is ``noise[k]`` when given, else drawn from ``generator``.  Returns
-    the final latents."""
+    with ``t`` float32 of shape (N,); with ``model_returns_aux`` it returns
+    (eps, aux) and aux is stacked per step.  ``record_xt`` stacks every
+    step's input x_t (``"x"``, the calibration trajectory), its timestep
+    (``"t"``) and DDIM index (``"index"``).  The noise of step k (k = 0
+    first) is ``noise[k]`` when given, else drawn from ``generator``.
+    Returns the final latents, or (latents, records) when either record
+    is asked for."""
     device = resolve_device(device)
     x = x_T.to(device)
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
@@ -107,10 +120,18 @@ def ldm_ddim_sample(x_T: torch.Tensor, sched: LDMSchedule, model_fn: Callable,
     sig, som = f32(sched.ddim_sigmas), f32(sched.ddim_sqrt_one_minus_alphas)
     steps = sched.ddim_timesteps[::-1]
     n = x.shape[0]
+    ys: dict = {}
     for k, step in enumerate(steps.tolist()):
         index = len(steps) - 1 - k
         t = torch.full((n,), float(step), dtype=torch.float32, device=device)
-        e_t = model_fn(x, t)
+        if model_returns_aux:
+            e_t, aux = model_fn(x, t)
+            ys.setdefault("aux", []).append(aux)
+        else:
+            e_t = model_fn(x, t)
+        if record_xt:
+            for key, v in (("x", x), ("t", step), ("index", index)):
+                ys.setdefault(key, []).append(v)
         z = None
         if sched.ddim_sigmas[index] != 0:
             z = (noise[k].to(device) if noise is not None else
@@ -118,21 +139,27 @@ def ldm_ddim_sample(x_T: torch.Tensor, sched: LDMSchedule, model_fn: Callable,
                              dtype=x.dtype))
         x, _ = ddim_update(x, e_t, al[index], al_prev[index], sig[index],
                            som[index], z)
-    return x
+    if not (record_xt or model_returns_aux):
+        return x
+    return x, _records(ys, ("t", "index"))
 
 
 @torch.no_grad()
 def ldm_plms_sample(x_T: torch.Tensor, sched: LDMSchedule, model_fn: Callable,
                     generator: Optional[torch.Generator] = None,
                     noise: Optional[Sequence[torch.Tensor]] = None,
-                    device=None) -> torch.Tensor:
+                    device=None, record_xt: bool = False,
+                    model_returns_aux: bool = False):
     """PLMS (plms.py:155-280): Adams-Bashforth over ε with a window of the
     last three model outputs; the first step is a pseudo improved Euler,
     which calls the model a second time, at the next timestep, on the
     DDIM update's x.  Orders 1, 2, 3, 4 at steps 0, 1, 2 and later.  The
     noise of step k is ``noise[k]`` when given, else drawn from
     ``generator`` where σ is not 0 (the order-1 step's look-ahead and its
-    update share it).  Returns the final latents."""
+    update share it).  The records are :func:`ldm_ddim_sample`'s, plus
+    each step's next timestep (``"t_next"``); a step's aux is that of its
+    first model call (the look-ahead's is dropped).  Returns the final
+    latents, or (latents, records) when either record is asked for."""
     device = resolve_device(device)
     x = x_T.to(device)
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
@@ -141,10 +168,20 @@ def ldm_plms_sample(x_T: torch.Tensor, sched: LDMSchedule, model_fn: Callable,
     steps = sched.ddim_timesteps[::-1].tolist()
     n, S = x.shape[0], len(steps)
     old_eps = []                                  # newest last
+    ys: dict = {}
+    eps = (lambda x_, t_: model_fn(x_, t_)[0]) if model_returns_aux else model_fn
     for i, step in enumerate(steps):
         index = S - 1 - i
         t = torch.full((n,), float(step), dtype=torch.float32, device=device)
-        e_t = model_fn(x, t)
+        if model_returns_aux:
+            e_t, aux = model_fn(x, t)
+            ys.setdefault("aux", []).append(aux)
+        else:
+            e_t = model_fn(x, t)
+        if record_xt:
+            for key, v in (("x", x), ("t", step), ("index", index),
+                           ("t_next", steps[min(i + 1, S - 1)])):
+                ys.setdefault(key, []).append(v)
         z = None
         if sched.ddim_sigmas[index] != 0:
             z = (noise[i].to(device) if noise is not None else
@@ -157,7 +194,7 @@ def ldm_plms_sample(x_T: torch.Tensor, sched: LDMSchedule, model_fn: Callable,
         if i == 0:
             t_next = torch.full((n,), float(steps[min(1, S - 1)]),
                                 dtype=torch.float32, device=device)
-            e_prime = (e_t + model_fn(update(e_t), t_next)) / 2.0
+            e_prime = (e_t + eps(update(e_t), t_next)) / 2.0
         elif i == 1:
             e_prime = (3.0 * e_t - old_eps[-1]) / 2.0
         elif i == 2:
@@ -167,4 +204,6 @@ def ldm_plms_sample(x_T: torch.Tensor, sched: LDMSchedule, model_fn: Callable,
                        - 9.0 * old_eps[-3]) / 24.0
         x = update(e_prime)
         old_eps = (old_eps + [e_t])[-3:]
-    return x
+    if not (record_xt or model_returns_aux):
+        return x
+    return x, _records(ys, ("t", "index", "t_next"))

@@ -111,7 +111,9 @@ def test_bundle_bytes_match_jax(calibrated):
 def test_calibration_entry_points_need_the_card_or_cpu():
     """The calibration entry points take ``device=None`` as the card: on a
     host without one they raise unless given ``"cpu"``; the verbs refuse
-    what is not ported yet (the latent plan, checkpoint converters)."""
+    what is not ported yet (checkpoint converters), and reconstruct an
+    ``LDMUNet`` over its own plan."""
+    from eda_dm_tpu_torch.calib.recon import ReconArgs
     from eda_dm_tpu_torch.calib.scale_init import set_weight_quantize_params
     from eda_dm_tpu_torch.models.ldm_unet import LDMUNet, LDMUNetConfig
     from eda_dm_tpu_torch.pipelines.cifar import CifarConfig, CifarPipeline
@@ -129,10 +131,13 @@ def test_calibration_entry_points_need_the_card_or_cpu():
                 call()
     ldm = api.quantize_model("ldm", LDMUNetConfig(image_size=8, model_channels=32,
                                                   channel_mult=(1,), num_res_blocks=1,
-                                                  attention_resolutions=()), device="cpu")
+                                                  attention_resolutions=(),
+                                                  num_head_channels=8), device="cpu")
     assert isinstance(ldm, LDMUNet)
-    with pytest.raises(NotImplementedError, match="ldm_recon_plan"):
-        api.reconstruct(ldm, cali, device="cpu")
+    done = []
+    api.reconstruct(ldm, cali, args=ReconArgs(iters=1, batch_size=2), device="cpu",
+                    progress=lambda name, loss: done.append(name))
+    assert done[0] == "time_embed_0" and done[-1] == "out_2"
     with pytest.raises(NotImplementedError, match="converters"):
         api.quantize_model("ddpm", tiny, ckpt_path="x.ckpt", device="cpu")
     with pytest.raises(NotImplementedError, match="converters"):

@@ -207,3 +207,23 @@ def test_fake_quant_nograd():
     got = taff.fake_quant_nograd(torch.from_numpy(x), torch.tensor(d), torch.tensor(z), 256)
     np.testing.assert_array_equal(
         got.numpy(), np.asarray(jaff.fake_quant_nograd(jnp.asarray(x), d, z, 256)))
+
+
+@pytest.mark.parametrize("one_sided", [False, True])
+def test_search_range_1d_in_channel_chunks(one_sided, monkeypatch):
+    """The per-channel 1-D search scores its channels in chunks of at most
+    ``SCORE_ELEMS`` elements (a full-width SD conv's scores would not fit
+    the card otherwise): the chunked search returns the one-pass result,
+    bit for bit, at chunks of 1, 3 and all 7 channels."""
+    from eda_dm_tpu_torch.quant import search
+    rng = np.random.default_rng(11)
+    w = rng.standard_normal((7, 50)).astype(np.float32)
+    if one_sided:
+        w = np.abs(w)
+    x = torch.from_numpy(w)
+    side = search.detect_one_side(x)
+    want = search.search_range_1d(x, 16, side)
+    for rows in (1, 3, 7):
+        monkeypatch.setattr(search, "SCORE_ELEMS", rows * 200 * 50)
+        got = search.search_range_1d(x, 16, side)
+        assert all(torch.equal(g, t) for g, t in zip(got, want)), rows
