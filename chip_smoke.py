@@ -21,15 +21,20 @@ exits non-zero before the last line:
    the profiler beside the CUDA events; K4 at its bedroom, CIFAR and SD
    shapes and K5 at SD's 64×64 shapes, a query length other than the key
    length and a 16-level softmax quantizer (each on its plan's one-pass
-   route) and past the one pass (the sweep route), whose outputs agree within
-   rtol = atol = 1e-5 on the rows whose codes agree); K2's int32 sums and
+   route) and past the one pass (the sweep route, ImageNet's 32×32 site
+   (100, 1024, 1024, 384) among them, timed beside its bound; K4 at
+   ImageNet's (100, 256, 576) and (100, 64, 960), K2 at its
+   cross-attention's N = 1 and K = 1 products and K3 on its rows of
+   width 1), whose outputs agree within rtol = atol = 1e-5 on the rows
+   whose codes agree); K2's int32 sums and
    f32 epilogue bit-equal at both tiles and each load route (SD's K = 40
    and K = 77, operands off a 16-byte boundary), K2 alone timed beside its
    einsum, ``torch.bmm`` in f32 on the codes and ``torch._int_mm`` at the
    dense shapes, with the bound, at every shape; K1 also at SD's 1×1
    ``proj_in``, bedroom's 224 channels, SD's ``conv_in`` (Cin = 4, the
-   byte gather), CIFAR's ``conv_out`` (Cout = 3, the 128×64 tile) and
-   VALID over K6's padded codes, each with its ``conv_plan`` (tile and
+   byte gather), CIFAR's ``conv_out`` (Cout = 3, the 128×64 tile),
+   ImageNet's widest level at 100 rows (with its bound) and VALID over
+   K6's padded codes, each with its ``conv_plan`` (tile and
    route) and time, ``ptxas``'s registers and spills of each K1 instance,
    CIFAR's 3×3 and SD's 1×1 beside ``F.conv2d`` in f32 and in bf16
    channels-last on the same codes (and ``torch._int_mm`` at the 1×1); K6
@@ -127,7 +132,21 @@ exits non-zero before the last line:
     (``church_config()``, smoke state): DEPLOY_INT8 kernels vs plain
     versions at batch 5 on the attention branches of batch 100 (K4 at
     24-channel heads), then ``sample_batch`` at batch 100, 10 DDIM steps,
-    KL-f8 decode.
+    KL-f8 decode;
+12. the class-conditional ImageNet task, this slice's main path
+    (``imagenet``'s docstring lists every cut): ``imagenet_config()``
+    (one head at 384/576/960 channels, one-token class contexts from the
+    1001-row embedder, VQ-f4), smoke state, DEPLOY_INT8 kernels vs plain
+    versions at 2 rows on the branches of 100 (K5's sweep route at the
+    five 32×32 sites, K4 at the eleven others, K2 → K3 → K2 over the one
+    class token at the 16 cross-attentions) and DPM-Solver++ held step by
+    step on the plain run's x_t; ``sample_batch`` with 50 labels under
+    CFG 3.0 (100 UNet rows), 10 DDIM steps, the VQ-f4 decode, ms per
+    denoise step of int8, folded W4A8, bf16-FP and fp32-FP, decode ms,
+    img/s, peak memory, one profiled int8 forward; ``sampler="dpm"``
+    (DPM-Solver++ order 2, 10 steps) at 100 rows; TDAC under guidance
+    with class contexts, scale init and the plan through its first
+    transformer block, the export served at 100 rows.
 
 The serving switches (``EDM_FUSED_ATTN`` and the others that
 ``eda_dm_tpu_torch/ops/serving_policy.py`` reads) are unset for the run,
@@ -161,6 +180,7 @@ BATCH, STEPS = 500, 10
 LDM_BATCH = 50                         # the bedroom task's batch
 CHURCH_BATCH = 100                     # the church task's batch
 SD_ROWS = 8                            # 4 prompts under classifier-free guidance
+IMAGENET_ROWS = 100                    # 50 labels under classifier-free guidance
 INT8_PEAK, BF16_PEAK, F32_PEAK, HBM = 1979e12, 989e12, 67e12, 3.35e12  # H100 SXM
 SFU_PER_CLOCK = 16                     # exponentials per SM per clock, sm_90
 # launches per UNet forward of each serving path with every serving switch
@@ -170,7 +190,9 @@ DEFAULT_LAUNCHES = {
     "bedroom": {"int8_attention": 10, "int8_bmm": 67, "int8_conv": 54, "softmax_codes": 6},
     "sd": {"int8_attention": 11, "int8_bmm": 215, "int8_conv": 85,
            "int8_flash_attention": 5, "softmax_codes": 16},
-    "church": {"int8_attention": 5, "int8_bmm": 110, "int8_conv": 73, "softmax_codes": 16}}
+    "church": {"int8_attention": 5, "int8_bmm": 110, "int8_conv": 73, "softmax_codes": 16},
+    "imagenet": {"int8_attention": 11, "int8_bmm": 215, "int8_conv": 86,
+                 "int8_flash_sweep": 5, "softmax_codes": 16}}
 SERVING_SWITCHES = ("EDM_FUSED_ATTN", "EDM_FUSED_ATTN_NARROW", "EDM_FUSED_SOFTMAX",
                     "EDM_INT8_CONV", "EDM_INT8_ATTN", "EDM_FUSED_GN", "EDM_FUSED_GN_NARROW",
                     "EDM_SERVE_KIND")
@@ -245,7 +267,7 @@ def _times(t):
 
 def print_kernel(k):
     print(f"    {k['name']}: {k['shape']}: {_times(k)}")
-    for shape, t in {**k["sd_ms"], **k.get("shapes_ms", {})}.items():
+    for shape, t in {**k["sd_ms"], **k.get("shapes_ms", {}), **k.get("imagenet_ms", {})}.items():
         print(f"      {shape}: {_times(t) if isinstance(t, dict) else f'{t:.4f} ms'}")
 
 
@@ -312,6 +334,7 @@ def check_conv(g):
               3, 1, None),
              (LDM_BATCH, "bedroom 64x64x224->224 3x3", 64, 224, 224, 3, 1, None),
              (SD_ROWS, "SD conv_in 64x64x4->320 3x3", 64, 4, 320, 3, 1, None),
+             (IMAGENET_ROWS, "ImageNet 64x64x192->192 3x3", 64, 192, 192, 3, 1, None),
              (SD_ROWS, "SD proj_in 64x64x320->320 1x1", 64, 320, 320, 1, 1,
               ((0, 0), (0, 0))),
              # after K6, which writes the codes already padded: VALID over 34x34
@@ -354,6 +377,12 @@ def check_conv(g):
         if timing is not None and not name.startswith(f"batch {SD_ROWS} SD proj_in"):
             shapes[name] = dict(ms=cuda_ms(lambda: int8_conv(*args, torch.bfloat16)),
                                 plan=plans[name])
+            if batch == IMAGENET_ROWS:     # ImageNet's widest level, with its bound
+                ho, wo = out_size(hw, hw, k, k, (s, s), pads)
+                shapes[name].update(zip(("bound_ms", "bound_by"), bound(
+                    x.numel() + w.numel() + batch * ho * wo * cout * 2 + 3 * cout * 4
+                    + border.numel() * 4, 2 * batch * ho * wo * cout * k * k * cin,
+                    INT8_PEAK)))
         if name.startswith(f"batch {SD_ROWS} SD proj_in"):
             # a 1x1 conv is a matmul over channels: (8*64*64, 320)x(320, 320)
             xf = x.permute(0, 3, 1, 2).float()
@@ -424,6 +453,10 @@ def check_bmm(g):
               (64, 77, 40), "nij,njc->nic", 0),
              ("SD GEGLU dense (32768,320)x(320,2560)", (1, SD_ROWS * 4096, 320),
               (1, 2560, 320), None, 0),
+             ("ImageNet cross q.k, N = 1: (100,1024,384)x(100,1,384)^T",
+              (IMAGENET_ROWS, 1024, 384), (IMAGENET_ROWS, 1, 384), "nic,njc->nij", 0),
+             ("ImageNet cross W.V, K = 1: (100,1024,1)x(100,1,384)",
+              (IMAGENET_ROWS, 1024, 1), (IMAGENET_ROWS, 1, 384), "nij,njc->nic", 0),
              ("q.k, operands 8 bytes off 16", (BATCH, 256, 256), (BATCH, 256, 256),
               "nic,njc->nij", 8),
              ("q.k, operands 4 bytes off 8", (BATCH, 256, 256), (BATCH, 256, 256),
@@ -549,7 +582,8 @@ def check_softmax(g):
     # 4096 queries over the 77 text tokens)
     cases = [("CIFAR 16x16 site", BATCH, 256, 256), ("CIFAR 4x4 site", BATCH, 16, 16),
              ("bedroom 8x8 site", LDM_BATCH * 28, 64, 64),
-             ("SD cross-attention", SD_ROWS * 8, 77, 4096)]
+             ("SD cross-attention", SD_ROWS * 8, 77, 4096),
+             ("ImageNet cross-attention, rows of 1", IMAGENET_ROWS, 1, 1024)]
     for what, n, s, q in cases:
         logits = 6.0 * torch.randn(n * q, s, generator=g, device="cuda")
         for x in ((logits, logits.to(torch.bfloat16)) if s == 256 else (logits,)):
@@ -591,7 +625,8 @@ def check_attention(g, sms, clock_hz):
     err, timing, sd, shapes = 0.0, None, {}, {}
     for n, s, c in ((700, 1024, 32), (1050, 256, 32), (8, 256, 256), (8, 16, 256),
                     (64, 1024, 80), (64, 256, 160), (64, 64, 160),
-                    (CHURCH_BATCH * 8, 1024, 24)):
+                    (CHURCH_BATCH * 8, 1024, 24), (IMAGENET_ROWS, 256, 576),
+                    (IMAGENET_ROWS, 64, 960)):
         Q, K, V = (codes(g, (n, s, c)) for _ in range(3))
         cq, ck, cv = 3.0, -5.0, 1.0
         dq, dk, dv, dw, zw = 0.021, 0.017, 0.025, 1.0 / 255.0, 0.0
@@ -601,9 +636,10 @@ def check_attention(g, sms, clock_hz):
         out_p, W_p = int8_fused_attention_plain(Q, K, V, sc, 256, True)
         err = max(err, attention_gate(out_k, W_k, out_p, W_p, f"K4 ({n}, {s}, {c})"))
         del W_k, W_p, out_p
-        if n == CHURCH_BATCH * 8:          # church's 32x32 site: C = 24, 8-byte units
+        if n in (CHURCH_BATCH * 8, IMAGENET_ROWS):  # church's C = 24, ImageNet's wide heads
             exp_ch = n * s * s / (sms * SFU_PER_CLOCK * clock_hz) * 1e3
-            shapes[f"church ({n}, {s}, {c})"] = dict(
+            what = "church" if n == CHURCH_BATCH * 8 else "ImageNet"
+            shapes[f"{what} ({n}, {s}, {c})"] = dict(
                 ms=cuda_ms(lambda: _int8_fused_attention_cuda(Q, K, V, sc, 256, False)),
                 plan=" ".join(f"{k} {attention_plan(s, c)[k]}" for k in K4_PLAN_ARGS),
                 **dict(zip(("bound_ms", "bound_by"),
@@ -658,7 +694,8 @@ def check_flash(g, sms, clock_hz):
     for n, sq, skv, c, levels in ((SD_ROWS * 8, 4096, 4096, 40, 256),
                                   (16, 4096, 4096, 40, 256), (8, 256, 512, 32, 256),
                                   (16, 4096, 4096, 40, 16), (2, 40, 6657, 40, 256),
-                                  (1, 256, 512, 1280, 256)):
+                                  (1, 256, 512, 1280, 256),
+                                  (IMAGENET_ROWS, 1024, 1024, 384, 256)):
         Q, K, V = codes(g, (n, sq, c)), codes(g, (n, skv, c)), codes(g, (n, skv, c))
         cq, ck, cv = 3.0, -5.0, 1.0
         dq, dk, dv, dw, zw = 0.021, 0.017, 0.025, 1.0 / (levels - 1), 0.0
@@ -671,6 +708,17 @@ def check_flash(g, sms, clock_hz):
                                       f"K5 ({n}, {sq}, {skv}, {c}), {levels} levels, "
                                       f"{plan['route']} route"))
         del W_k, W_p, out_p
+        if n == IMAGENET_ROWS:             # ImageNet's 32x32 site, the sweep route
+            logits = n * sq * skv
+            exp_ms = logits / (sms * SFU_PER_CLOCK * clock_hz) * 1e3
+            nbytes = n * (sq * c + 2 * skv * c + 4 * sq * c)
+            imagenet_ms = {f"ImageNet ({n}, {sq}, {skv}, {c})": dict(
+                ms=cuda_ms(lambda: _int8_flash_attention_cuda(Q, K, V, sc, levels, False),
+                           reps=5),
+                plan=" ".join(f"{k} {plan[k]}" for k in ("route",) + K5_PLAN_ARGS
+                              if k in plan),
+                **dict(zip(("bound_ms", "bound_by"),
+                           bound(nbytes, 4 * logits * c, INT8_PEAK, exp_ms))))}
         if timing is None:                 # SD 64x64, 4 prompts under CFG
             tq, tk, tv, tdq, tdk, tdv, tdw, tzw = (
                 torch.tensor(v, device="cuda") for v in (cq, ck, cv, dq, dk, dv, dw, zw))
@@ -697,7 +745,7 @@ def check_flash(g, sms, clock_hz):
     return dict(name="int8_flash_attention", route="cuda",
                 source="eda_dm_tpu_torch/csrc/int8_flash_attention.cu",
                 replaces="eda_dm_tpu/ops/pallas_attention.py:260",
-                max_abs_err=err, sd_ms={}, **timing)
+                max_abs_err=err, sd_ms={}, imagenet_ms=imagenet_ms, **timing)
 
 
 def check_gn(g):
@@ -1282,8 +1330,8 @@ def profile_forward(fn, top=12, what="one forward"):
     mine = {}
     for e in kern:
         for name in ("int8_conv_kernel", "int8_bmm_nt_kernel", "softmax_codes_kernel",
-                     "int8_attention_kernel", "int8_flash_attention_kernel", "gn_kernel",
-                     "fakequant_matmul"):
+                     "int8_attention_kernel", "int8_flash_attention_kernel",
+                     "int8_flash_sweep_kernel", "gn_kernel", "fakequant_matmul"):
             if re.search(rf"(?<!\w){name}", e.key):
                 t, c = mine.get(name, (0.0, 0))
                 mine[name] = (t + dev_ms(e), c + e.count)
@@ -1866,7 +1914,9 @@ def latent_calibration(kernels, smi, bedroom_serving):
     trajectory batch of ``LCAL_TRAJ`` = 32 over ``LCAL_STEPS`` = 20 DDIM
     steps (the task: 1024 samples in batches of 64 over 200 steps); the
     reconstruction runs ``LCAL_ITERS`` = 4 iterations a target (the task:
-    5000) over the whole ``ldm_recon_plan``; the recipe's own
+    5000) over the whole ``ldm_recon_plan``; its int8 export's ms a step
+    is held within 3 % of the smoke state's export (medians of three runs
+    each, timed in turns); the recipe's own
     ``calib_batch_size`` 32, recon batch 32, groups of 4 and bf16 caches
     stay.  The card-vs-host checks take the first res block's and the
     first attention block's quantizers: CALIB_W of their layers, CALIB_A
@@ -2077,16 +2127,30 @@ def latent_calibration(kernels, smi, bedroom_serving):
           f" = {DEFAULT_LAUNCHES['bedroom']} per forward")
     for k in kernels[:4]:
         k["latent_calibrated_launches"] = launches.get(k["name"], 0)
-    step_ms = lambda: timed(lambda: pipe.sample_batch(mode, generator=g, unet=ex,
-                                                       decode=False))[1] / STEPS * 1e3
-    ms = [step_ms(), step_ms()]
-    smoke = statistics.mean(bedroom_serving["ms_per_step"]["int8"])
-    rel = statistics.mean(ms) / smoke - 1.0
+    # the smoke state's export (phase 7's) timed in turns with the calibrated
+    # one, three rounds, medians compared: the two see one card and one host
+    # state (the host's share of a step moves by several per cent between
+    # runs minutes apart)
+    smoke_ex = ldm_unet.LDMUNet(pipe.mc.unet, pipe.qc, device="cuda", seed=0)
+    smoke_quant_state(smoke_ex, x5, t5)
+    export_serving_int8(smoke_ex, pipe.qc)
+    with torch.no_grad():
+        smoke_ex(x50.bfloat16(), torch.full((LDM_BATCH,), 500.0, device="cuda"), mode=mode)
+    step_ms = lambda m: timed(lambda: pipe.sample_batch(mode, generator=g, unet=m,
+                                                        decode=False))[1] / STEPS * 1e3
+    smoke_ms, ms = [], []
+    for _ in range(3):
+        smoke_ms.append(step_ms(smoke_ex))
+        ms.append(step_ms(ex))
+    smoke = statistics.median(smoke_ms)
+    rel = statistics.median(ms) / smoke - 1.0
+    both = lambda v: " / ".join(f"{x:.3f}" for x in v)
     check(abs(rel) <= 0.03,
-          f"calibrated bedroom {ms[0]:.3f} / {ms[1]:.3f} ms a step at batch {LDM_BATCH} "
-          f"against the smoke state's {smoke:.3f} (phase 7): {rel:+.2%}, within 3 % "
-          f"on {smi}")
-    del ex, unet, pipe, cali, imgs, names, used
+          f"calibrated bedroom {both(ms)} ms a step at batch {LDM_BATCH} against the "
+          f"smoke state's {both(smoke_ms)} in turns (phase 7: "
+          f"{statistics.mean(bedroom_serving['ms_per_step']['int8']):.3f}): medians "
+          f"{rel:+.2%}, within 3 % on {smi}")
+    del ex, smoke_ex, unet, pipe, cali, imgs, names, used
     free_memory("after the bedroom calibration")
 
     # COCO: guidance, a text context in the reconstruction, K5 on the path
@@ -2181,9 +2245,258 @@ def latent_calibration(kernels, smi, bedroom_serving):
     torch.cuda.empty_cache()
     return dict(seconds=secs, targets=len(plan), iters=LCAL_ITERS, rows=LCAL_TRAJ,
                 loops_s=loops, ms_per_iter=ms_iter, extrapolated_task_s=task_s,
-                bundle=stats, int8_ms_per_step=ms, smoke_int8_ms_per_step=smoke,
+                bundle=stats, int8_ms_per_step=ms, smoke_int8_ms_per_step=smoke_ms,
                 church_ms_per_step=church_ms, church_decode_ms=decode_s * 1e3,
                 church_bundle=church_bundle)
+
+
+# --------------------------------------------------------------------------
+# phase 12: the class-conditional ImageNet task and DPM-Solver++
+
+IMAGENET_LABELS = IMAGENET_ROWS // 2   # the task's batch
+IMAGENET_CAL = 4                       # phase 12's calibration labels (8 rows)
+
+
+def imagenet(kernels, smi):
+    """Phase 12: ImageNet cin256-v2 (``imagenet_config()``: 400,920,579 UNet
+    params, one head at 384/576/960 channels, a one-token class context
+    of 512 from the 1001-row embedder, VQ-f4) at full width and depth,
+    seed-0 weights, labels from ``imagenet_labels`` (seed 0), and
+    DPM-Solver++.
+
+    (a) The smoke quant state's int8 export in DEPLOY_INT8 through the
+    kernels and the plain versions at batch 2 (one label under CFG), f32
+    carrier, each attention site on the branch of 100 rows
+    (``attention_impl`` sees 50× the batch): the flip gate, then K3, K4
+    and K5 on each call's input from the plain run; the launches of one
+    forward (K5 on its sweep route at the five 32×32 sites, K4 at the
+    eleven 16×16 and 8×8 ones, K2 → K3 → K2 at the 16 cross-attentions
+    over the one class token).  DPM-Solver++ (order 2, 10 steps) at the
+    same 2 rows through the plain versions, recording each model call's
+    x_t; the kernels' UNet output on each of those x_t held to the plain
+    versions' by the same flip gate.
+
+    (b) Serving, this slice's main path: ``sample_batch`` for the
+    imagenet task, 50 labels under CFG 3.0 (100 UNet rows), 10 of the
+    task's 20 DDIM steps at eta 0, bf16 carrier, DEPLOY_INT8, the VQ-f4
+    decode to (50, 256, 256, 3) images in [0, 1]; launch counts set to 0
+    just before and read just after.  ms per denoise step of int8, folded
+    W4A8 (DEPLOY on the same bf16 export: what ``preferred_export_kind``
+    names for this family), bf16-FP and fp32-FP, each warmed up and timed
+    twice; decode ms, img/s, peak memory, one profiled int8 forward.
+
+    (c) The same export through ``sampler="dpm"`` (multistep DPM-Solver++
+    at order 2), 10 steps at 100 rows: ms per step, images finite in
+    [0, 1], the launches of 10 forwards.
+
+    (d) Calibration, cut as phase 11 cuts COCO: ``IMAGENET_CAL`` = 4
+    labels (8 rows under guidance), TDAC over 10 DDIM steps (the task:
+    1024 samples over 20), scale init, and the plan through its first
+    transformer-block target (the first capture with a one-token context;
+    ``LCAL_ITERS`` = 4 iterations a target, the task 1000; the recipe's
+    recon batch 32 cut to the 8 rows, bf16 caches); the int8 export
+    served at 100 rows on (b)'s launches."""
+    import dataclasses
+    import eda_dm_tpu_torch.models.ldm_unet as ldm_unet
+    from eda_dm_tpu_torch.calib import recon
+    from eda_dm_tpu_torch.models.ldm_unet import LDMUNet, ldm_recon_plan
+    from eda_dm_tpu_torch.ops import _build
+    from eda_dm_tpu_torch.pipelines.latent import LDMPipeline, imagenet_labels, task_config
+    from eda_dm_tpu_torch.quant import DEPLOY, DEPLOY_INT8, FP
+    from eda_dm_tpu_torch.quant.export import export_serving_int8
+    from eda_dm_tpu_torch.samplers.dpm_solver import NoiseScheduleVP, dpm_solver_sample
+
+    rows = 2 * IMAGENET_LABELS
+    print(f"[12] ImageNet cin256-v2 DEPLOY_INT8, kernels vs plain versions (1 label under "
+          f"CFG: 2 rows, f32, on {rows} rows' branches); DPM-Solver++ step by step")
+    pipe = LDMPipeline(task_config("imagenet", custom_steps=STEPS), device="cuda", seed=0)
+    unet, cfg, qc = pipe.ld.unet, pipe.mc.unet, pipe.qc
+    print(f"    UNet {sum(p.numel() for p in unet.parameters()):,} params; class embedder "
+          f"{sum(p.numel() for p in pipe.ld.cond_stage.parameters()):,}; schedule "
+          f"{pipe.sched.num_steps} DDIM steps, eta {pipe.cfg.eta}, guidance scale "
+          f"{pipe.cfg.scale}")
+    labels, uncond = imagenet_labels(IMAGENET_LABELS, 0)
+    ctx = pipe.ld.get_learned_conditioning(labels)
+    unc = pipe.ld.get_learned_conditioning(uncond)
+    check(tuple(ctx.shape) == (IMAGENET_LABELS, 1, 512) and ctx.dtype == torch.float32
+          and bool(torch.isfinite(ctx).all()) and torch.equal(unc[0], unc[-1]),
+          f"class contexts {tuple(ctx.shape)} float32 of labels {labels[:6].tolist()}..., "
+          f"the unconditional rows label 1000")
+    g = torch.Generator(device="cuda").manual_seed(12)
+    x2 = torch.randn(1, 64, 64, 3, generator=g, device="cuda").repeat(2, 1, 1, 1)
+    t2 = torch.full((2,), 500.0, device="cuda")
+    c2 = torch.cat([unc[:1], ctx[:1]])
+    n_aq = smoke_quant_state(unet, x2, t2, c2)
+    export_serving_int8(unet, qc, torch.float32)
+    impl = ldm_unet.attention_impl
+    wide = lambda b, *a: impl(b * IMAGENET_LABELS, *a)
+    with swapped(ldm_unet, "attention_impl", wide):
+        launches = kernels_vs_plain(lambda: unet(x2, t2, c2, mode=DEPLOY_INT8),
+                                    f"ImageNet 2 rows on {rows} rows' branches")
+    check(launches == DEFAULT_LAUNCHES["imagenet"],
+          f"ImageNet ({n_aq} act quantizers set): K5 (sweep route) at the five 32x32 "
+          f"sites, K4 at the eleven others, K2 -> K3 -> K2 at the 16 cross-attentions: "
+          f"{launches}")
+    ns = NoiseScheduleVP("discrete", betas=pipe.sched.betas)
+    x1 = torch.randn(1, 64, 64, 3, generator=g, device="cuda")
+    seen = []
+
+    def guided(rec):
+        def fn(x, t):
+            if rec:
+                seen.append((x.clone(), t.clone()))
+            e_u, e_c = unet(torch.cat([x, x]), torch.cat([t, t]), c2,
+                            mode=DEPLOY_INT8).chunk(2)
+            return e_u + pipe.cfg.scale * (e_c - e_u)
+        return fn
+    with torch.no_grad(), swapped(ldm_unet, "attention_impl", wide):
+        with plain_versions():
+            z_p = dpm_solver_sample(x1, guided(True), ns, steps=STEPS, order=2,
+                                    algorithm_type="dpmsolver++")
+        z_k = dpm_solver_sample(x1, guided(False), ns, steps=STEPS, order=2,
+                                algorithm_type="dpmsolver++")
+        for i, (x, t) in enumerate(seen):
+            xx, tt = torch.cat([x, x]), torch.cat([t, t])
+            out_k = unet(xx, tt, c2, mode=DEPLOY_INT8)
+            with plain_versions():
+                out_p = unet(xx, tt, c2, mode=DEPLOY_INT8)
+            flip_gate(out_k, out_p, f"DPM-Solver++ call {i} (t {float(t[0]):.1f}), "
+                      f"kernels vs plain on the plain run's x_t")
+    dz = (z_k - z_p).abs()
+    check(len(seen) == STEPS and bool(torch.isfinite(z_k).all()),
+          f"DPM-Solver++ order 2: {len(seen)} model calls over {STEPS} steps; the free "
+          f"runs' latents finite, kernels vs plain mean |d| {float(dz.mean()):.3g}, max "
+          f"{float(dz.max()):.3g}")
+    del seen, z_k, z_p
+    torch.cuda.empty_cache()
+
+    print(f"    serving: sample_batch, imagenet, {IMAGENET_LABELS} labels, CFG "
+          f"{pipe.cfg.scale} ({rows} UNet rows), {STEPS} DDIM steps at eta "
+          f"{pipe.cfg.eta}, bf16 carrier DEPLOY_INT8, VQ-f4 decode")
+    for p in unet.parameters():                  # the export's carrier cast
+        p.data = p.data.to(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    xr = torch.randn(rows, 64, 64, 3, generator=g, device="cuda")
+    tr = torch.full((rows,), 500.0, device="cuda")
+    cr = torch.cat([unc, ctx])
+    fwd = lambda model, mode, dtype: model(xr.to(dtype), tr, cr.to(dtype), mode=mode)
+    with torch.no_grad():
+        fwd(unet, DEPLOY_INT8, torch.bfloat16)    # warm up at the serving rows
+    torch.cuda.synchronize()
+    sample = lambda mode, **kw: pipe.sample_batch(mode, IMAGENET_LABELS, generator=g,
+                                                  context=ctx, uncond=unc, **kw)
+    _build.launch_counts.clear()
+    imgs, wall = timed(lambda: sample(DEPLOY_INT8))                  # the main path
+    launches = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(bool(torch.isfinite(imgs).all()) and imgs.shape == (IMAGENET_LABELS, 256, 256, 3)
+          and float(imgs.min()) >= 0.0 and float(imgs.max()) <= 1.0,
+          f"images finite, shape {tuple(imgs.shape)}, in [0, 1] "
+          f"(mean {float(imgs.mean()):.4f}, std {float(imgs.std()):.4f})")
+    per_fwd = {k: v / STEPS for k, v in sorted(launches.items())}
+    print("    launches per UNet forward: " + ", ".join(f"{k} {v:g}" for k, v in per_fwd.items()))
+    check(per_fwd == DEFAULT_LAUNCHES["imagenet"],
+          f"the default branches: {DEFAULT_LAUNCHES['imagenet']} per forward")
+    for k in kernels[:5]:                        # K1-K5; K5's launches count as the sweep's
+        name = "int8_flash_sweep" if k["name"] == "int8_flash_attention" else k["name"]
+        k["imagenet_launches"] = launches.get(name, 0)
+        check(k["imagenet_launches"] > 0, f"{k['name']} launched {k['imagenet_launches']} "
+              f"times ({k['imagenet_launches'] / STEPS:g} per forward) on the ImageNet path")
+    z, int8_s = timed(lambda: sample(DEPLOY_INT8, decode=False))
+    _, decode_s = timed(lambda: pipe.ld.decode_first_stage(z))
+
+    def step_ms(mode):
+        return timed(lambda: sample(mode, decode=False))[1] / STEPS * 1e3
+    # each arm timed twice in a row, after a warm-up at the serving rows
+    ms = {"int8": [int8_s / STEPS * 1e3, step_ms(DEPLOY_INT8)]}
+    with torch.no_grad():
+        fwd(unet, DEPLOY, torch.bfloat16)         # warm up the folded arm
+    ms["folded"] = [step_ms(DEPLOY), step_ms(DEPLOY)]
+    print(f"    profile, DEPLOY_INT8 forward at {rows} rows, bf16 carrier:")
+    with torch.no_grad():
+        profile_forward(lambda: fwd(unet, DEPLOY_INT8, torch.bfloat16))
+
+    print(f"    DPM-Solver++ (sampler='dpm', order 2), {STEPS} steps at {rows} rows, "
+          f"DEPLOY_INT8")
+    pipe.cfg = dataclasses.replace(pipe.cfg, sampler="dpm")
+    _build.launch_counts.clear()
+    zd, dpm_s = timed(lambda: sample(DEPLOY_INT8, decode=False))
+    dpm_launches = dict(_build.launch_counts)
+    dimgs = torch.clamp((pipe.ld.decode_first_stage(zd) + 1.0) / 2.0, 0.0, 1.0)
+    check(bool(torch.isfinite(dimgs).all()) and dimgs.shape == imgs.shape
+          and {k: v / STEPS for k, v in dpm_launches.items()} == DEFAULT_LAUNCHES["imagenet"],
+          f"DPM-Solver++ images finite, shape {tuple(dimgs.shape)}, in [0, 1] (mean "
+          f"{float(dimgs.mean()):.4f}); {STEPS} forwards on the default branches")
+    dpm_ms = [dpm_s / STEPS * 1e3, step_ms(DEPLOY_INT8)]
+    pipe.cfg = dataclasses.replace(pipe.cfg, sampler="ddim")
+    del z, zd, imgs, dimgs, pipe.ld.unet, unet
+    torch.cuda.empty_cache()
+    for arm, dtype in (("bf16_fp", torch.bfloat16), ("fp32_fp", torch.float32)):
+        pipe.ld.unet = LDMUNet(cfg, qc, device="cuda", seed=0).to(dtype)
+        with torch.no_grad():
+            fwd(pipe.ld.unet, FP, dtype)          # warm up
+        ms[arm] = [step_ms(FP), step_ms(FP)]
+        del pipe.ld.unet
+        torch.cuda.empty_cache()
+    both = lambda v: " / ".join(f"{x:.3f}" for x in v)
+    print(f"    on {smi}: ms per denoise step at {rows} rows (two runs each): int8 W4A8 "
+          f"{both(ms['int8'])} | folded W4A8 {both(ms['folded'])} | bf16-FP "
+          f"{both(ms['bf16_fp'])} | fp32-FP {both(ms['fp32_fp'])}; DPM-Solver++ int8 "
+          f"{both(dpm_ms)}; decode {decode_s * 1e3:.1f} ms; sample_batch {wall:.3f} s = "
+          f"{IMAGENET_LABELS / wall:.4f} img/s ({STEPS} steps + decode); peak memory "
+          f"{peak:.2f} GiB")
+    del pipe
+    free_memory("after ImageNet serving")
+
+    # (d) calibration through the first transformer block
+    n = IMAGENET_CAL
+    pipe = LDMPipeline(task_config("imagenet", custom_steps=STEPS, calib_num_samples=n,
+                                   batch_samples=n, iters=LCAL_ITERS,
+                                   recon_batch_size=2 * n), device="cuda", seed=0)
+    cl, cu = imagenet_labels(n, 1)
+    cctx = pipe.ld.get_learned_conditioning(cl)
+    cunc = pipe.ld.get_learned_conditioning(cu)
+    secs = {}
+    sel, secs["tdac"] = timed(lambda: pipe.tdac_calibration(cctx, cunc))
+    cali = pipe.build_cali_data(sel, cctx, cunc)
+    check(tuple(cali[0].shape) == (2 * n, 64, 64, 3) and torch.equal(cali[2][n:], cctx)
+          and torch.equal(cali[2][:n], cunc) and bool(torch.isfinite(cali[0]).all()),
+          f"ImageNet TDAC under guidance {pipe.cfg.scale} over {STEPS} DDIM steps: {2 * n} "
+          f"rows [x; x] with [uncond; cond] class contexts, finite, in {secs['tdac']:.2f} s")
+    _, secs["calibrate"] = timed(lambda: pipe.calibrate(cali))
+    plan = ldm_recon_plan(pipe.mc.unet, pipe.qc)
+    first_tx = next(i for i, t in enumerate(plan) if t.has_ctx)
+    log = []
+    _, secs["recon"] = timed(lambda: recon.reconstruct(
+        pipe.ld.unet, cali, plan[:first_tx + 1], pipe.recon_args(), pipe.generator(4),
+        group_size=pipe.cfg.recon_group_size, log=log))
+    tx = log[-1]
+    check(len(log) == first_tx + 1 and plan[first_tx].name == tx["name"]
+          and all(math.isfinite(r["last_loss"]) for r in log),
+          f"ImageNet scale init in {secs['calibrate']:.2f} s; reconstruct through "
+          f"{tx['name']} (a one-token class-context capture, {tx['kind']}): {len(log)} "
+          f"targets, batch {pipe.cfg.recon_batch_size}, {pipe.cfg.cache_dtype} caches, every "
+          f"loss finite, {secs['recon']:.2f} s ({1e3 * tx['seconds'] / tx['iters']:.1f} ms an "
+          f"iteration of the transformer block)")
+    ex, mode = pipe.serving_variables(serve="int8")
+    with torch.no_grad():
+        ex(xr.bfloat16(), tr, cr.bfloat16(), mode=mode)
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        out = ex(xr.bfloat16(), tr, cr.bfloat16(), mode=mode)
+        cal_launches = dict(_build.launch_counts)
+    check(bool(torch.isfinite(out).all()) and cal_launches == DEFAULT_LAUNCHES["imagenet"],
+          f"the calibrated ImageNet export at {rows} rows: output finite, launches "
+          f"{cal_launches}")
+    for k in kernels[:5]:
+        name = "int8_flash_sweep" if k["name"] == "int8_flash_attention" else k["name"]
+        k["imagenet_calibrated_launches"] = cal_launches.get(name, 0)
+    del ex, pipe, cali, out
+    free_memory("after the ImageNet calibration")
+    return dict(ms_per_step=ms, dpm_ms_per_step=dpm_ms, decode_ms=decode_s * 1e3,
+                img_per_s=IMAGENET_LABELS / wall, steps=STEPS, rows=rows, peak_gib=peak,
+                launches_per_forward=per_fwd, calibration_seconds=secs,
+                dpm_launches=dpm_launches)
 
 
 # --------------------------------------------------------------------------
@@ -2357,6 +2670,10 @@ def main():
     t0 = time.perf_counter()
     latent = latent_calibration(kernels, smi, serving)
     print(f"    phase 11: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    imagenet_serving = imagenet(kernels, smi)
+    print(f"    phase 12: {time.perf_counter() - t0:.1f} s")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
@@ -2364,7 +2681,8 @@ def main():
              "einsum_ms", "bmm_f32_ms", "bf16_conv_ms", "plans", "transposing_ms", "streamed_ms",
              "acc_ms", "other_tile_ms", "sd_ms", "shapes_ms", "rates", "plain_by_shape",
              "library_peak", "mma_sync_ms", "mma_sync_launches", "mma_sync_source",
-             "calibrated_launches", "latent_calibrated_launches", "church_launches")
+             "calibrated_launches", "latent_calibrated_launches", "church_launches",
+             "imagenet_launches", "imagenet_calibrated_launches", "imagenet_ms")
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{**{k: kern[k] for k in keys},
                                    **{k: kern[k] for k in extra if k in kern},
@@ -2374,7 +2692,8 @@ def main():
         "folded_deploy_fused": fused_sps, "bf16_fp": bf16_sps, "fp32_fp": fp32_sps,
         "batch": BATCH},
         "bedroom_serving": serving, "sd_serving": sd_serving,
-        "cifar_calibration": calibrated, "latent_calibration": latent}))
+        "cifar_calibration": calibrated, "latent_calibration": latent,
+        "imagenet": imagenet_serving}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

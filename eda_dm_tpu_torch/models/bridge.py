@@ -7,7 +7,9 @@ numpy arrays (a calibrated tree or an ``export_serving(_int8)`` tree, after
 submodules mirror the tree (``LDMUNet``: ``input_blocks_3_0``,
 ``middle_block_1``, ``time_embed_0``, ``out_2``, and in the SD UNet
 ``input_blocks_1_1/transformer_blocks_0/attn2/to_k``, ``.../norm1``;
-``TinyTextEncoder``: ``attn_0/query``, ``ln_f``); :func:`first_stage_from_jax`
+``TinyTextEncoder``: ``attn_0/query``, ``ln_f``; ``ClassEmbedder``:
+``embedding/embedding``; a ``num_classes`` UNet's ``label_emb/embedding``);
+:func:`first_stage_from_jax`
 loads the decode part of a ``FirstStage`` tree (VQ or KL).
 :func:`to_jax_variables` is the inverse, so the port's own export can be
 compared with the JAX export leaf by leaf.

@@ -1,5 +1,10 @@
-"""Text conditioning: the stand-in text encoder (port of
-``eda_dm_tpu/models/encoders.py::TinyTextEncoder``).
+"""Conditioning encoders (port of ``eda_dm_tpu/models/encoders.py``): the
+class embedder of the ImageNet task and the stand-in text encoder.
+
+``ClassEmbedder``: a label → a (B, 1, embed_dim) float32 context, one
+token for the cross-attention (``ClassEmbedder`` of the reference's
+``encoders/modules.py``); cin256-v2 has 1001 rows, row 1000 the
+unconditional token.  Never quantized.
 
 The real SD v1.4 conditioner, CLIP ViT-L/14 (``FrozenCLIPTextEncoder``),
 needs weights the repository does not hold.  The JAX package serves its
@@ -36,6 +41,30 @@ class Embed(nn.Module):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return self.embedding[ids]
+
+
+class ClassEmbedder(nn.Module):
+    """Labels → (B, 1, ``embed_dim``) float32 contexts on ``device`` (the
+    card unless the caller passes ``"cpu"``).  The table is drawn N(0, 1)
+    from ``seed`` (``torch.nn.Embedding``'s init, as the reference's
+    embedder has); the JAX embedder's table comes through
+    ``models/bridge.py`` (``embedding.embedding``)."""
+
+    def __init__(self, embed_dim: int = 512, n_classes: int = 1000, device=None,
+                 seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        self.embed_dim, self.n_classes = embed_dim, n_classes
+        with torch.device(device):
+            self.embedding = Embed(n_classes, embed_dim)
+        g = torch.Generator(device=device).manual_seed(seed)
+        with torch.no_grad():
+            self.embedding.embedding.normal_(0.0, 1.0, generator=g)
+
+    def forward(self, labels) -> torch.Tensor:
+        ids = torch.as_tensor(labels, dtype=torch.long,
+                              device=self.embedding.embedding.device)
+        return self.embedding(ids)[:, None, :]
 
 
 class DenseGeneral(nn.Module):

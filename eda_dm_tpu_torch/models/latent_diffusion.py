@@ -1,12 +1,13 @@
-"""LatentDiffusion: quantized LDM UNet + float32 first stage + text
-conditioner (port of ``eda_dm_tpu/models/latent_diffusion.py``, the
-serving part of the unconditional and text-conditioned models).
+"""LatentDiffusion: quantized LDM UNet + float32 first stage + conditioner
+(port of ``eda_dm_tpu/models/latent_diffusion.py``: the unconditional, the
+class-conditional and the text-conditioned models).
 
 The JAX package holds flax module definitions and passes variable trees;
-here the object holds the modules.  Text conditioning runs through the
-weightless stand-in ``TinyTextEncoder`` (the CLIP weights are not in the
-repository).  Class conditioning, the checkpoint loader and the ImageNet
-config come with later slices.
+here the object holds the modules.  ``cond="class"`` (ImageNet cin256-v2)
+builds the ``ClassEmbedder`` as the conditioning stage: a label becomes a
+one-token float32 context for the cross-attention.  Text conditioning runs
+through the stand-in ``TinyTextEncoder`` (the CLIP weights are not in the
+repository).  The checkpoint loader comes with the converters.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import dataclasses
 import torch
 
 from ..quant.config import FP, QuantConfig, QuantMode
-from .encoders import TinyTextEncoder
+from .encoders import ClassEmbedder, TinyTextEncoder
 from .ldm_unet import LDMUNet, LDMUNetConfig
 from .vae import FirstStage, VAEConfig
 
@@ -29,35 +30,45 @@ class LatentDiffusionConfig:
     linear_start: float = 0.0015
     linear_end: float = 0.0195
     scale_factor: float = 1.0
-    cond: str = "none"            # 'none' | 'text'
+    cond: str = "none"            # 'none' | 'class' | 'text'
+    n_classes: int = 1001         # cin256-v2.yaml: 1001 (1000 = uncond token)
+    class_embed_dim: int = 512
 
 
 class LatentDiffusion:
-    """The UNet, the first stage and (``cond="text"``) the stand-in text
-    encoder on ``device`` (the card unless the caller passes ``"cpu"``),
-    random weights from ``seed``."""
+    """The UNet, the first stage and the conditioning stage (``cond="class"``
+    the class embedder, ``cond="text"`` the stand-in text encoder) on
+    ``device`` (the card unless the caller passes ``"cpu"``), random
+    weights from ``seed``."""
 
     def __init__(self, cfg: LatentDiffusionConfig, qc: QuantConfig,
                  device=None, seed: int = 0):
-        if cfg.cond not in ("none", "text"):
-            raise NotImplementedError(
-                f"conditioning {cfg.cond!r} is not ported yet")
+        if cfg.cond not in ("none", "class", "text"):
+            raise ValueError(f"unknown conditioning {cfg.cond!r}")
         self.cfg, self.qc = cfg, qc
         self.unet = LDMUNet(cfg.unet, qc, device=device, seed=seed)
         self.first_stage = FirstStage(cfg.vae, device=device, seed=seed)
-        self.cond_stage = (TinyTextEncoder(cfg.unet.context_dim, device=device,
-                                           seed=seed)
-                           if cfg.cond == "text" else None)
+        self.cond_stage = None
+        if cfg.cond == "class":
+            self.cond_stage = ClassEmbedder(cfg.class_embed_dim, cfg.n_classes,
+                                            device=device, seed=seed)
+        elif cfg.cond == "text":
+            self.cond_stage = TinyTextEncoder(cfg.unet.context_dim, device=device,
+                                              seed=seed)
 
     def apply_model(self, x: torch.Tensor, t: torch.Tensor, context=None,
                     mode: QuantMode = FP) -> torch.Tensor:
         return self.unet(x, t, context=context, mode=mode)
 
-    def get_learned_conditioning(self, prompts) -> torch.Tensor:
-        """Text prompts → (B, 77, context_dim) float32 context rows."""
+    @torch.no_grad()
+    def get_learned_conditioning(self, cond) -> torch.Tensor:
+        """Class labels → (B, 1, class_embed_dim), or text prompts →
+        (B, 77, context_dim): float32 context rows."""
         if self.cond_stage is None:
-            raise ValueError("this model takes no text conditioning")
-        return self.cond_stage.encode(prompts)
+            raise ValueError("this model takes no conditioning")
+        if self.cfg.cond == "class":
+            return self.cond_stage(cond)
+        return self.cond_stage.encode(cond)
 
     def decode_first_stage(self, z: torch.Tensor,
                            force_not_quantize: bool = False) -> torch.Tensor:
@@ -97,6 +108,26 @@ def church_config() -> LatentDiffusionConfig:
                       attn_resolutions=(), in_channels=3, resolution=256,
                       z_channels=4, double_z=True, embed_dim=4, n_embed=None),
         linear_start=0.0015, linear_end=0.0155, scale_factor=1.0)
+
+
+def imagenet_config() -> LatentDiffusionConfig:
+    """LDM-4 class-conditional ImageNet (configs/latent-diffusion/
+    cin256-v2.yaml): 64×64×3 latents, 192 channels at (1, 2, 3, 5), one
+    head, a spatial transformer at the 32×32, 16×16 and 8×8 levels over a
+    one-token class context of 512 (1001 labels, 1000 the unconditional
+    one), the VQ-f4 first stage (embed_dim 3, 8192 codes) to 256×256."""
+    return LatentDiffusionConfig(
+        unet=LDMUNetConfig(image_size=64, in_channels=3, model_channels=192,
+                           out_channels=3, num_res_blocks=2,
+                           attention_resolutions=(8, 4, 2),
+                           channel_mult=(1, 2, 3, 5), num_heads=1,
+                           use_spatial_transformer=True, transformer_depth=1,
+                           context_dim=512),
+        vae=VAEConfig(ch=128, out_ch=3, ch_mult=(1, 2, 4), num_res_blocks=2,
+                      attn_resolutions=(), in_channels=3, resolution=256,
+                      z_channels=3, double_z=False, embed_dim=3, n_embed=8192),
+        linear_start=0.0015, linear_end=0.0195, cond="class",
+        n_classes=1001, class_embed_dim=512)
 
 
 def sd_v1_config() -> LatentDiffusionConfig:

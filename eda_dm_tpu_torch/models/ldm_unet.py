@@ -19,8 +19,11 @@ spatial transformer (SD v1.4: ``SpatialTransformerL`` →
 ``BasicTransformerBlockL`` with self- and cross-attention and a GEGLU
 feed-forward).  Each int8 attention site takes the branch
 ``attention_impl`` gives it: K4 (fused), K5 (flash) or K2 → K3 → K2
-(einsum).  Class conditioning (ImageNet) is a later slice and
-raises ``NotImplementedError``.
+(einsum).  Class conditioning comes in two forms: ImageNet cin256-v2 feeds
+its label as a one-token cross-attention context (``ClassEmbedder``,
+``models/encoders.py``), and a config with ``num_classes`` adds a float
+embedding of ``y`` (``label_emb``, never quantized) to the timestep
+embedding, in every mode, as the JAX package does.
 
 flax's ``nn.LayerNorm`` returns the promotion of its input's and its
 parameters' dtypes, so in the transformer blocks a bf16 input with float32
@@ -41,7 +44,8 @@ targets as the JAX package does (names, paths, kinds, ``has_temb``,
 forward's first argument and its output, read by forward hooks
 (``calib/recon.py``); a transformer block's ``block_ctx`` is its forward's
 second argument, and the timestep embedding the res blocks take is
-``time_embed_2``'s output (``LDMUNet.temb_module``).  TDAC's feature is
+``temb``'s output (``LDMUNet.temb_module``: the sum after ``label_emb``,
+else ``time_embed_2``'s output).  TDAC's feature is
 ``middle_block_1``'s input (``pipelines/latent.py``).
 """
 
@@ -68,6 +72,7 @@ from ..ops.serving_policy import (attention_impl, int8_attention_serving,
                                   int8_serving, use_fused_gn)
 from ..ops.softmax_codes import softmax_codes
 from ..quant.config import FP, QuantConfig, QuantizerSpec, QuantMode
+from .encoders import Embed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -472,14 +477,11 @@ class LDMUNet(nn.Module):
     ``(x, t, context, y, mode)`` as in the JAX package, so a calibration
     tuple ``(x, t, ctx)`` is passed as it is."""
 
-    temb_module = "time_embed_2"       # its output is the res blocks' temb
+    temb_module = "temb"               # its output is the res blocks' temb
 
     def __init__(self, cfg: LDMUNetConfig = LDMUNetConfig(),
                  qc: QuantConfig = QuantConfig(), device=None, seed: int = 0):
         super().__init__()
-        if cfg.num_classes is not None:
-            raise NotImplementedError(
-                "the class-conditional LDM UNet is not ported yet")
         device = resolve_device(device)
         self.cfg, self.qc = cfg, qc
         wq, aq = qc.wq, qc.aq
@@ -515,6 +517,9 @@ class LDMUNet(nn.Module):
         with torch.device(device):
             self.time_embed_0 = QDense(mc, ted, wq=wq.with_bits(8), aq=aq)
             self.time_embed_2 = QDense(ted, ted, wq=wq, aq=aq)
+            if cfg.num_classes is not None:
+                self.label_emb = Embed(cfg.num_classes, ted)
+            self.temb = nn.Identity()
             for prefix in ("input_blocks", "middle_block", "output_blocks"):
                 for it in getattr(self.layout, prefix):
                     last = (prefix == "output_blocks" and it.key == last_key)
@@ -531,6 +536,9 @@ class LDMUNet(nn.Module):
         for m in self.modules():
             if isinstance(m, (QConv, QDense)):
                 lecun_normal_(m.weight, g)
+        if self.cfg.num_classes is not None:
+            with torch.no_grad():
+                self.label_emb.embedding.normal_(0.0, 1.0, generator=g)
 
     def _run(self, prefix: str, items: List[LayerItem], h, emb, context,
              mode):
@@ -555,6 +563,9 @@ class LDMUNet(nn.Module):
         emb = timestep_embedding(t, self.cfg.model_channels).to(x.dtype)
         emb = self.time_embed_0(emb, mode)
         emb = self.time_embed_2(swish(emb), mode)
+        if self.cfg.num_classes is not None:
+            emb = emb + self.label_emb(y)
+        emb = self.temb(emb)
         hs, h = [], x
         for _, items in sorted(_group(self.layout.input_blocks).items()):
             h = self._run("input_blocks", items, h, emb, context, mode)

@@ -1,6 +1,8 @@
 """Latent-diffusion PTQ pipelines (port of ``eda_dm_tpu/pipelines/latent.py``)
-for the LSUN-Bedroom and LSUN-Church tasks (unconditional, DDIM) and the
-COCO text-to-image task (SD v1.4, PLMS, classifier-free guidance).
+for the LSUN-Bedroom and LSUN-Church tasks (unconditional, DDIM), the
+class-conditional ImageNet task (cin256-v2, DDIM at eta 0, guidance 3.0
+over one-token class contexts: ``imagenet_labels``) and the COCO
+text-to-image task (SD v1.4, PLMS, classifier-free guidance).
 
 quantized UNet → TDAC over FP sampler trajectories (several trajectory
 batches; the scores from the first batch's ``middle_block_1`` inputs) →
@@ -11,19 +13,21 @@ calibration rows out as the reference does: x = [x; x], t = [t; t],
 context = [uncond; cond].
 
 One sampling batch is x_T → the task's sampler over the quantized UNet,
-under classifier-free guidance where the task has a text context and a
-scale other than 1 (``cfg_model_fn``: one UNet call on the doubled batch)
-→ the decode → images clipped to [0, 1], NHWC.  The UNet is fed its
-carrier dtype (that of its parameters: bf16 after a serving export); the
-sampler and the decode stay float32, with TF32 off.
+under classifier-free guidance where the task has a class or text
+context and a scale other than 1 (``cfg_model_fn``: one UNet call on the
+doubled batch) → the decode → images clipped to [0, 1], NHWC.  The UNet
+is fed its carrier dtype (that of its parameters: bf16 after a serving
+export); the sampler and the decode stay float32, with TF32 off.
 
 As in ``pipelines/cifar.py``, the model holds the state: the stages update
 ``self.ld.unet`` in place, and the serving exports are copies.  Random
 draws come from ``torch.Generator``s seeded from ``cfg.seed``; ``run``'s
 ``draws`` hands in another run's (TDAC's x_T, noise and permutation, each
-sampling batch's x_T and noise) to reproduce it.  The JAX package's
-``recon_clear_caches_every`` concerns compiled XLA programs and has no
-counterpart.
+sampling batch's x_T and noise) to reproduce it.  ``sampler="dpm"``
+serves with multistep DPM-Solver++ at order 2 (``samplers/dpm_solver.py``)
+over the schedule's betas, as the JAX package does; TDAC keeps the DDIM
+trajectories there.  The JAX package's ``recon_clear_caches_every``
+concerns compiled XLA programs and has no counterpart.
 """
 
 from __future__ import annotations
@@ -41,10 +45,12 @@ from ..calib.recon import ReconArgs, reconstruct
 from ..calib.scale_init import set_act_quantize_params, set_weight_quantize_params
 from ..calib.tdac import DENSE_R, TDACResult, select_calib_set
 from ..models.latent_diffusion import (LatentDiffusion, LatentDiffusionConfig,
-                                       bedroom_config, church_config, sd_v1_config)
+                                       bedroom_config, church_config,
+                                       imagenet_config, sd_v1_config)
 from ..models.ldm_unet import ldm_recon_plan
 from ..ops.int8_einsum import tf32_off
 from ..quant.config import DEPLOY_INT8, FP, WAQ, QuantConfig, QuantMode
+from ..samplers.dpm_solver import NoiseScheduleVP, dpm_solver_sample
 from ..samplers.latent import (cfg_model_fn, ldm_ddim_sample, ldm_plms_sample,
                                make_ldm_schedule)
 
@@ -54,10 +60,10 @@ logger = logging.getLogger(__name__)
 @dataclasses.dataclass
 class LDMTaskConfig:
     """Per-task knobs, the JAX package's names and defaults."""
-    task: str = "bedroom"                 # bedroom | church | coco
+    task: str = "bedroom"                 # bedroom | church | imagenet | coco
     custom_steps: int = 200
     eta: float = 1.0
-    sampler: str = "ddim"                 # 'ddim' | 'plms'
+    sampler: str = "ddim"                 # 'ddim' | 'plms' | 'dpm'
     scale: float = 1.0                    # classifier-free guidance scale
     # quantization
     weight_bit: int = 4
@@ -103,6 +109,9 @@ TASK_DEFAULTS = {
                     cache_dtype="bfloat16"),
     "church": dict(custom_steps=500, eta=0.0, lamda=1.0, lr_w=5e-2,
                    lr_a=1e-4, add_loss=1.0, iters=5000, batch_size=100),
+    "imagenet": dict(custom_steps=20, eta=0.0, scale=3.0, lamda=1.2,
+                     lr_w=5e-1, lr_a=1e-4, add_loss=0.8, iters=1000,
+                     batch_size=50, cache_dtype="bfloat16"),
     "coco": dict(custom_steps=50, eta=0.0, scale=7.5, sampler="plms",
                  lamda=5.0, lr_w=3e-2, lr_a=1e-4, add_loss=0.8, iters=1000,
                  calib_num_samples=256, batch_samples=8, batch_size=4,
@@ -111,17 +120,28 @@ TASK_DEFAULTS = {
 }
 
 MODEL_CONFIGS = {"bedroom": bedroom_config, "church": church_config,
-                 "coco": sd_v1_config}
+                 "imagenet": imagenet_config, "coco": sd_v1_config}
 
+# the trajectory samplers (TDAC's and serving's); "dpm" serves through
+# DPM-Solver++ and calibrates over DDIM trajectories
 SAMPLERS = {"ddim": ldm_ddim_sample, "plms": ldm_plms_sample}
 
 
 def task_config(task: str, **overrides) -> LDMTaskConfig:
-    if task not in TASK_DEFAULTS:
-        raise NotImplementedError(f"latent task {task!r} is not ported yet")
     kw = dict(TASK_DEFAULTS[task])
     kw.update(overrides)
     return LDMTaskConfig(task=task, **kw)
+
+
+def imagenet_labels(n: int, seed: int):
+    """The ImageNet task's class rows for ``n`` samples: a ``seed``ed
+    permutation of the 1000 classes, each repeated ceil(n / 1000) times,
+    cut to n; and n unconditional rows at label 1000.  Returns two int64
+    numpy arrays (labels, unconditional labels) for
+    ``LatentDiffusion.get_learned_conditioning``."""
+    rng = np.random.RandomState(seed)
+    labels = rng.permutation(np.repeat(np.arange(1000), -(-n // 1000)))[:n]
+    return labels.astype(np.int64), np.full((n,), 1000, np.int64)
 
 
 class LDMPipeline:
@@ -136,8 +156,8 @@ class LDMPipeline:
             raise NotImplementedError("checkpoint converters are not ported "
                                       "yet: load real weights through "
                                       "models/bridge.py")
-        if cfg.sampler not in SAMPLERS:
-            raise NotImplementedError(f"sampler {cfg.sampler!r} is not ported yet")
+        if cfg.sampler not in ("ddim", "plms", "dpm"):
+            raise ValueError(f"unknown sampler {cfg.sampler!r}")
         self.cfg = cfg
         self.qc = QuantConfig(weight_bit=cfg.weight_bit, act_bit=cfg.act_bit,
                               sm_abit=cfg.sm_abit, a_sym=cfg.a_sym,
@@ -180,6 +200,8 @@ class LDMPipeline:
         B = cfg.batch_samples
         n_batches = max(1, cfg.calib_num_samples // B)
         g_x, g_noise = self.generator(1), self.generator(2)
+        # PLMS for a PLMS task, else DDIM (DPM-Solver records no trajectory)
+        sampler = SAMPLERS["plms" if cfg.sampler == "plms" else "ddim"]
         feats = []
 
         def ctx_slice(arr, r):
@@ -206,7 +228,7 @@ class LDMPipeline:
             hook = (unet.middle_block_1.register_forward_pre_hook(
                 lambda m, args: feats.append(args[0])) if with_feat else None)
             try:
-                _, traj = SAMPLERS[cfg.sampler](
+                _, traj = sampler(
                     x_T, self.sched, model_fn, generator=g_noise, noise=noise,
                     device=self.device, record_xt=True, model_returns_aux=with_feat)
             finally:
@@ -299,10 +321,12 @@ class LDMPipeline:
                      unet=None) -> torch.Tensor:
         """One batch: images (N, H, W, 3) in [0, 1], or with ``decode=False``
         the latents, from ``unet`` (default: the pipeline's).  x_T and the
-        per-step noise are drawn from ``generator`` unless given.
-        ``context`` / ``uncond``: the text rows of the prompts and of the
-        empty prompt, (N, 77, context_dim) each
-        (``self.ld.get_learned_conditioning``)."""
+        per-step noise are drawn from ``generator`` unless given (DPM-Solver
+        draws no noise).  ``context`` / ``uncond``: the rows of the
+        conditions and of the unconditional one, from
+        ``self.ld.get_learned_conditioning``: the prompts' and the empty
+        prompt's text rows (N, 77, context_dim), or the labels' and label
+        1000's class rows (N, 1, class_embed_dim)."""
         unet = self.ld.unet if unet is None else unet
         if x_T is None:
             x_T = self._latents(batch_size or self.cfg.batch_size, generator)
@@ -312,9 +336,15 @@ class LDMPipeline:
         model_fn = cfg_model_fn(apply_fn, on(context), on(uncond),
                                 self.cfg.scale if self.is_conditional else 1.0)
         with tf32_off():
-            z = SAMPLERS[self.cfg.sampler](
-                x_T, self.sched, model_fn, generator=generator, noise=noise,
-                device=self.device)
+            if self.cfg.sampler == "dpm":
+                # multistep DPM-Solver++ at order 2 over the schedule's betas
+                ns = NoiseScheduleVP("discrete", betas=self.sched.betas)
+                z = dpm_solver_sample(x_T, model_fn, ns, steps=self.cfg.custom_steps,
+                                      order=2, algorithm_type="dpmsolver++")
+            else:
+                z = SAMPLERS[self.cfg.sampler](
+                    x_T, self.sched, model_fn, generator=generator, noise=noise,
+                    device=self.device)
             if not decode:
                 return z
             img = self.ld.decode_first_stage(z)

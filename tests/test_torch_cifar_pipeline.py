@@ -62,6 +62,9 @@ def runs():
     jpipe.qc = JQC(weight_bit=4, act_bit=8, prob=1.0)       # QDrop keeps every value
     jpipe.model = JUNet(cfg=jpipe.cfg.arch, qc=jpipe.qc)
     v0 = jax.jit(jpipe.init_variables)()
+    sets = {}
+    jtdac = jpipe.tdac_calibration        # JAX's TDAC set, kept from its run
+    jpipe.tdac_calibration = lambda *a: sets.setdefault("jax", jtdac(*a))
     jv, jimgs = jpipe.run(variables=v0, serve="int8")
     # JAX's draws, as its run made them
     _, k_tdac, _ = jax.random.split(jpipe.root_key, 3)
@@ -77,11 +80,9 @@ def runs():
                                  device="cpu")
     tpipe.qc = QuantConfig(weight_bit=4, act_bit=8, prob=1.0)
     model = from_jax_variables(_np(v0), tpipe.cfg.arch, tpipe.qc, device="cpu")
-    sets = {}
     tdac = tpipe.tdac_calibration
     tpipe.tdac_calibration = lambda *a: sets.setdefault("port", tdac(*a))
     model, timgs = tpipe.run(model=model, serve="int8", draws=draws)
-    sets["jax"] = jpipe.tdac_calibration(v0, k_tdac)
     return dict(jpipe=jpipe, jv=jv, jimgs=np.asarray(jimgs), model=model,
                 timgs=timgs, sets=sets, draws=draws)
 

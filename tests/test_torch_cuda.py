@@ -354,6 +354,65 @@ def test_int8_attention_kernel_past_the_grid_limit(gen):
     assert float(close.float().mean()) >= 0.999
 
 
+
+IMAGENET = {  # chip_smoke.py's phase-3 shapes of the ImageNet task at 100 UNet rows
+    "k5_sweep_32x32": (100, 1024, 1024, 384), "k4_16x16": (100, 256, 576),
+    "k4_8x8": (100, 64, 960), "k2_cross_qk_n1": (100, 1024, 1, 384),
+    "k2_cross_wv_k1": (100, 1024, 384, 1), "k3_rows_of_1": (100 * 1024, 1)}
+
+
+@pytest.mark.parametrize("which", list(IMAGENET))
+def test_imagenet_shapes(gen, which):
+    """The ImageNet sites at 100 rows: K5 on its sweep route at the 32×32
+    self-attention (C = 384), K4 at the 16×16 (C = 576, its plan's 209,920
+    bytes of shared memory) and 8×8 (C = 960, a column tail in W·V) ones:
+    codes within ±1 and ≥ 99.9 % equal, the output within 1e-5 on the rows
+    whose codes agree.  The cross-attention over the one class token: K2's
+    q·kᵀ with N = 1 and W·V with K = 1, sums and epilogue bit-equal; K3 on
+    rows of width 1, codes within ±1 and ≥ 99.9 % equal."""
+    from eda_dm_tpu_torch.ops.int8_attention import (
+        _int8_flash_attention_cuda, _int8_fused_attention_cuda, flash_plan,
+        int8_flash_attention_plain, int8_fused_attention_plain)
+    from eda_dm_tpu_torch.ops.int8_einsum import int8_bmm_nt, int8_bmm_nt_plain
+    from eda_dm_tpu_torch.ops.softmax_codes import (softmax_int8_codes,
+                                                    softmax_int8_codes_plain)
+    shape = IMAGENET[which]
+    if which.startswith(("k4", "k5")):
+        n, sq = shape[:2]
+        c = shape[-1]
+        Q, K, V, sc = _attention_case(gen, n, sq, c)
+        if which.startswith("k5"):
+            assert flash_plan(sq, sq, c)["route"] == "sweep"
+            out, codes = _int8_flash_attention_cuda(Q, K, V, sc, 256, True)
+            torch.cuda.synchronize()
+            ref, ref_codes = int8_flash_attention_plain(Q, K, V, sc, 256, True)
+        else:
+            out, codes = _int8_fused_attention_cuda(Q, K, V, sc, 256, True)
+            torch.cuda.synchronize()
+            ref, ref_codes = int8_fused_attention_plain(Q, K, V, sc, 256, True)
+        diff = (codes.int() - ref_codes.int()).abs()
+        assert int(diff.max()) <= 1 and float((diff == 0).float().mean()) >= 0.999
+        rows = (diff == 0).all(-1)
+        torch.testing.assert_close(out[rows], ref[rows], rtol=1e-5, atol=1e-5)
+    elif which.startswith("k2"):
+        batch, m, n, k = shape
+        A, B = _codes(gen, (batch, m, k)), _codes(gen, (batch, n, k))
+        assert torch.equal(int8_bmm_nt(A, B),
+                           int8_bmm_nt_plain(A, B, scale=torch.ones((), device="cuda")))
+        kw = dict(row_add=torch.randn(batch, m, generator=gen, device="cuda"),
+                  col_add=torch.randn(batch, n, generator=gen, device="cuda"),
+                  k_add=torch.tensor(3.5, device="cuda"),
+                  scale=torch.rand(n, generator=gen, device="cuda"))
+        out = int8_bmm_nt(A, B, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, int8_bmm_nt_plain(A, B, **kw))
+    else:
+        logits = 6.0 * torch.randn(*shape, generator=gen, device="cuda")
+        d, z = torch.tensor(1.0 / 255.0, device="cuda"), torch.tensor(0.0, device="cuda")
+        codes, _ = softmax_int8_codes(logits, d, z, 256)
+        torch.cuda.synchronize()
+        _softmax_gate(codes, softmax_int8_codes_plain(logits, d, z, 256), f"{shape}")
+
 SAME = ((1, 1), (1, 1))
 GN = [  # b, h, w, c, pads (None: gn_norm), swish
     (3, 7, 9, 96, SAME, True),                    # 3 channels a group, odd h·w

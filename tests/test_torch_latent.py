@@ -124,7 +124,7 @@ def test_ldm_ddim_sample_eta1(calibrated):
         assert int(steps["index"][k]) == index
         eps, _, _ = _against_jax(model, c["int8"], port, xk, t,
                                  jexport.DEPLOY_INT8, DEPLOY_INT8,
-                                 attn_code_flips=True)
+                                 attn_code_flips=True, jit=True)
         nxt, _ = jlat.ddim_update(
             jnp.asarray(xk), jnp.asarray(eps), sched.ddim_alphas[index],
             sched.ddim_alphas_prev[index], sched.ddim_sigmas[index],

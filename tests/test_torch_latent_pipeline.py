@@ -88,18 +88,23 @@ BASE = dict(image_size=8, in_channels=4, out_channels=4, model_channels=32,
 UNET = {"church": dict(BASE, num_heads=2, use_scale_shift_norm=True,
                        resblock_updown=True),
         "coco": dict(BASE, num_heads=4, use_spatial_transformer=True, context_dim=24,
-                     legacy=False)}
+                     legacy=False),
+        "imagenet": dict(BASE, num_heads=1, use_spatial_transformer=True,
+                         context_dim=24)}
 KL = dict(ch=32, out_ch=3, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(),
           in_channels=3, resolution=16, z_channels=4, double_z=True, embed_dim=4,
           n_embed=None)
 SCHED = {"church": dict(timesteps=50),
          "coco": dict(timesteps=50, linear_start=0.00085, linear_end=0.0120,
-                      scale_factor=0.18215, cond="text")}
+                      scale_factor=0.18215, cond="text"),
+         "imagenet": dict(timesteps=50, cond="class", n_classes=1001, class_embed_dim=24)}
 KNOBS = {"church": dict(custom_steps=5, eta=1.0, calib_num_samples=12, batch_samples=6,
                         iters=3, recon_batch_size=12, input_prob=1.0, n_samples=2,
                         batch_size=2),
          "coco": dict(custom_steps=5, calib_num_samples=8, batch_samples=4, recon=False,
-                      n_samples=2, batch_size=2)}
+                      n_samples=2, batch_size=2),
+         "imagenet": dict(custom_steps=5, calib_num_samples=8, batch_samples=4,
+                          recon=False, n_samples=2, batch_size=2)}
 PROMPTS, CTX_LEN = 8, 6
 
 
@@ -167,6 +172,8 @@ def run_both(task):
     tpipe.ld = tld.LatentDiffusion(tpipe.mc, tpipe.qc, device="cpu", seed=0)
     v0 = {"unet": to_jax_variables(tpipe.ld.unet),
           "first_stage": to_jax_variables(tpipe.ld.first_stage)}
+    if tpipe.mc.cond == "class":
+        v0["cond_stage"] = to_jax_variables(tpipe.ld.cond_stage)
     jpipe = jlatent.LDMPipeline(
         jlatent.task_config(task, **KNOBS[task]),
         model_cfg=jld.LatentDiffusionConfig(unet=jldm.LDMUNetConfig(**UNET[task]),
@@ -178,6 +185,13 @@ def run_both(task):
         rng = np.random.default_rng(3)
         ctx, unc = (rng.standard_normal((PROMPTS, CTX_LEN, 24)).astype(np.float32)
                     for _ in range(2))
+    elif task == "imagenet":
+        # each package's embedder on the helper's labels: one token a row
+        labels, uncond = tlatent.imagenet_labels(PROMPTS, jpipe.cfg.seed)
+        ctx, unc = (tpipe.ld.get_learned_conditioning(a).numpy() for a in (labels, uncond))
+        for a, b in ((labels, ctx), (uncond, unc)):
+            np.testing.assert_array_equal(np.asarray(jpipe.ld.get_learned_conditioning(
+                v0["cond_stage"], a)), b)
     jkeep, tkeep = {}, {}
     for pipe, store in ((jpipe, jkeep), (tpipe, tkeep)):
         for name in ("tdac_calibration", "build_cali_data"):
@@ -213,11 +227,11 @@ def test_tdac_and_calibration_rows_match_jax(runs):
     cfg = runs["tpipe"].cfg
     assert tsel.calib_x.shape[0] == cfg.calib_num_samples
     tcali, jcali = runs["tkeep"]["build_cali_data"], runs["jkeep"]["build_cali_data"]
-    assert len(tcali) == len(jcali) == (3 if runs["task"] == "coco" else 2)
+    assert len(tcali) == len(jcali) == (2 if runs["ctx"] is None else 3)
     for a, b in zip(tcali, jcali):
         assert a.shape == b.shape
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5)
-    if runs["task"] == "coco":                   # [uncond; cond] on doubled rows
+    if runs["ctx"] is not None:                  # [uncond; cond] on doubled rows
         n = cfg.calib_num_samples
         np.testing.assert_array_equal(tcali[2].numpy(),
                                       np.concatenate([runs["unc"][:n], runs["ctx"][:n]]))
@@ -324,12 +338,13 @@ def test_images_match_jax(runs):
     assert drift <= 1.5 * own
 
 
-@pytest.mark.parametrize("task", ["bedroom", "church", "coco"])
+@pytest.mark.parametrize("task", ["bedroom", "church", "imagenet", "coco"])
 def test_task_recipes_match_jax(task):
     """``TASK_DEFAULTS`` and every ``LDMTaskConfig`` field of the task equal
     JAX's (which ``tests/test_task_recipes.py`` pins to the reference
     scripts), but for the XLA-only ``recon_clear_caches_every``; the model
-    config is JAX's; ImageNet and DPM-Solver are not ported yet."""
+    config is JAX's; the task's pipeline constructs with the DPM-Solver
+    sampler (on a tiny model of the task's conditioning)."""
     import dataclasses
     assert tlatent.TASK_DEFAULTS[task] == jlatent.TASK_DEFAULTS[task]
     want = dataclasses.asdict(jlatent.task_config(task))
@@ -338,7 +353,9 @@ def test_task_recipes_match_jax(task):
     unet = dataclasses.asdict(jlatent.MODEL_CONFIGS[task]().unet)
     unet.pop("conv_resample")
     assert dataclasses.asdict(tlatent.MODEL_CONFIGS[task]().unet) == unet
-    with pytest.raises(NotImplementedError, match="imagenet"):
-        tlatent.task_config("imagenet")
-    with pytest.raises(NotImplementedError, match="dpm"):
-        tlatent.LDMPipeline(tlatent.task_config(task, sampler="dpm"), device="cpu")
+    tiny = task if task in UNET else "church"
+    pipe = tlatent.LDMPipeline(
+        tlatent.task_config(task, sampler="dpm", custom_steps=5),
+        tld.LatentDiffusionConfig(unet=tldm.LDMUNetConfig(**UNET[tiny]),
+                                  vae=tvae.VAEConfig(**KL), **SCHED[tiny]), device="cpu")
+    assert pipe.cfg.sampler == "dpm" and pipe.is_conditional == (task in ("imagenet", "coco"))

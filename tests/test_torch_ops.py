@@ -15,10 +15,10 @@
 * K2's plan (``bmm_plan``): the tile by the number of columns, the load
   route by K and the operands' alignment, at the serving shapes the card
   runs;
-* K1's plan (``conv_plan``) at every conv of the full CIFAR, bedroom and SD
-  UNets (built on the meta device): the 16-byte route wherever Cin % 16 ==
-  0, the byte gather at the ``conv_in``s, the 128 x 64 tile only where
-  Cout ≤ 64; each tile's ring (step and slots fixed per route in
+* K1's plan (``conv_plan``) at every conv of the full CIFAR, bedroom, SD
+  and ImageNet UNets (built on the meta device): the 16-byte route wherever
+  Cin % 16 == 0, the byte gather at the ``conv_in``s, the 128 x 64 tile
+  only where Cout ≤ 64; each tile's ring (step and slots fixed per route in
   ``csrc/int8_conv.cu``) within the card's 227 KB of shared memory a
   block.
 """
@@ -222,13 +222,15 @@ def _conv_shapes(which):
     """(Cin, Cout, kernel, strides) of every QConv of a full UNet."""
     from unittest import mock
     from eda_dm_tpu_torch.models.ddpm_unet import DDPMConfig, DDPMUNet
-    from eda_dm_tpu_torch.models.latent_diffusion import bedroom_config, sd_v1_config
+    from eda_dm_tpu_torch.models.latent_diffusion import (bedroom_config, imagenet_config,
+                                                          sd_v1_config)
     from eda_dm_tpu_torch.models.ldm_unet import LDMUNet
     from eda_dm_tpu_torch.quant import QuantConfig as TQC
     qc = TQC(weight_bit=4, act_bit=8)
     build = {"cifar": lambda: DDPMUNet(DDPMConfig(), qc, device="meta"),
              "bedroom": lambda: LDMUNet(bedroom_config().unet, qc, device="meta"),
-             "sd": lambda: LDMUNet(sd_v1_config().unet, qc, device="meta")}[which]
+             "sd": lambda: LDMUNet(sd_v1_config().unet, qc, device="meta"),
+             "imagenet": lambda: LDMUNet(imagenet_config().unet, qc, device="meta")}[which]
     with mock.patch.object(DDPMUNet, "init_weights", lambda *a: None), \
             mock.patch.object(LDMUNet, "init_weights", lambda *a: None):
         model = build()
@@ -237,7 +239,7 @@ def _conv_shapes(which):
 
 
 @pytest.mark.parametrize("which,n_shapes,conv_in", [("cifar", 17, 3), ("bedroom", 35, 3),
-                                                   ("sd", 29, 4)])
+                                                   ("sd", 29, 4), ("imagenet", 38, 3)])
 def test_conv_plan_every_unet_conv(which, n_shapes, conv_in):
     shapes = _conv_shapes(which)
     assert len(shapes) == n_shapes

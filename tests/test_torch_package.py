@@ -73,7 +73,7 @@ def test_entry_points_refuse_the_host_without_cpu_opt_in():
     from eda_dm_tpu_torch.models.ldm_unet import LDMUNet, LDMUNetConfig
     from eda_dm_tpu_torch.models.vae import FirstStage, VAEConfig
     from eda_dm_tpu_torch.pipelines.latent import LDMPipeline, task_config
-    from eda_dm_tpu_torch.models.encoders import TinyTextEncoder
+    from eda_dm_tpu_torch.models.encoders import ClassEmbedder, TinyTextEncoder
     from eda_dm_tpu_torch.samplers.latent import (ldm_ddim_sample, ldm_plms_sample,
                                                   make_ldm_schedule)
     ldm = LDMUNetConfig(image_size=8, model_channels=32, channel_mult=(1,),
@@ -81,6 +81,7 @@ def test_entry_points_refuse_the_host_without_cpu_opt_in():
     for make in (lambda: LDMUNet(ldm), lambda: FirstStage(VAEConfig(ch=32)),
                  lambda: LDMPipeline(task_config("bedroom")),
                  lambda: TinyTextEncoder(context_dim=8),
+                 lambda: ClassEmbedder(8, 11),
                  lambda: ldm_ddim_sample(torch.zeros(1, 8, 8, 3),
                                          make_ldm_schedule(ddim_steps=2),
                                          lambda x, t: x),
