@@ -21,8 +21,10 @@ exits non-zero before the last line:
    the profiler beside the CUDA events; K4 at its bedroom, CIFAR and SD
    shapes and K5 at SD's 64×64 shapes, a query length other than the key
    length and a 16-level softmax quantizer (each on its plan's one-pass
-   route) and past the one pass (the sweep route, ImageNet's 32×32 site
-   (100, 1024, 1024, 384) among them, timed beside its bound; K4 at
+   route), past the one pass (the sweep route) and at ImageNet's 32×32
+   site (100, 1024, 1024, 384) on the one-pass-wide route (codes and
+   outputs equal to the plain version's), timed beside its bound and the
+   sweep route's kernel on the same inputs; K4 at
    ImageNet's (100, 256, 576) and (100, 64, 960), K2 at its
    cross-attention's N = 1 and K = 1 products and K3 on its rows of
    width 1), whose outputs agree within rtol = atol = 1e-5 on the rows
@@ -137,8 +139,8 @@ exits non-zero before the last line:
     (``imagenet``'s docstring lists every cut): ``imagenet_config()``
     (one head at 384/576/960 channels, one-token class contexts from the
     1001-row embedder, VQ-f4), smoke state, DEPLOY_INT8 kernels vs plain
-    versions at 2 rows on the branches of 100 (K5's sweep route at the
-    five 32×32 sites, K4 at the eleven others, K2 → K3 → K2 over the one
+    versions at 2 rows on the branches of 100 (K5's one-pass-wide route
+    at the five 32×32 sites, K4 at the eleven others, K2 → K3 → K2 over the one
     class token at the 16 cross-attentions) and DPM-Solver++ held step by
     step on the plain run's x_t; ``sample_batch`` with 50 labels under
     CFG 3.0 (100 UNet rows), 10 DDIM steps, the VQ-f4 decode, ms per
@@ -192,7 +194,7 @@ DEFAULT_LAUNCHES = {
            "int8_flash_attention": 5, "softmax_codes": 16},
     "church": {"int8_attention": 5, "int8_bmm": 110, "int8_conv": 73, "softmax_codes": 16},
     "imagenet": {"int8_attention": 11, "int8_bmm": 215, "int8_conv": 86,
-                 "int8_flash_sweep": 5, "softmax_codes": 16}}
+                 "int8_flash_attention": 5, "softmax_codes": 16}}
 SERVING_SWITCHES = ("EDM_FUSED_ATTN", "EDM_FUSED_ATTN_NARROW", "EDM_FUSED_SOFTMAX",
                     "EDM_INT8_CONV", "EDM_INT8_ATTN", "EDM_FUSED_GN", "EDM_FUSED_GN_NARROW",
                     "EDM_SERVE_KIND")
@@ -681,12 +683,16 @@ def check_flash(g, sms, clock_hz):
     """K5 against its plain version: SD's 64x64 self-attention at 8 rows
     (64 batch-heads) and at 2 (16), a query length other than the key
     length, and a 16-level softmax quantizer, each on the route of its
-    ``flash_plan`` (one pass, the keys over a cluster of blocks), and a key
+    ``flash_plan`` (one pass, the keys over a cluster of blocks), a key
     length past what 8 blocks hold and a head past its resident 1024
-    columns (the sweep route, C in chunks); timed at the 8-row
-    shape beside the bound and the port's einsum chain K2 -> K3 -> K2."""
+    columns (the sweep route, C in chunks), and ImageNet's 32x32 site at
+    100 rows (the one-pass-wide route, one W·V buffer: codes and outputs
+    equal to the plain version's); timed at SD's 8-row shape beside the
+    bound and the port's einsum chain K2 -> K3 -> K2, and at ImageNet's
+    beside the bound and the sweep route's kernel on the same inputs."""
+    from eda_dm_tpu_torch.ops import _build
     from eda_dm_tpu_torch.ops.int8_attention import (
-        K5_PLAN_ARGS, _int8_flash_attention_cuda, attention_scalars, flash_plan,
+        _SWEEP_SIG, K5_PLAN_ARGS, _int8_flash_attention_cuda, attention_scalars, flash_plan,
         int8_flash_attention_plain)
     from eda_dm_tpu_torch.ops.int8_einsum import int8_code_einsum
     from eda_dm_tpu_torch.ops.softmax_codes import softmax_int8_codes
@@ -704,21 +710,36 @@ def check_flash(g, sms, clock_hz):
         torch.cuda.synchronize()
         out_p, W_p = int8_flash_attention_plain(Q, K, V, sc, levels, True)
         plan = flash_plan(sq, skv, c)
-        err = max(err, attention_gate(out_k, W_k, out_p, W_p,
-                                      f"K5 ({n}, {sq}, {skv}, {c}), {levels} levels, "
-                                      f"{plan['route']} route"))
+        what = f"K5 ({n}, {sq}, {skv}, {c}), {levels} levels, {plan['route']} route"
+        err = max(err, attention_gate(out_k, W_k, out_p, W_p, what))
+        if n == IMAGENET_ROWS:             # ImageNet's 32x32 site, the one-pass-wide route
+            check(plan["route"] == "one_pass_wide" and torch.equal(W_k, W_p)
+                  and torch.equal(out_k, out_p),
+                  f"{what}: every code and output equal to the plain version's")
         del W_k, W_p, out_p
-        if n == IMAGENET_ROWS:             # ImageNet's 32x32 site, the sweep route
+        if n == IMAGENET_ROWS:
             logits = n * sq * skv
             exp_ms = logits / (sms * SFU_PER_CLOCK * clock_hz) * 1e3
             nbytes = n * (sq * c + 2 * skv * c + 4 * sq * c)
+            sweep = _build.cuda_lib("int8_flash_sweep", _SWEEP_SIG)
+            out_s = torch.empty_like(out_k)
+
+            def sweep_call():              # the sweep route's kernel on the same inputs
+                _build.check_launch(sweep, sweep.edm_int8_flash_sweep(
+                    *(_build.ptr(x) for x in (Q, K, V, sc, out_s, None)), n, sq, skv, c,
+                    levels, _build.stream_ptr(Q.device)), "int8_flash_sweep")
             imagenet_ms = {f"ImageNet ({n}, {sq}, {skv}, {c})": dict(
-                ms=cuda_ms(lambda: _int8_flash_attention_cuda(Q, K, V, sc, levels, False),
-                           reps=5),
+                ms=cuda_ms(lambda: _int8_flash_attention_cuda(Q, K, V, sc, levels, False)),
+                sweep_ms=cuda_ms(sweep_call, reps=5),
+                plain_ms=cuda_ms(lambda: int8_flash_attention_plain(Q, K, V, sc, levels),
+                                 reps=3, warmup=1),
                 plan=" ".join(f"{k} {plan[k]}" for k in ("route",) + K5_PLAN_ARGS
                               if k in plan),
                 **dict(zip(("bound_ms", "bound_by"),
                            bound(nbytes, 4 * logits * c, INT8_PEAK, exp_ms))))}
+            print(f"    K5 ImageNet ({n}, {sq}, {skv}, {c}): the sweep route's output equal "
+                  f"to the one-pass-wide route's: {torch.equal(out_s, out_k)}")
+            del out_s
         if timing is None:                 # SD 64x64, 4 prompts under CFG
             tq, tk, tv, tdq, tdk, tdv, tdw, tzw = (
                 torch.tensor(v, device="cuda") for v in (cq, ck, cv, dq, dk, dv, dw, zw))
@@ -2269,7 +2290,7 @@ def imagenet(kernels, smi):
     carrier, each attention site on the branch of 100 rows
     (``attention_impl`` sees 50× the batch): the flip gate, then K3, K4
     and K5 on each call's input from the plain run; the launches of one
-    forward (K5 on its sweep route at the five 32×32 sites, K4 at the
+    forward (K5 on its one-pass-wide route at the five 32×32 sites, K4 at the
     eleven 16×16 and 8×8 ones, K2 → K3 → K2 at the 16 cross-attentions
     over the one class token).  DPM-Solver++ (order 2, 10 steps) at the
     same 2 rows through the plain versions, recording each model call's
@@ -2301,6 +2322,7 @@ def imagenet(kernels, smi):
     from eda_dm_tpu_torch.calib import recon
     from eda_dm_tpu_torch.models.ldm_unet import LDMUNet, ldm_recon_plan
     from eda_dm_tpu_torch.ops import _build
+    from eda_dm_tpu_torch.ops.int8_attention import flash_plan
     from eda_dm_tpu_torch.pipelines.latent import LDMPipeline, imagenet_labels, task_config
     from eda_dm_tpu_torch.quant import DEPLOY, DEPLOY_INT8, FP
     from eda_dm_tpu_torch.quant.export import export_serving_int8
@@ -2333,10 +2355,11 @@ def imagenet(kernels, smi):
     with swapped(ldm_unet, "attention_impl", wide):
         launches = kernels_vs_plain(lambda: unet(x2, t2, c2, mode=DEPLOY_INT8),
                                     f"ImageNet 2 rows on {rows} rows' branches")
-    check(launches == DEFAULT_LAUNCHES["imagenet"],
-          f"ImageNet ({n_aq} act quantizers set): K5 (sweep route) at the five 32x32 "
-          f"sites, K4 at the eleven others, K2 -> K3 -> K2 at the 16 cross-attentions: "
-          f"{launches}")
+    check(launches == DEFAULT_LAUNCHES["imagenet"]
+          and flash_plan(1024, 1024, 384)["route"] == "one_pass_wide",
+          f"ImageNet ({n_aq} act quantizers set): K5 (one-pass-wide route) at the five "
+          f"32x32 sites, K4 at the eleven others, K2 -> K3 -> K2 at the 16 "
+          f"cross-attentions: {launches}")
     ns = NoiseScheduleVP("discrete", betas=pipe.sched.betas)
     x1 = torch.randn(1, 64, 64, 3, generator=g, device="cuda")
     seen = []
@@ -2397,9 +2420,8 @@ def imagenet(kernels, smi):
     print("    launches per UNet forward: " + ", ".join(f"{k} {v:g}" for k, v in per_fwd.items()))
     check(per_fwd == DEFAULT_LAUNCHES["imagenet"],
           f"the default branches: {DEFAULT_LAUNCHES['imagenet']} per forward")
-    for k in kernels[:5]:                        # K1-K5; K5's launches count as the sweep's
-        name = "int8_flash_sweep" if k["name"] == "int8_flash_attention" else k["name"]
-        k["imagenet_launches"] = launches.get(name, 0)
+    for k in kernels[:5]:                        # K1-K5
+        k["imagenet_launches"] = launches.get(k["name"], 0)
         check(k["imagenet_launches"] > 0, f"{k['name']} launched {k['imagenet_launches']} "
               f"times ({k['imagenet_launches'] / STEPS:g} per forward) on the ImageNet path")
     z, int8_s = timed(lambda: sample(DEPLOY_INT8, decode=False))
@@ -2489,8 +2511,7 @@ def imagenet(kernels, smi):
           f"the calibrated ImageNet export at {rows} rows: output finite, launches "
           f"{cal_launches}")
     for k in kernels[:5]:
-        name = "int8_flash_sweep" if k["name"] == "int8_flash_attention" else k["name"]
-        k["imagenet_calibrated_launches"] = cal_launches.get(name, 0)
+        k["imagenet_calibrated_launches"] = cal_launches.get(k["name"], 0)
     del ex, pipe, cali, out
     free_memory("after the ImageNet calibration")
     return dict(ms_per_step=ms, dpm_ms_per_step=dpm_ms, decode_ms=decode_s * 1e3,

@@ -28,7 +28,9 @@ tile's keys over a thread-block cluster whose blocks hold their slice's
 logits, and computes each logit once; the row max is exact in any order
 and the f64 row sum is added in rank order, so its plain version is K4's
 plain function chunked over query rows, and the two agree bit for bit.
-Where a shape's logits or head do not fit (:func:`flash_plan`'s
+Where its two W·V buffers do not fit (wide heads, ImageNet's C = 384),
+the ``"one_pass_wide"`` route runs the same kernel with one.  Where a
+shape's logits or head do not fit even so (:func:`flash_plan`'s
 ``"sweep"`` route), the wrapper launches ``csrc/int8_flash_sweep.cu``,
 which sweeps the key tiles three times (row max, f64 row sum, codes and
 W·V), each sweep independent of the tile order, and takes a head of any
@@ -53,8 +55,8 @@ from .int8_einsum import int8_bmm_acc_plain
 
 _ATTN_SIG = {"edm_int8_fused_attention": [ctypes.c_void_p] * 6
              + [ctypes.c_int] * 10 + [ctypes.c_void_p]}
-_FLASH_SIG = {"edm_int8_flash_attention": [ctypes.c_void_p] * 6
-              + [ctypes.c_int] * 10 + [ctypes.c_void_p]}
+_FLASH_SIG = {name: [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+              for name in ("edm_int8_flash_attention", "edm_int8_flash_attention_wide")}
 _SWEEP_SIG = {"edm_int8_flash_sweep": [ctypes.c_void_p] * 6
               + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
 # query rows per chunk of K5's plain version: bounds its (N, rows, Skv)
@@ -173,6 +175,13 @@ K5_WARPS_MAX, K5_R_MAX, K5_KB_STEP, K5_MAX_C, K5_HDR = 32, 8, 64, 512, 3328
 # PERF.md §6)
 K5_CLUSTERS = (1, 2, 4, 8)
 K5_TQS = (64, 32)
+# K5's routes by W·V buffers: two (the item's epilogue overlaps the next
+# item's barrier), or one where two do not fit a block (wide heads:
+# ImageNet's (1024, 1024, 384) at 8 blocks of 128 keys), each with its
+# entry point
+K5_ROUTES = {2: "one_pass", 1: "one_pass_wide"}
+K5_ENTRY = {"one_pass": "edm_int8_flash_attention",
+            "one_pass_wide": "edm_int8_flash_attention_wide"}
 # the sweep route's fixed sizes (``csrc/int8_flash_sweep.cu``): query rows
 # and keys a tile, output columns a block, threads, words of row padding,
 # columns of the query and key tiles resident a chunk
@@ -180,16 +189,18 @@ SWEEP_FQ, SWEEP_FJ, SWEEP_FCH, SWEEP_THREADS, SWEEP_FPAD = 64, 64, 64, 256, 4
 SWEEP_FCC = 1024
 
 
-def k5_smem_bytes(tq: int, c: int, kb: int):
+def k5_smem_bytes(tq: int, c: int, kb: int, nbuf: int = 2):
     """K5's dynamic shared bytes (the kernel's ``k5_layout``) with ``tq``
     query rows and ``kb`` keys a block, or None where that does not fit a
     block: header, f32 logits rows of kb + 4 (the codes overwrite them), the
-    int32 W·V sums of two items, ΣV (the block's and the cluster's, of two
-    elements), the Σk terms, the Q tile and the K slice (rows of C rounded
-    up to 32, plus 16), and the V slice transposed (C rounded up to 8 rows
-    of kb + 16)."""
+    int32 W·V sums of ``nbuf`` items (rows of C rounded up to 8, plus 8
+    with one buffer), ΣV (the block's and the cluster's, of two elements),
+    the Σk terms, the Q tile and the K slice (rows of C rounded up to 32,
+    plus 16), and the V slice transposed (C rounded up to 8 rows of
+    kb + 16)."""
     cp, c8 = _round_up(c, 32), _round_up(c, 8)
-    smem = (K5_HDR + tq * 4 * (kb + 4) + 2 * tq * 4 * c8 + 4 * 4 * c8 + 4 * kb
+    red_ld = c8 + 8 if nbuf == 1 else c8
+    smem = (K5_HDR + tq * 4 * (kb + 4) + nbuf * tq * 4 * red_ld + 4 * 4 * c8 + 4 * kb
             + tq * (cp + 16) + kb * (cp + 16) + c8 * (kb + 16))
     return smem if smem <= BLOCK_SMEM_MAX else None
 
@@ -205,15 +216,16 @@ def sweep_smem_bytes(c: int) -> int:
                 + SWEEP_FQ * (SWEEP_FJ // 4 + 1) + SWEEP_FQ + SWEEP_FJ + SWEEP_FCH)
 
 
-def k5_plan(r: int, tq: int, skv: int, c: int):
-    """K5's one-pass plan with ``r`` blocks a cluster and ``tq`` rows a
-    work item, or None where a block's logits, slices and head do not fit:
-    each block takes ``kb`` keys, Skv / r rounded up to ``K5_KB_STEP``."""
+def k5_plan(r: int, tq: int, skv: int, c: int, nbuf: int = 2):
+    """K5's one-pass plan with ``r`` blocks a cluster, ``tq`` rows a work
+    item and ``nbuf`` W·V buffers (the route ``K5_ROUTES[nbuf]``), or None
+    where a block's logits, slices and head do not fit: each block takes
+    ``kb`` keys, Skv / r rounded up to ``K5_KB_STEP``."""
     kb = _round_up(-(-skv // r), K5_KB_STEP)
-    smem = k5_smem_bytes(tq, c, kb) if c <= K5_MAX_C else None
+    smem = k5_smem_bytes(tq, c, kb, nbuf) if c <= K5_MAX_C else None
     if smem is None:
         return None
-    return dict(route="one_pass", tq=tq, threads=16 * tq, r=r, kb=kb, smem=smem)
+    return dict(route=K5_ROUTES[nbuf], tq=tq, threads=16 * tq, r=r, kb=kb, smem=smem)
 
 
 @functools.lru_cache(maxsize=None)
@@ -221,16 +233,18 @@ def flash_plan(sq: int, skv: int, c: int) -> dict:
     """K5's launch plan at (Sq, Skv, C): the one-pass route with the
     smallest cluster (``r`` blocks, each ``kb`` keys) whose blocks hold
     their slice, with 64 query rows a work item where they fit and Sq
-    exceeds 32, else 32; else the sweep route (``int8_flash_sweep.cu``:
-    one block covers the keys in three sweeps, and C in chunks of at most
-    ``SWEEP_FCC`` columns).  Returns ``route``,
+    exceeds 32, else 32; where two W·V buffers fit no cluster, the same
+    search with one (the ``one_pass_wide`` route); else the sweep route
+    (``int8_flash_sweep.cu``: one block covers the keys in three sweeps,
+    and C in chunks of at most ``SWEEP_FCC`` columns).  Returns ``route``,
     ``tq``, ``threads``, ``r``, ``kb`` and ``smem`` (the dynamic shared
     bytes); cached, so a launch pays no search."""
-    for r in K5_CLUSTERS:
-        for tq in K5_TQS:
-            plan = k5_plan(r, tq, skv, c) if tq == 32 or sq > 32 else None
-            if plan is not None:
-                return plan
+    for nbuf in K5_ROUTES:
+        for r in K5_CLUSTERS:
+            for tq in K5_TQS:
+                plan = k5_plan(r, tq, skv, c, nbuf) if tq == 32 or sq > 32 else None
+                if plan is not None:
+                    return plan
     return dict(route="sweep", tq=SWEEP_FQ, threads=SWEEP_THREADS, r=1, kb=skv,
                 smem=sweep_smem_bytes(c))
 
@@ -360,10 +374,10 @@ def _int8_flash_attention_cuda(Q, K, V, sc, n_levels_w, return_codes):
     plan = flash_plan(sq, skv, c)
     args = (ptr(Q), ptr(K), ptr(V), ptr(sc.contiguous()), ptr(out), ptr(codes),
             n, sq, skv, c, n_levels_w)
-    if plan["route"] == "one_pass":
+    if plan["route"] in K5_ENTRY:
         lib = cuda_lib("int8_flash_attention", _FLASH_SIG)
-        err = lib.edm_int8_flash_attention(*args, *(plan[k] for k in K5_PLAN_ARGS),
-                                           stream_ptr(dev))
+        err = getattr(lib, K5_ENTRY[plan["route"]])(
+            *args, *(plan[k] for k in K5_PLAN_ARGS), stream_ptr(dev))
         check_launch(lib, err, "int8_flash_attention")
         launch_counts["int8_flash_attention"] += 1
     else:

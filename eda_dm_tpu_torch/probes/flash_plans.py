@@ -2,32 +2,37 @@
 an earlier K5 held bit for bit (``csrc/int8_flash_attention.cu``).
 
 K5 splits a row tile's keys over a cluster of R blocks, each holding its
-slice's logits (one pass); past what 8 blocks hold it takes the sweep
-route, ``csrc/int8_flash_sweep.cu`` (the three-sweep kernel K5 was before
-its redesign).  This probe builds (one ``nvcc`` a build, all started
-together):
+slice's logits (one pass), with two W·V buffers (route ``one_pass``) or,
+where two do not fit, one (``one_pass_wide``: ImageNet's C = 384); past
+what 8 blocks hold it takes the sweep route, ``csrc/int8_flash_sweep.cu``
+(the three-sweep kernel K5 was before its redesign).  This probe builds
+(one ``nvcc`` a build, all started together):
 
 * this tree's K5 whole and stopped before any work, after the logits,
   after the codes and after W·V (``-DK5_STOP_AFTER=0 … 3``), so its phases
   are the differences of neighbouring builds' times; with
-  ``-DK5_CLOCKS``, which counts the cycles of each stretch of an item; and
+  ``-DK5_CLOCKS``, which counts the cycles of each stretch of an item;
   three timing-only builds with wrong results (``-DK5_DIAG``): block
-  barriers in place of the cluster's, no exponentials, no divisions;
+  barriers in place of the cluster's, no exponentials, no divisions; and
+  one that admits clusters of 16 blocks (``-DK5_R_MAX=16``, a
+  non-portable size);
 * the sweep route, whole and with a stop written into the probe's own
   copy of its source (``K5_SWEEP_STOP``: before any sweep, after the max
   sweep, after the sum sweep), so its three sweeps are timed apart;
-* with ``--parent DIR`` (a checkout of an earlier commit, e.g. unpacked
-  from ``git archive``), that checkout's ``int8_flash_attention.cu`` with
-  the C interface it had before K5 took a plan.
+* with ``--parent DIR`` (a checkout of an earlier commit whose K5 takes
+  the plan's arguments, e.g. unpacked from ``git archive``), that
+  checkout's ``int8_flash_attention.cu`` and ``int8_flash_sweep.cu``.
 
 At SD's 64×64 self-attention (64 and 16 (b·h) elements, 4096 queries and
-keys, C = 40) it times every phase and diagnostic build, prints the
-cycles an item, times the sweep route's sweeps, the new K5
-under each plan that fits (R blocks a cluster, 32 or 64 query rows an
+keys, C = 40) and ImageNet's 32×32 one (100 elements, 1024 queries and
+keys, C = 384) it times every phase and diagnostic build, prints the
+cycles an item, times the sweep route's sweeps, K5 under each plan that
+fits (either route, R = 1 … 16 blocks a cluster, 32 or 64 query rows an
 item: each held bit for bit against ``flash_plan``'s), the port's unfused
 chain K2 → K3 → K2, and the parent in turns with this tree's K5 (parent,
-this, this, parent).  With ``--parent`` it also compares the two kernels'
-codes and outputs bit for bit at ``chip_smoke.py``'s four K5 shapes and
+this, this, parent; the parent's K5 where its plan took the one pass, its
+sweep route where not).  With ``--parent`` it also compares the two
+trees' codes and outputs bit for bit at ``chip_smoke.py``'s K5 shapes and
 the card tests' ``FLASH`` shapes: it counts the rows whose codes differ (a
 row whose float64 row sums, added in two orders, straddle a float32
 rounding boundary; 0 expected) and fails if an output differs on a row
@@ -50,28 +55,34 @@ import torch
 
 from ..device import resolve_device
 from ..ops import _build
-from ..ops.int8_attention import (_FLASH_SIG, _SWEEP_SIG, K5_CLUSTERS, K5_PLAN_ARGS,
-                                  _int8_flash_attention_cuda, attention_scalars,
-                                  flash_plan, k5_plan)
+from ..ops.int8_attention import (_FLASH_SIG, _SWEEP_SIG, K5_CLUSTERS, K5_ENTRY,
+                                  K5_PLAN_ARGS, K5_ROUTES, _int8_flash_attention_cuda,
+                                  attention_scalars, flash_plan, k5_plan)
 from .attention_phases import card
 from .mma_int8 import cuda_ms
 
-TIMED = ((64, 4096, 4096, 40), (16, 4096, 4096, 40))     # SD 64x64 at 8 and 2 rows
-# chip_smoke.py's four K5 shapes (n, sq, skv, c, softmax levels), then the
-# card tests' FLASH shapes
+# SD 64x64 at 8 and 2 rows, ImageNet 32x32 at 100 rows
+TIMED = ((64, 4096, 4096, 40), (16, 4096, 4096, 40), (100, 1024, 1024, 384))
+# chip_smoke.py's one-pass K5 shapes (n, sq, skv, c, softmax levels), then
+# the card tests' FLASH shapes
 SMOKE = ((64, 4096, 4096, 40, 256), (16, 4096, 4096, 40, 256), (8, 256, 512, 32, 256),
-         (16, 4096, 4096, 40, 16))
+         (16, 4096, 4096, 40, 16), (100, 1024, 1024, 384, 256))
 CARD = ((3, 64, 64, 40), (4, 100, 77, 40), (2, 256, 512, 32), (5, 33, 300, 8),
         (2, 130, 4096, 40), (2, 64, 128, 160), (2, 40, 200, 384), (1, 1, 1, 4),
         (16, 4096, 4096, 40), (2, 40, 832, 40), (2, 40, 833, 40), (2, 40, 1665, 40),
         (2, 40, 3329, 40), (2, 40, 6656, 40), (2, 40, 6657, 40), (2, 40, 100, 516),
-        (2, 8, 300, 1024))
+        (2, 8, 300, 1024), (2, 40, 1024, 384), (2, 100, 1000, 384), (2, 33, 1280, 320),
+        (2, 64, 2048, 256), (2, 64, 512, 512), (2, 130, 1024, 448))
+# cluster sizes tried beside the plan's: 16 blocks only in the K5_R_MAX=16 build
+PROBE_CLUSTERS = K5_CLUSTERS + (16,)
 STOPS = (0, 1, 2, 3)
 # builds that leave part of the work out (K5_DIAG; wrong results, timing only)
 DIAGNOSTICS = {"block-barriers": 1, "no-exp": 2, "no-divisions": 4}
 TQS = (32, 64)
-# the parent's C interface (no plan arguments)
-_PARENT_SIG = {"edm_int8_flash_attention": _SWEEP_SIG["edm_int8_flash_sweep"]}
+# this tree's K5 with its probe query: the clusters its last launch held
+_PROBE_SIG = {**_FLASH_SIG, "edm_int8_flash_last_clusters": []}
+# the parent's C interface: K5 with the plan's arguments, two W·V buffers
+_PARENT_SIG = {"edm_int8_flash_attention": _FLASH_SIG["edm_int8_flash_attention"]}
 # where the sweep route's stops go: (text the stop follows, stop, its sink)
 SWEEP_ANCHORS = (
     ("  for (int m = 0; m < 4; ++m) qterm[m] = "
@@ -132,18 +143,28 @@ def inputs(g, n, sq, skv, c, levels=256):
 
 def launcher(lib, Q, K, V, sc, out, codes=None, plan=None, levels=256):
     """One launch through a built library: K5 under ``plan`` (default
-    ``flash_plan``'s), or, with ``plan="sweep"`` or ``"parent"``, a kernel
-    with the plan-free interface."""
+    ``flash_plan``'s) through its route's entry point, or, with
+    ``plan="sweep"``, the sweep route."""
     n, sq, c = Q.shape
     args = [_build.ptr(x) for x in (Q, K, V, sc, out, codes)] + [n, sq, K.shape[1], c, levels]
-    if plan in ("sweep", "parent"):
-        fn = lib.edm_int8_flash_sweep if plan == "sweep" else lib.edm_int8_flash_attention
-        err = fn(*args, _build.stream_ptr(Q.device))
+    if plan == "sweep":
+        err = lib.edm_int8_flash_sweep(*args, _build.stream_ptr(Q.device))
     else:
         p = plan or flash_plan(sq, K.shape[1], c)
-        err = lib.edm_int8_flash_attention(*args, *(p[k] for k in K5_PLAN_ARGS),
-                                           _build.stream_ptr(Q.device))
+        err = getattr(lib, K5_ENTRY[p["route"]])(*args, *(p[k] for k in K5_PLAN_ARGS),
+                                                 _build.stream_ptr(Q.device))
     _build.check_launch(lib, err, "K5")
+
+
+def parent_launcher(libs, Q, K, V, sc, out, codes=None, levels=256):
+    """The parent tree's launch at this shape: its K5 under the plan it
+    had (the one-pass plan with two W·V buffers where one fits), else its
+    sweep route."""
+    plan = flash_plan(Q.shape[1], K.shape[1], Q.shape[2])
+    if plan["route"] == "one_pass":
+        launcher(libs["parent"], Q, K, V, sc, out, codes, plan, levels)
+    else:
+        launcher(libs["parent-sweep"], Q, K, V, sc, out, codes, "sweep", levels)
 
 
 def run(fn, Q, K):
@@ -217,17 +238,19 @@ def main(parent=None, json_path=None, device=None) -> dict:
     sweep_src.parent.mkdir(parents=True, exist_ok=True)
     sweep_src.write_text(sweep_with_stops((csrc / "int8_flash_sweep.cu").read_text()))
     k5, sweep = csrc / "int8_flash_attention.cu", csrc / "int8_flash_sweep.cu"
-    builds = {"this": (k5, csrc, [], _FLASH_SIG), "sweep": (sweep, csrc, [], _SWEEP_SIG)}
+    builds = {"this": (k5, csrc, [], _PROBE_SIG), "sweep": (sweep, csrc, [], _SWEEP_SIG)}
     builds.update({f"this-stop{p}": (k5, csrc, [f"-DK5_STOP_AFTER={p}"], _FLASH_SIG)
                    for p in STOPS})
     builds.update({f"this-{tag}": (k5, csrc, [f"-DK5_DIAG={d}"], _FLASH_SIG)
                    for tag, d in DIAGNOSTICS.items()})
     builds["this-clocks"] = (k5, csrc, ["-DK5_CLOCKS"], _FLASH_SIG)
+    builds["this-r16"] = (k5, csrc, ["-DK5_R_MAX=16"], _PROBE_SIG)
     builds.update({f"sweep-stop{p}": (sweep_src, csrc, [f"-DK5_SWEEP_STOP={p}"], _SWEEP_SIG)
                    for p in STOPS[:3]})
     if parent:
         pcsrc = Path(parent) / "eda_dm_tpu_torch" / "csrc"
         builds["parent"] = (pcsrc / "int8_flash_attention.cu", pcsrc, [], _PARENT_SIG)
+        builds["parent-sweep"] = (pcsrc / "int8_flash_sweep.cu", pcsrc, [], _SWEEP_SIG)
     libs = build(builds)
     result = {"card": card(), "phases": {}, "diagnostics": {}, "clocks": {}, "sweeps": {},
               "plans": {},
@@ -261,25 +284,36 @@ def main(parent=None, json_path=None, device=None) -> dict:
         print(f"K5 sweep route {shape}: " + ", ".join(f"{k} {v:.4f}" for k, v in sw.items())
               + " ms", flush=True)
         ref = run(lambda o, cd: launcher(libs["this"], Q, K, V, sc, o, cd), Q, K)
-        for r in K5_CLUSTERS:
-            for tq in TQS:
-                p = k5_plan(r, tq, skv, c)
-                if p is None:
-                    continue
-                got = run(lambda o, cd: launcher(libs["this"], Q, K, V, sc, o, cd, plan=p), Q, K)
-                same = all(torch.equal(x, y) for x, y in zip(got, ref))
-                del got
-                ms = cuda_ms(lambda: launcher(libs["this"], Q, K, V, sc, out, plan=p))
-                result["plans"][f"{shape} r {r} tq {tq} kb {p['kb']}"] = dict(ms=ms, bitwise=same)
-                print(f"K5 {shape} r {r} tq {tq} kb {p['kb']} smem {p['smem']}: {ms:.4f} ms, "
-                      f"bit for bit with the plan's: {same}", flush=True)
-                if not same:
-                    raise RuntimeError(f"K5 at {shape}: plan {p} changes the result")
+        for nbuf, route in K5_ROUTES.items():
+            for r in PROBE_CLUSTERS:
+                for tq in TQS:
+                    p = k5_plan(r, tq, skv, c, nbuf)
+                    if p is None:
+                        continue
+                    lib = libs["this-r16" if r > max(K5_CLUSTERS) else "this"]
+                    tag = f"{shape} {route} r {r} tq {tq} kb {p['kb']}"
+                    try:
+                        got = run(lambda o, cd: launcher(lib, Q, K, V, sc, o, cd, plan=p), Q, K)
+                    except RuntimeError as e:    # a cluster size the card cannot place
+                        result["plans"][tag] = dict(refused=str(e), smem=p["smem"],
+                                                    clusters=lib.edm_int8_flash_last_clusters())
+                        print(f"K5 {tag} smem {p['smem']}: refused ({e})", flush=True)
+                        continue
+                    same = all(torch.equal(x, y) for x, y in zip(got, ref))
+                    del got
+                    ms = cuda_ms(lambda: launcher(lib, Q, K, V, sc, out, plan=p))
+                    clusters = lib.edm_int8_flash_last_clusters()
+                    result["plans"][tag] = dict(ms=ms, bitwise=same, smem=p["smem"],
+                                                clusters=clusters)
+                    print(f"K5 {tag} smem {p['smem']}: {ms:.4f} ms, {clusters} clusters at "
+                          f"once, bit for bit with the plan's: {same}", flush=True)
+                    if not same:
+                        raise RuntimeError(f"K5 at {shape}: plan {p} changes the result")
         del ref
         if parent:
             order = ("parent", "this", "this", "parent")
-            turns = [cuda_ms(lambda: launcher(libs[tag], Q, K, V, sc, out,
-                                              plan="parent" if tag == "parent" else None))
+            turns = [cuda_ms(lambda: parent_launcher(libs, Q, K, V, sc, out) if tag == "parent"
+                             else launcher(libs["this"], Q, K, V, sc, out), reps=10)
                      for tag in order]
             result["turns"][shape] = list(zip(order, turns))
             print(f"K5 {shape} parent, this, this, parent: "
@@ -291,8 +325,7 @@ def main(parent=None, json_path=None, device=None) -> dict:
         g = torch.Generator(device="cuda").manual_seed(0)
         for n, sq, skv, c, levels in SMOKE + tuple(s + (256,) for s in CARD):
             Q, K, V, sc = inputs(g, n, sq, skv, c, levels)
-            old = run(lambda o, cd: launcher(libs["parent"], Q, K, V, sc, o, cd, plan="parent",
-                                             levels=levels), Q, K)
+            old = run(lambda o, cd: parent_launcher(libs, Q, K, V, sc, o, cd, levels), Q, K)
             new = _int8_flash_attention_cuda(Q, K, V, sc, levels, True)
             torch.cuda.synchronize()
             rec = dict(compare(old, new), route=flash_plan(sq, skv, c)["route"])

@@ -15,8 +15,10 @@ version) against the JAX package on the CPU.
   and layout those of ``csrc/int8_attention.cu``.
 * ``flash_plan`` (K5's launch plan): within the H100's shared memory, at
   most 8 blocks a cluster whose key slices cover every key once, the
-  one-pass route at SD's shape and up to what 8 blocks hold, the sweep
-  route past it, its fixed sizes and layout those of
+  one-pass route at SD's shape and up to what 8 blocks hold, its
+  one-buffer instance where two W·V buffers do not fit (ImageNet's
+  (1024, 1024, 384)), the sweep route past both, its fixed sizes and
+  layout those of
   ``csrc/int8_flash_attention.cu`` and ``csrc/int8_flash_sweep.cu``.
 * the heads layout (``int8_fused_attention_heads``) and the heads-layout
   einsums of the LDM einsum branch (``bthc,bshc->bhts``,
@@ -38,8 +40,9 @@ from eda_dm_tpu.ops import serving_policy as jpolicy
 from eda_dm_tpu_torch.ops import int8_einsum as tein
 from eda_dm_tpu_torch.ops.int8_attention import (BLOCK_SMEM_MAX, FLASH_MAX_C, K4_CB, K4_HDR,
                                                  K4_NI_MAX, K4_STAGES, K4_TILE_KEYS, K4_TQ,
-                                                 K4_WARPS, K5_CLUSTERS, K5_HDR, K5_KB_STEP,
-                                                 K5_MAX_C, K5_R_MAX, K5_TQS, K5_WARPS_MAX,
+                                                 K4_WARPS, K5_CLUSTERS, K5_ENTRY, K5_HDR,
+                                                 K5_KB_STEP, K5_MAX_C, K5_R_MAX, K5_ROUTES,
+                                                 K5_TQS, K5_WARPS_MAX,
                                                  SWEEP_FCC, SWEEP_FCH, SWEEP_FJ, SWEEP_FPAD,
                                                  SWEEP_FQ, SWEEP_THREADS, attention_plan,
                                                  flash_attention_applicable, flash_plan,
@@ -223,7 +226,11 @@ FLASH_PLAN_GRID = [  # sq, skv, c: the card tests' FLASH shapes, SD's, the corne
     (7, 1, K5_MAX_C), (7, 1, K5_MAX_C + 4), (7, 2048, K5_MAX_C), (3, 9, 1024),
     (64, 2048, 40), (64, 4097, 40)] + [(40, skv, 40) for skv, _ in K5_R_BOUNDARIES] + [
     (1024, 1024, 1088), (256, 512, 1280), (64, 128, 4096), (8, 128, 17_856),
-    (3, 9, FLASH_MAX_C)]   # heads past one resident chunk of the sweep route
+    (3, 9, FLASH_MAX_C),   # heads past one resident chunk of the sweep route
+    # wide heads on one W·V buffer: ImageNet's 32×32 site, more queries,
+    # other key lengths (ragged slices of 192 keys, C = K5_MAX_C)
+    (1024, 1024, 384), (4096, 1024, 384), (64, 2048, 256), (33, 1280, 320),
+    (64, 512, K5_MAX_C), (64, 1088, 384)]
 
 
 @pytest.mark.parametrize("sq, skv, c", FLASH_PLAN_GRID,
@@ -232,27 +239,36 @@ def test_flash_plan_fits_the_card(sq, skv, c):
     """K5's plan fits a block of the H100 (at most 232,448 B of dynamic
     shared memory) with at most 8 blocks a cluster whose key slices cover
     every key exactly once.  The one-pass route takes the smallest cluster
-    that holds the keys (SD's (4096, 4096, 40): 8 blocks of 512 keys); where
-    no cluster of at most 8 does, the sweep route takes one block."""
+    that holds the keys with two W·V buffers (SD's (4096, 4096, 40): 8
+    blocks of 512 keys); where none does, the one-pass-wide route the
+    smallest with one (ImageNet's (1024, 1024, 384): 8 blocks of 128
+    keys); where neither does, the sweep route takes one block."""
     plan = flash_plan(sq, skv, c)
     assert plan["smem"] <= BLOCK_SMEM_MAX and 1 <= plan["r"] <= K5_R_MAX
     cover = np.zeros(skv, dtype=np.int64)
     for rank in range(plan["r"]):
         cover[rank * plan["kb"]:(rank + 1) * plan["kb"]] += 1
     assert (cover == 1).all() and plan["r"] * plan["kb"] >= skv
-    fits = [(r, tq) for r in K5_CLUSTERS for tq in K5_TQS
-            if (tq == 32 or sq > 32) and k5_plan(r, tq, skv, c) is not None]
-    if plan["route"] == "one_pass":
-        assert (plan["r"], plan["tq"]) == fits[0] and plan["r"] in K5_CLUSTERS
+    fits = {nbuf: [(r, tq) for r in K5_CLUSTERS for tq in K5_TQS
+                   if (tq == 32 or sq > 32) and k5_plan(r, tq, skv, c, nbuf) is not None]
+            for nbuf in K5_ROUTES}
+    nbuf = {route: nb for nb, route in K5_ROUTES.items()}.get(plan["route"])
+    if nbuf is not None:
+        assert nbuf == 2 or not fits[2]
+        assert (plan["r"], plan["tq"]) == fits[nbuf][0] and plan["r"] in K5_CLUSTERS
         assert plan["tq"] in (32, 64) and plan["threads"] == 16 * plan["tq"]
         assert plan["kb"] % K5_KB_STEP == 0 and plan["kb"] - K5_KB_STEP < -(-skv // plan["r"])
-        assert plan["smem"] == k5_smem_bytes(plan["tq"], c, plan["kb"])
+        assert plan["smem"] == k5_smem_bytes(plan["tq"], c, plan["kb"], nbuf)
     else:
-        assert plan["route"] == "sweep" and not fits
+        assert plan["route"] == "sweep" and not fits[2] and not fits[1]
         assert (plan["tq"], plan["threads"]) == (SWEEP_FQ, SWEEP_THREADS)
         assert plan["smem"] == sweep_smem_bytes(c)
     if (sq, skv, c) == (4096, 4096, 40):
         assert plan == dict(route="one_pass", tq=64, threads=1024, r=8, kb=512, smem=225_792)
+    if (sq, skv, c) == (1024, 1024, 384):     # two W·V buffers 12,032 B over a block, one fits
+        assert plan == dict(route="one_pass_wide", tq=32, threads=512, r=8, kb=128,
+                            smem=196_352)
+        assert k5_smem_bytes(32, c, 128) is None and k5_smem_bytes(32, c, 128, 1) < BLOCK_SMEM_MAX
     expected = dict(K5_R_BOUNDARIES).get(skv) if c == 40 else None
     if expected == "sweep":
         assert plan["route"] == "sweep"
@@ -265,7 +281,8 @@ def test_k5_constants_match_the_source():
     step of a block's keys, the widest one-pass head, header bytes) equals
     the constants of ``csrc/int8_flash_attention.cu``, the header's parts
     fit its bytes, the source's layout adds the same parts as
-    ``k5_smem_bytes``; the sweep route's sizes are those of
+    ``k5_smem_bytes`` (W·V buffers by route, each route's entry point
+    launching its instance); the sweep route's sizes are those of
     ``csrc/int8_flash_sweep.cu``."""
     csrc = pathlib.Path(tein.__file__).parent.parent / "csrc"
     src = (csrc / "int8_flash_attention.cu").read_text()
@@ -281,11 +298,17 @@ def test_k5_constants_match_the_source():
     assert hdr["H_SW"] + 2 * 4 * tq_max <= const["HDR_BYTES"] and const["HDR_BYTES"] % 16 == 0
     layout = src[src.index("inline Layout k5_layout("):]
     layout = layout[:layout.index("return l;")]
-    for part in ("l.logits = HDR_BYTES;", "tq * 4 * (kb + 4)", "2 * tq * 4 * c8",
+    for part in ("l.logits = HDR_BYTES;", "tq * 4 * (kb + 4)", "nbuf * tq * 4 * red_ld(c8, nbuf)",
                  "4 * 4 * c8", "4 * kb", "tq * (cp + 16)", "kb * (cp + 16)",
                  "c8 * (kb + 16)", "round_up(C, 32)", "round_up(C, 8)"):
         assert part in layout, part
     assert "(tq != 32 && tq != 64)" in src and set(K5_TQS) == {32, 64}
+    for nbuf, route in K5_ROUTES.items():    # each route's entry point, its W·V buffers
+        entry = src[src.index(f'extern "C" int {K5_ENTRY[route]}('):]
+        assert f"return entry({nbuf}, " in entry[:entry.index("}")]
+    assert "const int n = item / tiles, i0 = (item - n * tiles) * TQ, h = item & (NBUF - 1);" in src
+    assert ("constexpr int red_ld(int c8, int nbuf) { return nbuf == 1 ? c8 + 8 : c8; }"
+            in src)
     sweep = (csrc / "int8_flash_sweep.cu").read_text()
     defs = {k: int(v) for k, v in re.findall(r"#define (\w+) (\d+)", sweep)}
     assert (defs["FQ"], defs["FJ"], defs["FCH"], defs["FA_THREADS"], defs["FPAD"],

@@ -13,8 +13,9 @@ padded codes, K not a
 multiple of 4 (K2's tail, SD's 77 context tokens), softmax rows that are
 not a power of two, query and key lengths that are not
 multiples of K5's 32-row and 64-key tiles, K5 on each side of its plan's
-cluster sizes and past them on its sweep route (heads past its resident
-1024 columns included), GroupNorm groups of 3, 7, 21 and 40 channels, each
+cluster sizes, on its one-buffer route for wide heads (ImageNet's C = 384
+and others up to 512) and past them on its sweep route (heads past its
+resident 1024 columns included), GroupNorm groups of 3, 7, 21 and 40 channels, each
 side of K6's plan's cluster sizes, the gate's widest slice and spans past
 one warp's and one block's vectors (K6), and fake-quant matmuls with
 ragged M, N, K and strided weights (K7).  Integer accumulators
@@ -285,7 +286,11 @@ FLASH = [  # n, sq, skv, c: ragged tiles, Sq != Skv, wide heads, SD's 4096
     (2, 40, 832, 40), (2, 40, 833, 40), (2, 40, 1665, 40), (2, 40, 3329, 40),
     (2, 40, 6656, 40), (2, 40, 6657, 40), (2, 40, 100, 516), (2, 8, 300, 1024),
     # heads wider than the sweep route's resident chunk of 1024 columns
-    (1, 1024, 1024, 1088), (1, 256, 512, 1280), (1, 64, 128, 4096)]
+    (1, 1024, 1024, 1088), (1, 256, 512, 1280), (1, 64, 128, 4096),
+    # the one-pass-wide route (one W·V buffer): ragged query tiles, a ragged
+    # last key slice, slices of 192 and 256 keys, the widest head
+    (2, 40, 1024, 384), (2, 100, 1000, 384), (2, 33, 1280, 320), (2, 64, 2048, 256),
+    (2, 64, 512, 512), (2, 130, 1024, 448)]
 
 
 @pytest.mark.parametrize("case", FLASH, ids=lambda c: "x".join(map(str, c)))
@@ -312,22 +317,25 @@ def test_int8_flash_attention_kernel(gen, case, levels):
 
 
 def test_int8_flash_attention_routes_count_their_launches(gen):
-    """SD's 64×64 shape takes K5's one-pass route, counted under
+    """SD's 64×64 shape takes K5's one-pass route and ImageNet's 32×32 one
+    (C = 384) its one-pass-wide route, both counted under
     ``int8_flash_attention``; a key length past what 8 blocks hold takes
     the sweep route, counted under ``int8_flash_sweep``."""
     from eda_dm_tpu_torch.ops._build import launch_counts
     from eda_dm_tpu_torch.ops.int8_attention import flash_plan, int8_flash_attention
     assert flash_plan(4096, 4096, 40)["route"] == "one_pass"
+    assert flash_plan(1024, 1024, 384)["route"] == "one_pass_wide"
     assert flash_plan(40, 6657, 40)["route"] == "sweep"
-    for (sq, skv), name in (((4096, 4096), "int8_flash_attention"),
-                            ((40, 6657), "int8_flash_sweep")):
-        Q, K, V = _codes(gen, (2, sq, 40)), _codes(gen, (2, skv, 40)), _codes(gen, (2, skv, 40))
+    for (sq, skv, c), name in (((4096, 4096, 40), "int8_flash_attention"),
+                               ((1024, 1024, 384), "int8_flash_attention"),
+                               ((40, 6657, 40), "int8_flash_sweep")):
+        Q, K, V = _codes(gen, (2, sq, c)), _codes(gen, (2, skv, c)), _codes(gen, (2, skv, c))
         launch_counts.clear()
         out = int8_flash_attention(Q, 3.0, 0.021, K, -5.0, 0.017, V, 1.0, 0.025,
-                                   40 ** -0.5, 1.0 / 255.0, 0.0, 256)
+                                   c ** -0.5, 1.0 / 255.0, 0.0, 256)
         torch.cuda.synchronize()
         assert dict(launch_counts) == {name: 1}
-        assert out.shape == (2, sq, 40) and bool(torch.isfinite(out).all())
+        assert out.shape == (2, sq, c) and bool(torch.isfinite(out).all())
 
 
 def test_int8_flash_attention_kernel_past_the_grid_limit(gen):
@@ -356,15 +364,16 @@ def test_int8_attention_kernel_past_the_grid_limit(gen):
 
 
 IMAGENET = {  # chip_smoke.py's phase-3 shapes of the ImageNet task at 100 UNet rows
-    "k5_sweep_32x32": (100, 1024, 1024, 384), "k4_16x16": (100, 256, 576),
+    "k5_wide_32x32": (100, 1024, 1024, 384), "k4_16x16": (100, 256, 576),
     "k4_8x8": (100, 64, 960), "k2_cross_qk_n1": (100, 1024, 1, 384),
     "k2_cross_wv_k1": (100, 1024, 384, 1), "k3_rows_of_1": (100 * 1024, 1)}
 
 
 @pytest.mark.parametrize("which", list(IMAGENET))
 def test_imagenet_shapes(gen, which):
-    """The ImageNet sites at 100 rows: K5 on its sweep route at the 32×32
-    self-attention (C = 384), K4 at the 16×16 (C = 576, its plan's 209,920
+    """The ImageNet sites at 100 rows: K5 on its one-pass-wide route at the
+    32×32 self-attention (C = 384; codes and outputs equal to the plain
+    version's, bit for bit), K4 at the 16×16 (C = 576, its plan's 209,920
     bytes of shared memory) and 8×8 (C = 960, a column tail in W·V) ones:
     codes within ±1 and ≥ 99.9 % equal, the output within 1e-5 on the rows
     whose codes agree.  The cross-attention over the one class token: K2's
@@ -382,10 +391,11 @@ def test_imagenet_shapes(gen, which):
         c = shape[-1]
         Q, K, V, sc = _attention_case(gen, n, sq, c)
         if which.startswith("k5"):
-            assert flash_plan(sq, sq, c)["route"] == "sweep"
+            assert flash_plan(sq, sq, c)["route"] == "one_pass_wide"
             out, codes = _int8_flash_attention_cuda(Q, K, V, sc, 256, True)
             torch.cuda.synchronize()
             ref, ref_codes = int8_flash_attention_plain(Q, K, V, sc, 256, True)
+            assert torch.equal(codes, ref_codes) and torch.equal(out, ref)
         else:
             out, codes = _int8_fused_attention_cuda(Q, K, V, sc, 256, True)
             torch.cuda.synchronize()

@@ -3,8 +3,8 @@ package on the CPU.
 
 * ``int8_flash_attention_heads`` against the Pallas kernel
   (``int8_flash_attention_heads``, interpret mode) at the JAX package's
-  own test shapes, the SD head width 40 and a 16-level softmax quantizer,
-  on seeded numpy inputs: within rtol = atol = 1e-4.  A larger difference
+  own test shapes, the SD head width 40, ImageNet's 384 and a 16-level
+  softmax quantizer, on seeded numpy inputs: within rtol = atol = 1e-4.  A larger difference
   is allowed on at most 0.1 % of the elements, and only on query rows
   where a softmax code differs from JAX's: the JAX kernel adds each row's
   normalizer in float32 with a running rescale, the port in float64 (so a
@@ -84,7 +84,8 @@ def _jax_flash_codes(Q, cq, dq, K, ck, dk, attn_scale, dw, zw, n_lv):
 
 @pytest.mark.parametrize("sq,skv,h,c,levels", [
     (256, 256, 2, 128, 256), (128, 256, 2, 32, 256), (512, 512, 1, 64, 256),
-    (512, 512, 2, 40, 256), (128, 128, 1, 128, 16)])
+    (512, 512, 2, 40, 256), (128, 128, 1, 128, 16),
+    (256, 256, 1, 384, 256)])    # ImageNet's head width (its 32×32 site: one head of 384)
 def test_flash_attention_matches_the_pallas_kernel(sq, skv, h, c, levels):
     Q, cq, K, ck, V, cv, p = _codes_inputs(sq + c, 2, sq, skv, h, c, levels)
     scale = c ** -0.5

@@ -220,9 +220,10 @@ def test_label_emb_deploy_int8(labeled):
 def test_imagenet_config_matches_jax():
     """Every field of the port's ``imagenet_config()`` equal to JAX's; the
     full UNet's layout equal, and its attention routes at 100 rows: the
-    32×32 self-attention (S = 1024, C = 384) on K5 (its sweep route), the
-    16×16 and 8×8 ones (C = 576, 960) on K4, every cross-attention over the
-    one class token on K2 → K3 → K2, in both packages' policies."""
+    32×32 self-attention (S = 1024, C = 384) on K5 (its one-pass-wide
+    route), the 16×16 and 8×8 ones (C = 576, 960) on K4, every
+    cross-attention over the one class token on K2 → K3 → K2, in both
+    packages' policies."""
     from eda_dm_tpu_torch.ops.int8_attention import flash_plan
     got, want = dataclasses.asdict(tld.imagenet_config()), \
         dataclasses.asdict(jld.imagenet_config())
@@ -244,7 +245,7 @@ def test_imagenet_config_matches_jax():
                          for h, d, r in sites]
     assert self_attn.count("flash") == 5 and self_attn.count("fused") == 11
     assert all(d == 384 for (h, d, r), i in zip(sites, self_attn) if i == "flash")
-    assert flash_plan(1024, 1024, 384)["route"] == "sweep"
+    assert flash_plan(1024, 1024, 384)["route"] == "one_pass_wide"
     assert {tldm.attention_impl(100, h, r * r, 1, d) for h, d, r in sites} \
         == {jpolicy.attention_impl(100, h, r * r, 1, d) for h, d, r in sites} \
         == {"einsum"}
