@@ -148,7 +148,19 @@ exits non-zero before the last line:
     img/s, peak memory, one profiled int8 forward; ``sampler="dpm"``
     (DPM-Solver++ order 2, 10 steps) at 100 rows; TDAC under guidance
     with class contexts, scale init and the plan through its first
-    transformer block, the export served at 100 rows.
+    transformer block, the export served at 100 rows;
+13. the scoring path, this slice's main path (``scoring``'s docstring
+    lists every cut): a full-width CIFAR checkpoint and an ImageNet
+    cin256-v2 one (UNet, VQ-f4, class embedder, EMA shadows) written in
+    the reference's layout and loaded back bit-equal through
+    ``CifarPipeline``, ``LDMPipeline`` (raw weights) and
+    ``api.quantize_model`` (EMA weights); ``python -m
+    eda_dm_tpu_torch.sample_ddim``'s ``main`` on the CIFAR checkpoint
+    (int8 through K1–K3, and fp), 1,000 PNGs a set at batch 500;
+    ``python -m eda_dm_tpu_torch.evaluate``'s ``main`` on the two sets
+    (FID raw and standardized, IS, sFID at batch 200 on the card), one
+    profiled Inception forward, the Inception card against host and the
+    PNG round trip's features held exactly.
 
 The serving switches (``EDM_FUSED_ATTN`` and the others that
 ``eda_dm_tpu_torch/ops/serving_policy.py`` reads) are unset for the run,
@@ -1324,7 +1336,8 @@ def smoke_quant_state(model, x, t, *context):
 def profile_forward(fn, top=12, what="one forward"):
     """One call of ``fn`` (a forward, unless ``what`` says otherwise) under
     torch.profiler: device busy share of the wall time and the kernels with
-    the most device time."""
+    the most device time, printed; returns the wall and kernel ms and the
+    busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1339,7 +1352,7 @@ def profile_forward(fn, top=12, what="one forward"):
     busy = sum(dev_ms(e) for e in kern)
     if busy == 0:
         print("    profiler saw no device time")
-        return
+        return dict(wall_ms=wall_ms, kernel_ms=None, busy=None)
     print(f"    {what}: wall {wall_ms:.2f} ms, kernels {busy:.2f} ms "
           f"(device busy {busy / wall_ms:.1%}, idle {1 - busy / wall_ms:.1%})")
     for e in sorted(kern, key=dev_ms, reverse=True)[:top]:
@@ -1359,6 +1372,7 @@ def profile_forward(fn, top=12, what="one forward"):
     print("      hand-written kernels: " + "; ".join(
         f"{n} {t:.3f} ms ({t / busy:.1%}, x{c})" for n, (t, c) in
         sorted(mine.items(), key=lambda kv: -kv[1][0])))
+    return dict(wall_ms=wall_ms, kernel_ms=busy, busy=busy / wall_ms)
 
 
 def steps_per_s(model_fn, x, seq, betas):
@@ -2523,6 +2537,236 @@ def imagenet(kernels, smi):
 # --------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the scoring path
+
+SCORE_IMAGES = 1000                    # images a set (the task: 50,000)
+SCORE_BATCH = 500                      # CIFAR's sampling batch
+INCEPTION_BATCH = 200                  # the Inception's batch
+HELD_IMAGES = 16                       # the card-vs-host comparison's images
+
+
+def _params_equal(a, b, what):
+    """Every parameter of module ``a`` bit-equal to ``b``'s of that name."""
+    pa, pb = dict(a.named_parameters()), dict(b.named_parameters())
+    same = sorted(pa) == sorted(pb) and all(
+        pa[k].shape == pb[k].shape and torch.equal(pa[k], pb[k].to(pa[k].device))
+        for k in pa)
+    n = sum(p.numel() for p in pa.values())
+    check(same, f"{what}: all {len(pa)} parameters ({n:,} values) bit-equal")
+
+
+def _any_differs(a, b):
+    pb = dict(b.named_parameters())
+    return any(not torch.equal(p, pb[k].to(p.device)) for k, p in a.named_parameters())
+
+
+def scoring(smi):
+    """Phase 13: the scoring path, reference checkpoint → convert →
+    calibrate → ``sample_fid`` → PNGs → Inception features → FID, IS and
+    sFID, through the port's entry points on the card.
+
+    (a) Checkpoints in: ``DDPMConfig()`` (35,746,307 params, seed 7) as a
+    reference-layout DDPM state dict (``reference_layout``, ``torch.save``
+    into a temporary directory of the checkout's ignored ``_build/``),
+    loaded back through ``CifarPipeline(CifarConfig(ckpt_path=...))``;
+    ImageNet cin256-v2 (400,920,579 UNet params, seed 7) as a
+    LatentDiffusion checkpoint with all three prefixes (UNet, VQ-f4 first
+    stage, class embedder) and ``model_ema.`` shadows (a seed-8 UNet),
+    loaded through ``LDMPipeline`` (the raw UNet weights) and
+    ``api.quantize_model("ldm")`` (the EMA weights), as the JAX package's
+    two entry points load it; every weight bit-equal to its source; the
+    file deleted after.
+
+    (b) Sampling, this slice's main path: ``sample_ddim``'s ``main`` in
+    process on the CIFAR checkpoint, ``--serve int8`` after TDAC (256
+    samples over the 10 steps) and CALIB_W / CALIB_A without the
+    reconstruction, 10 quad DDIM steps at batch 500, 1,000 PNGs (launch
+    counts set to 0 just before and read just after: 20 forwards of
+    ``DEFAULT_LAUNCHES["cifar"]``); the same ``main`` with ``--serve fp
+    --no-ptq`` writes the reference set (the fp32 UNet of the same
+    checkpoint).  img/s counts the PNG writes.
+
+    (c) Scoring: ``evaluate``'s ``main`` in process on the two directories
+    with ``--isc --sfid`` at batch 200 (``FIDInceptionV3`` at 299², float32,
+    TF32 off, random weights from seed 0): FID and sFID raw and
+    standardized, and IS, all finite; the extractor's images/s and the
+    statistics' seconds; one profiled forward at batch 200.
+
+    (d) Held: the Inception on the card against the same weights on the
+    host on 16 of the images (``pool3`` and ``logits`` within 1e-4 of the
+    largest |host| value plus 1e-3 relative: cuDNN and the host's
+    convolutions sum in other orders); and 200 of the images read from
+    their PNGs, written again and read back, equal pixel for pixel, their
+    features from that directory bit-equal to the features of the same
+    images in memory."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from eda_dm_tpu_torch import api, evaluate, reference_layout, sample_ddim
+    from eda_dm_tpu_torch.data.datasets import iter_image_folder
+    from eda_dm_tpu_torch.eval.inception import FIDInceptionV3, InceptionExtractor, preprocess
+    from eda_dm_tpu_torch.eval.io import png_writer, save_images
+    from eda_dm_tpu_torch.models.bridge import to_jax_variables
+    from eda_dm_tpu_torch.models.ddpm_unet import DDPMConfig, DDPMUNet
+    from eda_dm_tpu_torch.models.latent_diffusion import LatentDiffusion, imagenet_config
+    from eda_dm_tpu_torch.models.ldm_unet import LDMUNet
+    from eda_dm_tpu_torch.ops import _build
+    from eda_dm_tpu_torch.ops.int8_einsum import tf32_off
+    from eda_dm_tpu_torch.pipelines.cifar import CifarConfig, CifarPipeline
+    from eda_dm_tpu_torch.pipelines.latent import LDMPipeline, task_config
+    from eda_dm_tpu_torch.quant import QuantConfig
+
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="scoring-", dir=_build.BUILD_DIR)
+    try:
+        qc = QuantConfig(weight_bit=4, act_bit=8)
+        print("    (a) checkpoints in, through the converters")
+        src = DDPMUNet(DDPMConfig(), qc, device="cuda", seed=7)
+        n = sum(p.numel() for p in src.parameters())
+        check(n == 35_746_307, f"DDPMConfig() has {n:,} params")
+        cifar_ckpt = os.path.join(tmp, "cifar.ckpt")
+        _, save_s = timed(lambda: torch.save(
+            reference_layout.ddpm_state_dict(to_jax_variables(src)["params"]), cifar_ckpt))
+        model, load_s = timed(lambda: CifarPipeline(
+            CifarConfig(ckpt_path=cifar_ckpt), device="cuda").init_variables())
+        _params_equal(model, src, "CIFAR checkpoint through CifarPipeline")
+        print(f"    CIFAR: {os.path.getsize(cifar_ckpt) / 1e6:.1f} MB written in {save_s:.2f} s, "
+              f"loaded through CifarPipeline in {load_s:.2f} s on {smi}")
+        out["cifar_ckpt"] = dict(bytes=os.path.getsize(cifar_ckpt), save_s=save_s,
+                                 load_s=load_s)
+        del model, src
+
+        mc = imagenet_config()
+        ld = LatentDiffusion(mc, qc, device="cuda", seed=7)
+        ema = LDMUNet(mc.unet, qc, device="cuda", seed=8)
+        n = sum(p.numel() for p in ld.unet.parameters())
+        check(n == 400_920_579, f"imagenet_config() UNet has {n:,} params")
+        latent_ckpt = os.path.join(tmp, "imagenet.ckpt")
+
+        def write():
+            sd = reference_layout.latent_diffusion_state_dict(
+                to_jax_variables(ld.unet)["params"], to_jax_variables(ld.first_stage)["params"],
+                to_jax_variables(ld.cond_stage)["params"],
+                ema_unet=to_jax_variables(ema)["params"])
+            prefixes = sorted({k.split(".")[0] for k in sd})
+            torch.save({"state_dict": sd}, latent_ckpt)
+            return prefixes
+        prefixes, save_s = timed(write)
+        check(prefixes == ["cond_stage_model", "first_stage_model", "model", "model_ema"],
+              f"the checkpoint's prefixes {prefixes}")
+        pipe, pipe_s = timed(lambda: LDMPipeline(
+            task_config("imagenet", ckpt_path=latent_ckpt), device="cuda"))
+        _params_equal(pipe.ld.unet, ld.unet, "ImageNet UNet through LDMPipeline: the raw weights")
+        _params_equal(pipe.ld.first_stage, ld.first_stage, "the VQ-f4 first stage's decode part")
+        _params_equal(pipe.ld.cond_stage, ld.cond_stage, "the class embedder")
+        del pipe
+        free_memory("after the pipeline's load")
+        unet, api_s = timed(lambda: api.quantize_model("ldm", mc.unet, qc,
+                                                       ckpt_path=latent_ckpt, device="cuda"))
+        _params_equal(unet, ema, "ImageNet UNet through api.quantize_model: the EMA weights")
+        check(_any_differs(unet, ld.unet), "the API path's UNet is not the raw one")
+        size = os.path.getsize(latent_ckpt)
+        os.remove(latent_ckpt)
+        print(f"    ImageNet: {size / 1e9:.3f} GB written in {save_s:.2f} s, loaded through "
+              f"LDMPipeline in {pipe_s:.2f} s (raw weights) and api.quantize_model in "
+              f"{api_s:.2f} s (EMA weights) on {smi}; the file deleted")
+        out["imagenet_ckpt"] = dict(bytes=size, save_s=save_s, pipeline_load_s=pipe_s,
+                                    api_load_s=api_s)
+        del unet, ld, ema
+        free_memory("after the checkpoints")
+
+        print(f"    (b) sample_ddim: {SCORE_IMAGES} images at batch {SCORE_BATCH}, "
+              f"{STEPS} quad DDIM steps, --serve int8 (CALIB_W / CALIB_A, no reconstruction) "
+              f"and --serve fp")
+        common = ["--ckpt", cifar_ckpt, "--timesteps", str(STEPS), "--sample_batch_size",
+                  str(SCORE_BATCH), "--max_images", str(SCORE_IMAGES)]
+        _build.launch_counts.clear()
+        run8 = sample_ddim.main(common + ["--serve", "int8", "--no-recon", "--calib_num_samples",
+                                          "256", "--batch_samples", "256", "--logdir",
+                                          os.path.join(tmp, "int8")])
+        launches = dict(_build.launch_counts)
+        forwards = STEPS * -(-SCORE_IMAGES // SCORE_BATCH)
+        check({k: v / forwards for k, v in launches.items()} == DEFAULT_LAUNCHES["cifar"],
+              f"the int8 set ran K1-K3 through the card: {launches} over {forwards} forwards, "
+              f"{DEFAULT_LAUNCHES['cifar']} each")
+        runfp = sample_ddim.main(common + ["--serve", "fp", "--no-ptq", "--logdir",
+                                           os.path.join(tmp, "fp")])
+        for what, run in (("int8", run8), ("fp", runfp)):
+            check(run["images"] == SCORE_IMAGES and len(os.listdir(run["img_dir"])) == SCORE_IMAGES,
+                  f"{what}: {run['images']} PNGs written ({run['writer']} writer)")
+            sec = run["seconds"]
+            print(f"    {what}: load {sec['load']:.2f} s, calibration {sec['calibrate']:.2f} s, "
+                  f"sampling with the writes {sec['sample']:.2f} s = "
+                  f"{SCORE_IMAGES / sec['sample']:.2f} img/s ({run['writer']} PNG writer) on {smi}")
+        out.update(writer=png_writer(), int8_seconds=run8["seconds"],
+                   fp_seconds=runfp["seconds"],
+                   int8_img_per_s=SCORE_IMAGES / run8["seconds"]["sample"],
+                   fp_img_per_s=SCORE_IMAGES / runfp["seconds"]["sample"],
+                   int8_launches=launches)
+
+        import scipy
+        print(f"    (c) evaluate --isc --sfid at batch {INCEPTION_BATCH} (FIDInceptionV3 at "
+              f"299², float32, random weights; scipy {scipy.__version__})")
+        res, eval_s = timed(lambda: evaluate.main([
+            "--gen_dir", run8["img_dir"], "--ref_dir", runfp["img_dir"], "--isc", "--sfid",
+            "--batch_size", str(INCEPTION_BATCH)]))
+        scores = ("fid", "fid_standardized", "sfid", "sfid_standardized", "is_mean", "is_std")
+        for k in scores:
+            check(math.isfinite(res[k]), f"{k} = {res[k]!r} finite")
+        ips = res["images"] / res["seconds"]
+        print(f"    FID {res['fid']!r} (raw features), {res['fid_standardized']!r} "
+              f"(standardized), IS {res['is_mean']!r} ± {res['is_std']!r}, sFID {res['sfid']!r} "
+              f"(raw), {res['sfid_standardized']!r} (standardized); the extractor {ips:.1f} "
+              f"images/s ({res['images']} images in {res['seconds']:.2f} s), the statistics "
+              f"{res['metric_seconds']:.2f} s (scipy's sqrtm on the host), evaluate "
+              f"{eval_s:.2f} s in all on {smi}")
+        out.update({k: res[k] for k in scores}, inception_images_per_s=ips, evaluate_s=eval_s,
+                   metric_s=res["metric_seconds"])
+
+        ext = InceptionExtractor(device="cuda")
+        first = next(iter_image_folder(run8["img_dir"], batch_size=INCEPTION_BATCH))
+        xb = torch.from_numpy(first).cuda()
+        with torch.no_grad(), tf32_off():
+            prof = profile_forward(lambda: ext.model(preprocess(xb)),
+                                   what=f"one Inception forward at batch {INCEPTION_BATCH}")
+        out["inception_forward"] = prof
+
+        print(f"    (d) the Inception on the card against the host, {HELD_IMAGES} images")
+        host = FIDInceptionV3()
+        host.load_state_dict({k: v.cpu() for k, v in ext.model.state_dict().items()})
+        x16 = torch.from_numpy(first[:HELD_IMAGES])
+        with torch.no_grad(), tf32_off():
+            card = ext.model(preprocess(x16.cuda()))
+            ref = host(preprocess(x16))
+        for k in ("pool3", "logits"):
+            c, h = card[k].cpu().double(), ref[k].double()
+            err = float((c - h).abs().max())
+            tol = 1e-4 * float(h.abs().max())
+            check(bool(((c - h).abs() <= tol + 1e-3 * h.abs()).all()),
+                  f"{k}: card vs host max |d| {err:.3g} (largest |host| "
+                  f"{float(h.abs().max()):.3g}) within 1e-4 of it plus 1e-3 relative")
+            out[f"card_vs_host_{k}_max_abs"] = err
+        again = os.path.join(tmp, "again")
+        save_images(first, again)
+        # a folder reads in name order: 0, 1, 10, 100, ...
+        order = sorted(range(len(first)), key=lambda i: f"{i}.png")
+        back = next(iter_image_folder(again, batch_size=INCEPTION_BATCH))
+        check(np.array_equal(back, first[order]), f"{len(first)} images: PNG → read → PNG → "
+              f"read equal pixel for pixel")
+        feats_dir, _, _ = evaluate.features_from_dir(again, ext, INCEPTION_BATCH)
+        feats_mem = ext.pool3(first[order])
+        check(np.array_equal(feats_dir, feats_mem),
+              "pool3 of the directory bit-equal to pool3 of the same images in memory")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"    phase 13 on {smi}: {out['phase_s']:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2695,6 +2939,10 @@ def main():
     t0 = time.perf_counter()
     imagenet_serving = imagenet(kernels, smi)
     print(f"    phase 12: {time.perf_counter() - t0:.1f} s")
+    free_memory("after phase 12")
+    print("[13] the scoring path: checkpoints in through the converters, sample_ddim "
+          "(int8 and fp sets), evaluate (FID, IS, sFID) on the FID InceptionV3")
+    scored = scoring(smi)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
@@ -2714,7 +2962,7 @@ def main():
         "batch": BATCH},
         "bedroom_serving": serving, "sd_serving": sd_serving,
         "cifar_calibration": calibrated, "latent_calibration": latent,
-        "imagenet": imagenet_serving}))
+        "imagenet": imagenet_serving, "scoring": scored}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -29,18 +29,27 @@ from .quant.export import (export_serving, export_serving_int8,
 
 def quantize_model(model_family: str, arch=None, qc: Optional[QuantConfig] = None,
                    seed: int = 0, ckpt_path: Optional[str] = None, device=None):
-    """A quantization-aware model with N(0, 1/fan_in) weights from ``seed``
-    on ``device``: ``'ddpm'`` (the pixel UNet) or ``'ldm'`` (the openai
-    UNet)."""
-    if ckpt_path:
-        raise NotImplementedError("checkpoint converters are not ported yet")
+    """A quantization-aware model on ``device``: ``'ddpm'`` (the pixel
+    UNet) or ``'ldm'`` (the openai UNet), with N(0, 1/fan_in) weights from
+    ``seed``, or a reference checkpoint's (``ckpt_path``): a DDPM state
+    dict, or the UNet of a LatentDiffusion checkpoint with its
+    ``model_ema.`` shadows swapped in (``load_ldm_checkpoint``)."""
+    from .models.bridge import load_jax_variables
     qc = qc or QuantConfig()
     if model_family == "ddpm":
+        from .models.convert import load_ddpm_checkpoint
         from .models.ddpm_unet import DDPMConfig, DDPMUNet
-        return DDPMUNet(arch or DDPMConfig(), qc, device=device, seed=seed)
+        model = DDPMUNet(arch or DDPMConfig(), qc, device=device, seed=seed)
+        if ckpt_path:
+            load_jax_variables(model, {"params": load_ddpm_checkpoint(ckpt_path)})
+        return model
     if model_family == "ldm":
+        from .models.convert import load_ldm_checkpoint
         from .models.ldm_unet import LDMUNet, LDMUNetConfig
-        return LDMUNet(arch or LDMUNetConfig(), qc, device=device, seed=seed)
+        model = LDMUNet(arch or LDMUNetConfig(), qc, device=device, seed=seed)
+        if ckpt_path:
+            load_jax_variables(model, {"params": load_ldm_checkpoint(ckpt_path)[0]})
+        return model
     raise ValueError(model_family)
 
 

@@ -13,10 +13,17 @@ two-layer pre-LN transformer (flax ``nn.SelfAttention``, 4 heads) → a
 final LayerNorm, giving (B, 77, context_dim) rows in float32.  It is never
 quantized.
 
+``BERTEmbedder`` is the reference's BERT text encoder (an x_transformers
+``TransformerWrapper``: token and absolute position embeddings, pre-norm
+attention and feed-forward layers, a final LayerNorm), behind
+``BERTTextEncoder``'s crc32 hash tokens; no task uses it by default.
+``class_embedder_state_dict_to_params`` and ``bert_state_dict_to_params``
+convert the reference's state dicts to the JAX package's trees.
+
 Parameters keep the flax names and layouts (``tok.embedding``, ``pos``,
 ``attn_0.query.kernel`` of shape (d, heads, head_dim), ``out.kernel``
-(heads, head_dim, d), ``fc1_0.kernel`` (d, 4d)), so ``models/bridge.py``
-loads the JAX tree as it is.
+(heads, head_dim, d), ``fc1_0.kernel`` (d, 4d), ``attn_0_q.kernel``
+(d, inner)), so ``models/bridge.py`` loads the JAX tree as it is.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import torch.nn as nn
 
 from ..device import resolve_device
 from ..nn.layers import LayerNorm, gelu_tanh
+from .convert import as_numpy
 
 
 class Embed(nn.Module):
@@ -67,22 +75,28 @@ class ClassEmbedder(nn.Module):
         return self.embedding(ids)[:, None, :]
 
 
+def class_embedder_state_dict_to_params(state_dict) -> dict:
+    """The reference ``ClassEmbedder``'s state dict → its params tree."""
+    return {"embedding": {"embedding": as_numpy(state_dict["embedding.weight"])}}
+
+
 class DenseGeneral(nn.Module):
     """flax ``nn.DenseGeneral``: the last ``len(in_shape)`` axes of the
     input against a kernel of shape ``in_shape + out_shape`` (flax
     ``nn.Dense`` is the case of one axis each)."""
 
-    def __init__(self, in_shape, out_shape):
+    def __init__(self, in_shape, out_shape, use_bias: bool = True):
         super().__init__()
         self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
         self.kernel = nn.Parameter(torch.empty(*self.in_shape, *self.out_shape))
-        self.bias = nn.Parameter(torch.zeros(*self.out_shape))
+        self.bias = nn.Parameter(torch.zeros(*self.out_shape)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         k_in, k_out = int(np.prod(self.in_shape)), int(np.prod(self.out_shape))
         lead = x.shape[:x.dim() - len(self.in_shape)]
-        y = x.reshape(-1, k_in) @ self.kernel.reshape(k_in, k_out)
-        return y.reshape(*lead, *self.out_shape) + self.bias
+        y = (x.reshape(-1, k_in) @ self.kernel.reshape(k_in, k_out)).reshape(
+            *lead, *self.out_shape)
+        return y if self.bias is None else y + self.bias
 
 
 class SelfAttention(nn.Module):
@@ -134,10 +148,7 @@ class TinyTextEncoder(nn.Module):
         with torch.no_grad():
             self.tok.embedding.normal_(0.0, 1.0, generator=g)
             self.pos.normal_(0.0, 0.02, generator=g)
-            for m in self.modules():
-                if isinstance(m, DenseGeneral):
-                    m.kernel.normal_(0.0, float(np.prod(m.in_shape)) ** -0.5,
-                                     generator=g)
+            _init_dense(self, g)
 
     def tokenize(self, prompts: Sequence[str]) -> np.ndarray:
         """crc32 hash ids: [1, words..., 0 padding], ``max_length`` each."""
@@ -160,3 +171,125 @@ class TinyTextEncoder(nn.Module):
     def encode(self, prompts: Sequence[str]) -> torch.Tensor:
         ids = torch.from_numpy(self.tokenize(prompts)).long()
         return self(ids.to(self.pos.device))
+
+
+def _init_dense(module: nn.Module, g: torch.Generator) -> None:
+    """N(0, 1/fan_in) kernels of every ``DenseGeneral`` in ``module``."""
+    for m in module.modules():
+        if isinstance(m, DenseGeneral):
+            m.kernel.normal_(0.0, float(np.prod(m.in_shape)) ** -0.5, generator=g)
+
+
+class BERTEmbedder(nn.Module):
+    """Token ids → (B, T, n_embed) float32 context (the reference's
+    ``BERTEmbedder`` and the part of x_transformers it builds: token and
+    absolute position embeddings, ``n_layer`` pre-norm layers of bias-free
+    8-head q/k/v attention and a GELU feed-forward at 4×, plain residuals,
+    a final LayerNorm; every LayerNorm at epsilon 1e-5).  Names follow the
+    JAX module: ``norm_{2i}``, ``attn_{2i}_q`` ... ``attn_{2i}_out``,
+    ``norm_{2i+1}``, ``ff_{2i+1}_1``, ``ff_{2i+1}_2``, ``norm``.  On
+    ``device`` (the card unless the caller passes ``"cpu"``), random
+    weights from ``seed``."""
+
+    def __init__(self, n_embed: int, n_layer: int, vocab_size: int = 30522,
+                 max_seq_len: int = 77, heads: int = 8, dim_head: int = 64,
+                 device=None, seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        self.n_layer, self.heads, self.dim_head = n_layer, heads, dim_head
+        d, inner = n_embed, heads * dim_head
+        with torch.device(device):
+            self.token_emb = Embed(vocab_size, d)
+            self.pos_emb = Embed(max_seq_len, d)
+            for i in range(n_layer):
+                ja, jf = 2 * i, 2 * i + 1
+                setattr(self, f"norm_{ja}", LayerNorm(d, eps=1e-5))
+                for w in "qkv":
+                    setattr(self, f"attn_{ja}_{w}",
+                            DenseGeneral((d,), (inner,), use_bias=False))
+                setattr(self, f"attn_{ja}_out", DenseGeneral((inner,), (d,)))
+                setattr(self, f"norm_{jf}", LayerNorm(d, eps=1e-5))
+                setattr(self, f"ff_{jf}_1", DenseGeneral((d,), (4 * d,)))
+                setattr(self, f"ff_{jf}_2", DenseGeneral((4 * d,), (d,)))
+            self.norm = LayerNorm(d, eps=1e-5)
+        g = torch.Generator(device=device).manual_seed(seed)
+        with torch.no_grad():
+            self.token_emb.embedding.normal_(0.0, 1.0, generator=g)
+            self.pos_emb.embedding.normal_(0.0, 1.0, generator=g)
+            _init_dense(self, g)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        h = self.token_emb(tokens) + self.pos_emb(pos)[None]
+        b, n = tokens.shape
+        shape = (b, n, self.heads, self.dim_head)
+        for i in range(self.n_layer):
+            ja, jf = 2 * i, 2 * i + 1
+            a = getattr(self, f"norm_{ja}")(h)
+            q, k, v = (getattr(self, f"attn_{ja}_{w}")(a).reshape(shape) for w in "qkv")
+            dots = torch.einsum("bihd,bjhd->bhij", q, k) * self.dim_head ** -0.5
+            o = torch.einsum("bhij,bjhd->bihd", torch.softmax(dots, dim=-1), v)
+            h = h + getattr(self, f"attn_{ja}_out")(o.reshape(b, n, -1))
+            f = getattr(self, f"ff_{jf}_1")(getattr(self, f"norm_{jf}")(h))
+            h = h + getattr(self, f"ff_{jf}_2")(gelu_tanh(f))
+        return self.norm(h)
+
+
+def bert_state_dict_to_params(state_dict) -> dict:
+    """The reference ``BERTEmbedder``'s state dict (``transformer.*``, the
+    x_transformers layout) → the ``BERTEmbedder`` params tree."""
+    p: dict = {}
+    pre = "transformer."
+    for key, v in state_dict.items():
+        if not key.startswith(pre):
+            continue
+        k, v = key[len(pre):], as_numpy(v)
+        if k == "token_emb.weight":
+            p["token_emb"] = {"embedding": v}
+        elif k == "pos_emb.emb.weight":
+            p["pos_emb"] = {"embedding": v}
+        elif k.startswith("norm."):
+            p.setdefault("norm", {})["scale" if k.endswith("weight") else "bias"] = v
+        elif k.startswith("attn_layers.layers."):
+            parts = k.split(".")
+            j, slot, rest = int(parts[2]), parts[3], parts[4:]
+            leaf = "scale" if rest[-1] == "weight" else "bias"
+            if slot == "0":                       # the pre-norm LayerNorm
+                p.setdefault(f"norm_{j}", {})[leaf] = v
+            elif rest[0] in ("to_q", "to_k", "to_v"):
+                p.setdefault(f"attn_{j}_{rest[0][-1]}", {})["kernel"] = v.T
+            elif rest[0] == "to_out":
+                leaf = "kernel" if rest[-1] == "weight" else "bias"
+                p.setdefault(f"attn_{j}_out", {})[leaf] = v.T if leaf == "kernel" else v
+            elif rest[0] == "net":                # the feed-forward
+                leaf = "kernel" if rest[-1] == "weight" else "bias"
+                name = f"ff_{j}_1" if rest[1] == "0" else f"ff_{j}_2"
+                p.setdefault(name, {})[leaf] = v.T if leaf == "kernel" else v
+    return p
+
+
+class BERTTextEncoder(nn.Module):
+    """``BERTEmbedder`` behind ``encode(prompts)`` (the interface of
+    ``TinyTextEncoder``), on crc32 hash tokens in place of a vocabulary's.
+    A converted reference tree loads through ``models/bridge.py`` into
+    ``.module``."""
+
+    def __init__(self, context_dim: int = 1280, n_layer: int = 32,
+                 max_length: int = 77, device=None, seed: int = 0):
+        super().__init__()
+        self.max_length = max_length
+        self.module = BERTEmbedder(context_dim, n_layer, max_seq_len=max_length,
+                                   device=device, seed=seed)
+
+    def tokenize(self, prompts: Sequence[str]) -> np.ndarray:
+        out = np.zeros((len(prompts), self.max_length), np.int32)
+        for r, p in enumerate(prompts):
+            toks = [zlib.crc32(w.encode()) % 30520 + 2
+                    for w in p.lower().split()][: self.max_length - 2]
+            out[r] = [1] + toks + [0] * (self.max_length - 1 - len(toks))
+        return out
+
+    @torch.no_grad()
+    def encode(self, prompts: Sequence[str]) -> torch.Tensor:
+        ids = torch.from_numpy(self.tokenize(prompts)).long()
+        return self.module(ids.to(self.module.norm.scale.device))

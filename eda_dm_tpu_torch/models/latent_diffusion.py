@@ -7,19 +7,25 @@ here the object holds the modules.  ``cond="class"`` (ImageNet cin256-v2)
 builds the ``ClassEmbedder`` as the conditioning stage: a label becomes a
 one-token float32 context for the cross-attention.  Text conditioning runs
 through the stand-in ``TinyTextEncoder`` (the CLIP weights are not in the
-repository).  The checkpoint loader comes with the converters.
+repository).  ``load_checkpoint`` grafts a reference LatentDiffusion
+checkpoint through the converters of ``models/convert.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..quant.config import FP, QuantConfig, QuantMode
-from .encoders import ClassEmbedder, TinyTextEncoder
+from .bridge import load_jax_variables
+from .convert import (ldm_unet_state_dict_to_params, read_state_dict,
+                      split_latent_diffusion_state_dict)
+from .encoders import (ClassEmbedder, TinyTextEncoder,
+                       class_embedder_state_dict_to_params)
 from .ldm_unet import LDMUNet, LDMUNetConfig
-from .vae import FirstStage, VAEConfig
+from .vae import FirstStage, VAEConfig, vae_state_dict_to_params
 
 
 @dataclasses.dataclass
@@ -55,6 +61,28 @@ class LatentDiffusion:
         elif cfg.cond == "text":
             self.cond_stage = TinyTextEncoder(cfg.unet.context_dim, device=device,
                                               seed=seed)
+
+    def load_checkpoint(self, path: str) -> "LatentDiffusion":
+        """Graft a reference LatentDiffusion checkpoint in place: the UNet
+        from ``model.diffusion_model.*`` (the raw weights: the ``model_ema.``
+        shadows are not swapped in, as the JAX package's
+        ``LatentDiffusion.load_checkpoint`` does not), the first stage's
+        decode part from ``first_stage_model.*``, the class embedder from
+        ``cond_stage_model.*``, and ``scale_factor`` where the checkpoint
+        holds it (the ``scale_by_std`` models: church)."""
+        state = read_state_dict(path)
+        unet_sd, first_sd, cond_sd = split_latent_diffusion_state_dict(state)
+        if "scale_factor" in state:
+            self.cfg.scale_factor = float(np.asarray(state["scale_factor"]))
+        load_jax_variables(self.unet, {"params": ldm_unet_state_dict_to_params(unet_sd)})
+        if first_sd:
+            params = vae_state_dict_to_params(first_sd)
+            load_jax_variables(self.first_stage, {"params": {
+                k: v for k, v in params.items() if k not in ("encoder", "quant_conv")}})
+        if cond_sd and self.cfg.cond == "class":
+            load_jax_variables(self.cond_stage, {
+                "params": class_embedder_state_dict_to_params(cond_sd)})
+        return self
 
     def apply_model(self, x: torch.Tensor, t: torch.Tensor, context=None,
                     mode: QuantMode = FP) -> torch.Tensor:

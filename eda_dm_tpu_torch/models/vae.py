@@ -14,12 +14,18 @@ lookup computes ``|z|² − 2z·E + |E|²`` in that order, in row chunks, as
 (``ops.int8_einsum.tf32_off``): the reference is full float32.
 
 The encoder is not ported: only calibration reads it.
+``vae_state_dict_to_params`` converts a reference AutoencoderKL / VQModel
+state dict (encoder included) to the JAX package's tree;
+``models/bridge.py::first_stage_from_jax`` reads its decode part.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import re
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
 
 import torch
 import torch.nn as nn
@@ -27,6 +33,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..nn.layers import lecun_normal_
+from .convert import as_numpy, insert
 
 VQ_CHUNK = 8192          # rows of the (pixels, n_embed) distance matrix at once
 
@@ -201,3 +208,43 @@ class FirstStage(nn.Module):
             z = self.quantize(z)
         h = self.post_quant_conv(z.permute(0, 3, 1, 2))
         return self.decoder(h).permute(0, 2, 3, 1)
+
+
+# --------------------------------------------------------------------------
+# converter
+# --------------------------------------------------------------------------
+
+_VAE_RULES = [
+    (re.compile(r"^(encoder|decoder)\.mid\.(\w+)\."),
+     lambda m: f"{m.group(1)}.mid_{m.group(2)}."),
+    (re.compile(r"^(encoder|decoder)\.(down|up)\.(\d+)\.(block|attn)\.(\d+)\."),
+     lambda m: f"{m.group(1)}.{m.group(2)}_{m.group(3)}_{m.group(4)}_{m.group(5)}."),
+    (re.compile(r"^(encoder|decoder)\.(down|up)\.(\d+)\.(downsample|upsample)\.conv\."),
+     lambda m: f"{m.group(1)}.{m.group(2)}_{m.group(3)}_{m.group(4)}."),
+    (re.compile(r"^quantize\.embedding\.weight$"), lambda m: "codebook"),
+]
+
+
+def vae_state_dict_to_params(state_dict: Mapping) -> Dict:
+    """A reference AutoencoderKL / VQModel state dict → the JAX package's
+    ``FirstStage`` params tree (numpy); ``loss.*`` entries are dropped."""
+    params: Dict = {}
+    for key, val in state_dict.items():
+        if key.startswith("loss."):
+            continue
+        arr = as_numpy(val)
+        tkey = key
+        for pat, repl in _VAE_RULES:
+            tkey = pat.sub(repl, tkey)
+        if tkey == "codebook":
+            insert(params, ["codebook"], arr)
+            continue
+        parts = tkey.split(".")
+        leaf = parts[-1]
+        if leaf == "weight":
+            if arr.ndim == 4:
+                leaf, arr = "kernel", np.transpose(arr, (2, 3, 1, 0))
+            else:
+                leaf = "scale"
+        insert(params, parts[:-1] + [leaf], arr)
+    return params

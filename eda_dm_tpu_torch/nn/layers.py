@@ -151,18 +151,17 @@ class GNorm(nn.Module):
 
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm()`` over the last axis, as flax computes it:
-    epsilon 1e-6; mean and variance in float32, the variance E[x²] − E[x]²
-    clipped at 0; the scale folded into the reciprocal deviation before the
-    product; the output in the promotion of the input's and the
-    parameters' dtypes (so a bf16 input with float32 parameters gives a
-    float32 output, and with bf16 parameters a bf16 one).  PyTorch's
-    ``F.layer_norm`` keeps the input dtype and computes the variance in
-    two passes."""
+    epsilon 1e-6 unless given; mean and variance in float32, the variance
+    E[x²] − E[x]² clipped at 0; the scale folded into the reciprocal
+    deviation before the product; the output in the promotion of the
+    input's and the parameters' dtypes (so a bf16 input with float32
+    parameters gives a float32 output, and with bf16 parameters a bf16
+    one).  PyTorch's ``F.layer_norm`` keeps the input dtype and computes
+    the variance in two passes."""
 
-    eps = 1e-6
-
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
+        self.eps = eps
         self.scale = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 

@@ -24,6 +24,8 @@ from ..calib.recon import ReconArgs, reconstruct
 from ..calib.scale_init import set_act_quantize_params, set_weight_quantize_params
 from ..calib.tdac import DENSE_R, TDACResult, select_calib_set
 from ..device import model_device, resolve_device
+from ..models.bridge import load_jax_variables
+from ..models.convert import load_ddpm_checkpoint
 from ..models.ddpm_unet import DDPMConfig, DDPMUNet, ddpm_recon_plan
 from ..quant.config import FP, WAQ, QuantConfig, QuantMode
 from ..samplers.ddim import ddpm_steps, generalized_steps
@@ -103,12 +105,12 @@ class CifarPipeline:
 
     # ------------------------------------------------------------------
     def init_variables(self) -> DDPMUNet:
-        """The quantized UNet with random weights from ``cfg.seed``."""
+        """The quantized UNet with random weights from ``cfg.seed``, or with
+        a reference DDPM checkpoint's (``cfg.ckpt_path``) converted in."""
+        model = DDPMUNet(self.cfg.arch, self.qc, device=self.device, seed=self.cfg.seed)
         if self.cfg.ckpt_path:
-            raise NotImplementedError("checkpoint converters are not ported "
-                                      "yet: load real weights through "
-                                      "models/bridge.py")
-        return DDPMUNet(self.cfg.arch, self.qc, device=self.device, seed=self.cfg.seed)
+            load_jax_variables(model, {"params": load_ddpm_checkpoint(self.cfg.ckpt_path)})
+        return model
 
     # ------------------------------------------------------------------
     @torch.no_grad()

@@ -147,15 +147,13 @@ def imagenet_labels(n: int, seed: int):
 class LDMPipeline:
     """The task's model, quantized by the task's recipe, and its DDIM
     schedule on ``device`` (the card unless the caller passes ``"cpu"``),
-    random weights from ``seed``."""
+    random weights from ``seed``, or a reference checkpoint's
+    (``cfg.ckpt_path``, through ``LatentDiffusion.load_checkpoint``: the
+    raw UNet weights, as the JAX pipeline loads them)."""
 
     def __init__(self, cfg: LDMTaskConfig,
                  model_cfg: Optional[LatentDiffusionConfig] = None,
                  device=None, seed: int = 0):
-        if cfg.ckpt_path:
-            raise NotImplementedError("checkpoint converters are not ported "
-                                      "yet: load real weights through "
-                                      "models/bridge.py")
         if cfg.sampler not in ("ddim", "plms", "dpm"):
             raise ValueError(f"unknown sampler {cfg.sampler!r}")
         self.cfg = cfg
@@ -164,6 +162,8 @@ class LDMPipeline:
                               quant_act=cfg.quant_act, split=cfg.split)
         self.mc = model_cfg or MODEL_CONFIGS[cfg.task]()
         self.ld = LatentDiffusion(self.mc, self.qc, device=device, seed=seed)
+        if cfg.ckpt_path:
+            self.ld.load_checkpoint(cfg.ckpt_path)
         self.device = next(self.ld.unet.parameters()).device
         self.sched = make_ldm_schedule(
             num_timesteps=self.mc.timesteps, linear_start=self.mc.linear_start,

@@ -110,9 +110,9 @@ def test_bundle_bytes_match_jax(calibrated):
 
 def test_calibration_entry_points_need_the_card_or_cpu():
     """The calibration entry points take ``device=None`` as the card: on a
-    host without one they raise unless given ``"cpu"``; the verbs refuse
-    what is not ported yet (checkpoint converters), and reconstruct an
-    ``LDMUNet`` over its own plan."""
+    host without one they raise unless given ``"cpu"``; a checkpoint path
+    goes through the converters (a missing file raises), and reconstruct
+    an ``LDMUNet`` over its own plan."""
     from eda_dm_tpu_torch.calib.recon import ReconArgs
     from eda_dm_tpu_torch.calib.scale_init import set_weight_quantize_params
     from eda_dm_tpu_torch.models.ldm_unet import LDMUNet, LDMUNetConfig
@@ -138,7 +138,7 @@ def test_calibration_entry_points_need_the_card_or_cpu():
     api.reconstruct(ldm, cali, args=ReconArgs(iters=1, batch_size=2), device="cpu",
                     progress=lambda name, loss: done.append(name))
     assert done[0] == "time_embed_0" and done[-1] == "out_2"
-    with pytest.raises(NotImplementedError, match="converters"):
+    with pytest.raises(FileNotFoundError):
         api.quantize_model("ddpm", tiny, ckpt_path="x.ckpt", device="cpu")
-    with pytest.raises(NotImplementedError, match="converters"):
+    with pytest.raises(FileNotFoundError):
         CifarPipeline(CifarConfig(arch=tiny, ckpt_path="x.ckpt"), device="cpu").init_variables()

@@ -30,9 +30,12 @@ chain bit-equal after 40 steps and its bf16 chain within the probe's
 stated tolerance.  Last, the tiny DDPM, LDM
 and SD UNets in DEPLOY_INT8 on the card against the same model on the
 host, module by module and as a whole, and the tiny DDPM so again with
-the fused GroupNorm and in DEPLOY_FUSED.
+the fused GroupNorm and in DEPLOY_FUSED.  Then the scoring path: the FID
+InceptionV3 on the card against the host, and full-width reference-layout
+checkpoints (CIFAR, church) loaded on the card bit-equal.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -928,3 +931,66 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         quantized_matmul(x[0, 0], w8, 0.1, 3.0, one[:4], one[:4], one[:4])
     with pytest.raises(ValueError, match="multiple of 128"):
         mma_chain(A[0], torch.zeros(6, 6, dtype=torch.int8, device="cuda"))
+
+
+def test_inception_on_the_card_matches_the_host(gen):
+    """The FID InceptionV3 (random weights from seed 0, float32, TF32 off)
+    on the card against the same weights on the host, at 299² after
+    ``preprocess``'s resize of 32×32 images: every output within 1e-4 of
+    the largest |host| value plus 1e-3 relative (cuDNN and the host's
+    convolutions sum in other orders)."""
+    from eda_dm_tpu_torch.eval.inception import FIDInceptionV3, InceptionExtractor, preprocess
+    from eda_dm_tpu_torch.ops.int8_einsum import tf32_off
+    ext = InceptionExtractor(device="cuda")
+    host = FIDInceptionV3()
+    host.load_state_dict({k: v.cpu() for k, v in ext.model.state_dict().items()})
+    x = torch.rand(4, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad(), tf32_off():
+        card, ref = ext.model(preprocess(x.cuda())), host(preprocess(x))
+    for k in ("pool3", "logits", "feat64", "feat192", "feat768"):
+        c, h = card[k].cpu().double(), ref[k].double()
+        assert torch.isfinite(c).all(), k
+        err = (c - h).abs()
+        print(f"\n  {k}: max |card - host| {float(err.max()):.3g} of {float(h.abs().max()):.3g}")
+        assert bool((err <= 1e-4 * h.abs().max() + 1e-3 * h.abs()).all()), k
+    np.testing.assert_array_equal(ext(x.numpy())["pool3"], card["pool3"].cpu().numpy())
+
+
+@pytest.mark.parametrize("family", ["cifar", "church"])
+def test_full_width_checkpoint_loads_bit_equal(gen, tmp_path, family):
+    """A full-width reference-layout checkpoint (``DDPMConfig()``;
+    ``church_config()`` with its KL-f8 first stage, ``scale_factor`` and
+    ``model_ema.`` shadows) written by ``reference_layout`` and loaded on
+    the card through the pipeline: every weight bit-equal to its source;
+    church's pipeline keeps the raw UNet weights and takes the scale
+    factor, ``api.quantize_model`` the EMA ones."""
+    from eda_dm_tpu_torch import api, reference_layout
+    from eda_dm_tpu_torch.models.bridge import to_jax_variables
+    from eda_dm_tpu_torch.quant import QuantConfig
+    path = str(tmp_path / "model.ckpt")
+
+    def equal(a, b):
+        pb = dict(b.named_parameters())
+        return all(torch.equal(p, pb[k]) for k, p in a.named_parameters())
+
+    if family == "cifar":
+        from eda_dm_tpu_torch.models.ddpm_unet import DDPMConfig, DDPMUNet
+        from eda_dm_tpu_torch.pipelines.cifar import CifarConfig, CifarPipeline
+        src = DDPMUNet(DDPMConfig(), QuantConfig(), device="cuda", seed=7)
+        torch.save(reference_layout.ddpm_state_dict(to_jax_variables(src)["params"]), path)
+        assert equal(CifarPipeline(CifarConfig(ckpt_path=path), device="cuda").init_variables(),
+                     src)
+        return
+    from eda_dm_tpu_torch.models.latent_diffusion import LatentDiffusion, church_config
+    from eda_dm_tpu_torch.models.ldm_unet import LDMUNet
+    from eda_dm_tpu_torch.pipelines.latent import LDMPipeline, task_config
+    mc = church_config()
+    ld = LatentDiffusion(mc, QuantConfig(), device="cuda", seed=7)
+    ema = LDMUNet(mc.unet, QuantConfig(), device="cuda", seed=8)
+    torch.save({"state_dict": reference_layout.latent_diffusion_state_dict(
+        to_jax_variables(ld.unet)["params"], to_jax_variables(ld.first_stage)["params"],
+        ema_unet=to_jax_variables(ema)["params"], scale_factor=0.8)}, path)
+    pipe = LDMPipeline(task_config("church", ckpt_path=path), device="cuda")
+    assert equal(pipe.ld.unet, ld.unet) and equal(pipe.ld.first_stage, ld.first_stage)
+    assert pipe.mc.scale_factor == float(np.float32(0.8))
+    assert equal(api.quantize_model("ldm", mc.unet, ckpt_path=path, device="cuda"), ema)
