@@ -160,7 +160,19 @@ exits non-zero before the last line:
     ``python -m eda_dm_tpu_torch.evaluate``'s ``main`` on the two sets
     (FID raw and standardized, IS, sFID at batch 200 on the card), one
     profiled Inception forward, the Inception card against host and the
-    PNG round trip's features held exactly.
+    PNG round trip's features held exactly;
+14. data and tensor parallelism, this slice's main path (``parallel``'s
+    docstring lists every step): phase 5's smoke-state export of
+    ``DDPMConfig()`` (DEPLOY_INT8, bf16 carrier, 10 quad DDIM steps at
+    batch 500) through ``dp_sample`` on a one-rank NCCL mesh (bit-equal to
+    one process) and on two gloo ranks sharing the card (250 rows a rank,
+    each rank's K1–K3 launches per forward those of one process and each
+    call held against its plain version), a tp = 2 DEPLOY_INT8 forward
+    bit-equal to the unsharded one, ``dp_calibrate_acts`` bit-equal to
+    ``set_act_quantize_params`` on the same quantizer inputs (free-running
+    within its tolerance) and ``dp_reconstruct`` within JAX's dp tolerance
+    of ``reconstruct``, then ``python -m
+    eda_dm_tpu_torch.validate_ptq --task cifar``'s ``main`` at full width.
 
 The serving switches (``EDM_FUSED_ATTN`` and the others that
 ``eda_dm_tpu_torch/ops/serving_policy.py`` reads) are unset for the run,
@@ -1950,8 +1962,8 @@ def latent_calibration(kernels, smi, bedroom_serving):
     steps (the task: 1024 samples in batches of 64 over 200 steps); the
     reconstruction runs ``LCAL_ITERS`` = 4 iterations a target (the task:
     5000) over the whole ``ldm_recon_plan``; its int8 export's ms a step
-    is held within 3 % of the smoke state's export (medians of three runs
-    each, timed in turns); the recipe's own
+    is held within 3 % of the smoke state's export (medians of seven runs
+    each, timed in turns whose order alternates); the recipe's own
     ``calib_batch_size`` 32, recon batch 32, groups of 4 and bf16 caches
     stay.  The card-vs-host checks take the first res block's and the
     first attention block's quantizers: CALIB_W of their layers, CALIB_A
@@ -2163,9 +2175,10 @@ def latent_calibration(kernels, smi, bedroom_serving):
     for k in kernels[:4]:
         k["latent_calibrated_launches"] = launches.get(k["name"], 0)
     # the smoke state's export (phase 7's) timed in turns with the calibrated
-    # one, three rounds, medians compared: the two see one card and one host
+    # one, seven rounds, medians compared: the two see one card and one host
     # state (the host's share of a step moves by several per cent between
-    # runs minutes apart)
+    # runs minutes apart), and the order alternates so that neither export
+    # always runs second
     smoke_ex = ldm_unet.LDMUNet(pipe.mc.unet, pipe.qc, device="cuda", seed=0)
     smoke_quant_state(smoke_ex, x5, t5)
     export_serving_int8(smoke_ex, pipe.qc)
@@ -2174,15 +2187,15 @@ def latent_calibration(kernels, smi, bedroom_serving):
     step_ms = lambda m: timed(lambda: pipe.sample_batch(mode, generator=g, unet=m,
                                                         decode=False))[1] / STEPS * 1e3
     smoke_ms, ms = [], []
-    for _ in range(3):
-        smoke_ms.append(step_ms(smoke_ex))
-        ms.append(step_ms(ex))
+    for r in range(7):
+        for m, times in ((smoke_ex, smoke_ms), (ex, ms))[::1 if r % 2 == 0 else -1]:
+            times.append(step_ms(m))
     smoke = statistics.median(smoke_ms)
     rel = statistics.median(ms) / smoke - 1.0
     both = lambda v: " / ".join(f"{x:.3f}" for x in v)
     check(abs(rel) <= 0.03,
           f"calibrated bedroom {both(ms)} ms a step at batch {LDM_BATCH} against the "
-          f"smoke state's {both(smoke_ms)} in turns (phase 7: "
+          f"smoke state's {both(smoke_ms)} in alternating turns (phase 7: "
           f"{statistics.mean(bedroom_serving['ms_per_step']['int8']):.3f}): medians "
           f"{rel:+.2%}, within 3 % on {smi}")
     del ex, smoke_ex, unet, pipe, cali, imgs, names, used
@@ -2767,6 +2780,417 @@ def scoring(smi):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 14: data and tensor parallelism
+
+P14_CAL_ROWS = 256                     # the calibration set of steps (d)-(f)
+P14_RECON_ITERS, P14_LR = 20, 1e-4     # JAX's dp tolerance: rtol 1e-3, atol 6·lr
+
+
+def _p14_setup(dev):
+    """A rank's start: TF32 off (as in the parent) and the CIFAR sampler
+    of phase 5 (``sample(model, x, generator)``)."""
+    from eda_dm_tpu_torch.quant import DEPLOY_INT8
+    from eda_dm_tpu_torch.samplers.ddim import generalized_steps
+    from eda_dm_tpu_torch.samplers.schedules import get_beta_schedule, skip_sequence
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    betas = get_beta_schedule("linear", beta_start=1e-4, beta_end=0.02,
+                              num_diffusion_timesteps=1000)
+    seq = skip_sequence("quad", STEPS, 1000)
+
+    def sample(model, x, generator, steps=seq):
+        fn = lambda a, t: model(a.to(torch.bfloat16), t, DEPLOY_INT8)
+        return generalized_steps(x, steps, fn, betas, eta=0.0, device=dev)
+    return sample, seq
+
+
+def _p14_timed_sample(run):
+    """(samples, seconds, launches, collective stats) of one synchronised
+    run after a 2-step warm-up; the launch counts and the collective
+    statistics are set to 0 just before the timed run."""
+    from eda_dm_tpu_torch.ops import _build
+    from eda_dm_tpu_torch.parallel import comm
+    run(True)
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    comm.reset_stats()
+    out, secs = timed(lambda: run(False))
+    return out, secs, dict(_build.launch_counts), dict(comm.stats)
+
+
+def p14_world1(rank, world, dev, path, x_T):
+    """World 1 on NCCL: one process's DDIM run, then ``dp_sample`` on the
+    one-rank mesh, on the same x_T."""
+    from eda_dm_tpu_torch.parallel import dp, mesh as pm
+    sample, seq = _p14_setup(dev)
+    model = torch.load(path, weights_only=False).to(dev)
+    x = x_T.to(dev)
+    single, s_single, l_single, _ = _p14_timed_sample(
+        lambda warm: sample(model, x, None, seq[:2] if warm else seq))
+    mesh = pm.make_mesh()
+    out, s_dp, l_dp, stats = _p14_timed_sample(lambda warm: dp.dp_sample(
+        lambda m, xx, g: sample(m, xx, g, seq[:2] if warm else seq), model, x, None, mesh))
+    return dict(single=single, dp=out, single_s=s_single, dp_s=s_dp,
+                single_launches=l_single, dp_launches=l_dp, comm=stats,
+                backend=torch.distributed.get_backend())
+
+
+@contextlib.contextmanager
+def recording_k1_k2(record):
+    """Keep the inputs of every K1 and K2 call (the kernels still run)."""
+    import eda_dm_tpu_torch.nn.layers as layers
+    import eda_dm_tpu_torch.ops.int8_einsum as ein
+
+    def keeping(name, fn):
+        def call(*args, **kw):
+            record.setdefault(name, []).append((args, kw))
+            return fn(*args, **kw)
+        return call
+    with swapped(layers, "int8_conv", keeping("int8_conv", layers.int8_conv)), \
+            swapped(ein, "int8_bmm_nt", keeping("int8_bmm", ein.int8_bmm_nt)):
+        yield
+
+
+@torch.no_grad()
+def check_k1_k2(record, what):
+    """Each recorded K1 and K2 call against its plain version on the same
+    inputs: outputs bit-equal (int32 sums, the same float32 epilogue)."""
+    from eda_dm_tpu_torch.ops.int8_conv import int8_conv, int8_conv_plain
+    from eda_dm_tpu_torch.ops.int8_einsum import int8_bmm_nt, int8_bmm_nt_plain
+    for name, kern, plain in (("int8_conv", int8_conv, int8_conv_plain),
+                              ("int8_bmm", int8_bmm_nt, int8_bmm_nt_plain)):
+        calls = record.get(name, [])
+        bad = sum(not torch.equal(kern(*a, **k), plain(*a, **k)) for a, k in calls)
+        check(calls and bad == 0, f"{what}: {name} on its {len(calls)} calls bit-equal "
+              f"to the plain version on this rank's inputs")
+
+
+@torch.no_grad()
+def _first_difference(model, x, t, rows_slice, group):
+    """The first module (in call order) whose output on this rank's rows
+    differs from the same rows of the one-process forward on ``x``."""
+    from eda_dm_tpu_torch.parallel import rows
+    from eda_dm_tpu_torch.quant import DEPLOY_INT8
+    names = {m: n for n, m in model.named_modules()}
+    runs = []
+    for local in (False, True):
+        outs, hooks = [], []
+        for m in model.modules():
+            if m is not model and len(list(m.children())) == 0:
+                hooks.append(m.register_forward_hook(
+                    lambda mod, a, o: outs.append((names[mod], o))
+                    if torch.is_tensor(o) and o.dim() > 1 else None))
+        with rows.sharded_rows(group if local else None):
+            model((x[rows_slice] if local else x).to(torch.bfloat16),
+                  t[rows_slice] if local else t, DEPLOY_INT8)
+        for h in hooks:
+            h.remove()
+        runs.append(outs)
+    for (name, full), (_, mine) in zip(*runs):
+        if not torch.equal(full[rows_slice], mine):
+            return name
+    return None
+
+
+@contextlib.contextmanager
+def quantizer_inputs(model, rows=None, replace=None):
+    """Keep every act quantizer's input (its ``rows`` of each call, on the
+    card) in the dict yielded; with ``replace`` (such a dict), each call
+    computes on the kept input instead of its own (teacher forcing)."""
+    from eda_dm_tpu_torch.nn.layers import ActQuantizer
+    kept, used, hooks = {}, {}, []
+
+    def pre(mod, args):
+        if not torch.is_tensor(args[0]):
+            return None
+        if replace is not None:
+            i = used[mod] = used.get(mod, -1) + 1
+            return (replace[mod_names[mod]][i],) + tuple(args[1:])
+        kept.setdefault(mod_names[mod], []).append(args[0][rows].clone())
+        return None
+    mod_names = {m: n for n, m in model.named_modules()}
+    for m in model.modules():
+        if isinstance(m, ActQuantizer):
+            hooks.append(m.register_forward_pre_hook(pre))
+    try:
+        yield kept
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def p14_world2(rank, world, dev, path, x_T, single):
+    """Two gloo ranks sharing the card: dp sampling, the kernels on this
+    rank's rows, tp = 2, dp calibration and dp reconstruction."""
+    import copy as _copy
+    from eda_dm_tpu_torch.calib.recon import ReconArgs, reconstruct
+    from eda_dm_tpu_torch.calib.scale_init import (set_act_quantize_params,
+                                                   set_weight_quantize_params)
+    from eda_dm_tpu_torch.models.ddpm_unet import DDPMConfig, DDPMUNet, ddpm_recon_plan
+    from eda_dm_tpu_torch.nn.layers import ActQuantizer, QConv, QDense
+    from eda_dm_tpu_torch.ops import _build
+    from eda_dm_tpu_torch.parallel import comm, dp, mesh as pm, rows, tp
+    from eda_dm_tpu_torch.quant import DEPLOY_INT8, QuantConfig
+    sample, seq = _p14_setup(dev)
+    out = {"rank": rank, "backend": torch.distributed.get_backend()}
+    secs = out["seconds"] = {}
+    model = torch.load(path, weights_only=False).to(dev)
+    x = x_T.to(dev)
+    mesh = pm.make_mesh()
+    group = pm.axis_group(mesh, "dp")
+    mine = slice(rank * (x.shape[0] // world), (rank + 1) * (x.shape[0] // world))
+    t0 = time.perf_counter()
+
+    # (a) dp_sample, 250 rows a rank
+    samples, s, launches, stats = _p14_timed_sample(lambda warm: dp.dp_sample(
+        lambda m, xx, g: sample(m, xx, g, seq[:2] if warm else seq), model, x, None, mesh))
+    out.update(samples=samples, sample_s=s, comm=stats,
+               launches={k: v / STEPS for k, v in launches.items()})
+    check(out["launches"] == DEFAULT_LAUNCHES["cifar"], f"rank {rank}: launches per "
+          f"forward {out['launches']} = one process's {DEFAULT_LAUNCHES['cifar']}")
+    single = single.to(dev)
+    out["bit_equal"] = torch.equal(samples, single)
+    if not out["bit_equal"]:
+        t500 = torch.full((x.shape[0],), 500.0, device=dev)
+        out["first_difference"] = _first_difference(model, x, t500, mine, group)
+    secs["dp_sample"] = time.perf_counter() - t0
+
+    # (b) the kernels on this rank's rows against their plain versions
+    t0 = time.perf_counter()
+    xl = x[mine].to(torch.bfloat16)
+    tl = torch.full((xl.shape[0],), 500.0, device=dev)
+    record = {}
+    with rows.sharded_rows(group), recording_k1_k2(record):
+        held = kernels_vs_plain(lambda: model(xl, tl, DEPLOY_INT8),
+                                f"rank {rank} ({xl.shape[0]} rows)")
+    check_k1_k2(record, f"rank {rank}")
+    out["held_launches"] = held
+    secs["kernels_vs_plain"] = time.perf_counter() - t0
+
+    # (c) tp = 2: a DEPLOY_INT8 forward at t = 500 on all rows
+    t0 = time.perf_counter()
+    mesh2 = tp.make_mesh2d(1, world)
+    sharded = tp.shard_params_tp(mesh2, _copy.deepcopy(model))
+    nbytes = lambda m: sum(v.numel() * v.element_size() for v in m.state_dict().values()
+                           if torch.is_tensor(v))
+    t_all = torch.full((x.shape[0],), 500.0, device=dev)
+    with torch.no_grad():
+        ref = model(x.to(torch.bfloat16), t_all, DEPLOY_INT8)
+        _build.launch_counts.clear()
+        comm.reset_stats()
+        got = sharded(x.to(torch.bfloat16), t_all, DEPLOY_INT8)
+        out["tp_launches"] = dict(_build.launch_counts)
+        out["tp_comm"] = dict(comm.stats)
+    check(torch.equal(got, ref), f"rank {rank}: tp = 2 DEPLOY_INT8 forward bit-equal to "
+          f"the unsharded one ({len(tp.tp_layers(sharded))} layers sharded)")
+    out["tp_weight_bytes"], out["weight_bytes"] = nbytes(sharded), nbytes(model)
+    del sharded, ref, got
+    secs["tp"] = time.perf_counter() - t0
+
+    # (d) dp_calibrate_acts over 256 rows against set_act_quantize_params: on
+    # the single process's quantizer inputs (this rank's rows of them) the
+    # state is bit-equal; free-running, the card's convs take another
+    # algorithm at 128 rows than at 256, so the inputs differ in their
+    # last bits and the state is held to the free-running gate
+    t0 = time.perf_counter()
+    cfg, qc = DDPMConfig(), QuantConfig(weight_bit=4, act_bit=8)
+    gc_ = torch.Generator().manual_seed(14)
+    cali = (torch.randn(P14_CAL_ROWS, 32, 32, 3, generator=gc_).to(dev),
+            torch.randint(0, 1000, (P14_CAL_ROWS,), generator=gc_).float().to(dev))
+    base = DDPMUNet(cfg, qc, device=dev, seed=0)
+    set_weight_quantize_params(base, cali, device=dev)
+    one = _copy.deepcopy(base)
+    b = P14_CAL_ROWS // world
+    with quantizer_inputs(one, slice(rank * b, (rank + 1) * b)) as inputs:
+        set_act_quantize_params(one, cali, batch_size=P14_CAL_ROWS, device=dev)
+    forced = _copy.deepcopy(base)
+    with quantizer_inputs(forced, replace=inputs):
+        dp.dp_calibrate_acts(forced, cali, mesh, batch_size=P14_CAL_ROWS)
+    del inputs
+    free = dp.dp_calibrate_acts(_copy.deepcopy(base), cali, mesh, batch_size=P14_CAL_ROWS)
+    qs = lambda m: {n: q for n, q in m.named_modules() if isinstance(q, ActQuantizer)}
+    leaves = ("delta", "zero_point", "one_side", "running_min", "running_max")
+    bits = lambda m: [n for n, q in qs(one).items()
+                      if not all(torch.equal(getattr(q, k), getattr(qs(m)[n], k))
+                                 for k in leaves)]
+    differ, drift = bits(forced), bits(free)
+    rels = [float((q.delta - qs(free)[n].delta).abs() / q.delta.abs()) for n, q in qs(one).items()]
+    sides = all(torch.equal(q.one_side, qs(free)[n].one_side) for n, q in qs(one).items())
+    check(not differ, f"rank {rank}: dp_calibrate_acts over {P14_CAL_ROWS} rows on the "
+          f"single process's quantizer inputs bit-equal to set_act_quantize_params at all "
+          f"{len(qs(one))} act quantizers (differ: {differ[:3]})")
+    close = sum(r <= 1e-3 for r in rels)
+    check(sides and max(rels) <= 0.05,
+          f"rank {rank}: free-running, {len(qs(one)) - len(drift)} of {len(qs(one))} act "
+          f"quantizers bit-equal (the first that is not: {drift[:1]}); one_side equal, "
+          f"every delta within rel 5 % (the farthest {max(rels):.3g}), {close} within 1e-3")
+    rel = max(rels)
+    out["calib_quantizers"], out["calib_free_bit_equal"] = len(qs(one)), len(qs(one)) - len(drift)
+    out["calib_free_rel"] = rel
+    del forced, free, base
+    secs["dp_calibrate_acts"] = time.perf_counter() - t0
+
+    # (e) dp_reconstruct: the first 3 block targets, 20 iterations
+    t0 = time.perf_counter()
+    plan = [tg for tg in ddpm_recon_plan(cfg, qc) if tg.kind == "block"][:3]
+    args = ReconArgs(iters=P14_RECON_ITERS, batch_size=32, lr_w=P14_LR, lr_a=P14_LR)
+    gen = lambda: torch.Generator(device=dev).manual_seed(7)
+    a = reconstruct(_copy.deepcopy(one), cali, plan, args, gen())
+    secs["reconstruct"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = dp.dp_reconstruct(_copy.deepcopy(one), cali, plan, args, gen(), mesh)
+    secs["dp_reconstruct"] = time.perf_counter() - t0
+    atol = 6 * P14_LR
+    close = lambda u, v: torch.allclose(u, v, rtol=1e-3, atol=atol)
+    worst, masks, n_alpha, far, loose = 0.0, 0, 0, [], 0
+    for (n, ma), mb in zip(a.named_modules(), b.modules()):
+        if isinstance(ma, (QConv, QDense)):
+            for part, _, _ in ma._parts:
+                pa, pb = getattr(ma, f"{part}_alpha"), getattr(mb, f"{part}_alpha")
+                far += [] if close(pa, pb) else [f"{n}.{part}_alpha"]
+                worst = max(worst, float((pa - pb).abs().max()))
+                flip = (pa >= 0) != (pb >= 0)
+                masks += int(flip.sum())
+                # a mask may flip only where both alphas lie within the
+                # tolerance of 0 (a near-zero gradient's sign, an Adam step)
+                loose += int((flip & ((pa.abs() > atol) | (pb.abs() > atol))).sum())
+                n_alpha += pa.numel()
+        elif isinstance(ma, ActQuantizer) and not close(ma.delta, mb.delta):
+            far.append(f"{n}.delta")
+    check(not far and loose == 0, f"rank {rank}: dp_reconstruct ({P14_RECON_ITERS} "
+          f"iterations, lr {P14_LR:g}) alphas and act deltas within JAX's dp tolerance "
+          f"(rtol 1e-3, atol 6·lr; max |d| alpha {worst:.3g}; outside: {far[:3]}); "
+          f"{masks} of {n_alpha} rounding masks differ, each where both alphas lie "
+          f"within 6·lr of 0")
+    out["recon_masks_differ"] = masks
+    out["recon_max_alpha_d"] = worst
+    return out
+
+
+def parallel(kernels, smi, model):
+    """Phase 14: data and tensor parallelism (``eda_dm_tpu_torch.parallel``)
+    on phase 5's smoke-state export of ``DDPMConfig()`` (DEPLOY_INT8, bf16
+    carrier), the ranks started by ``parallel.launch.spawn`` (a ``FileStore``
+    in a temporary directory, the kernels loaded from phase 2's build):
+
+    (1) world 1 on NCCL: ``dp_sample`` of 10 quad DDIM steps at batch 500
+        on a one-rank mesh, bit-equal to one process's run on the same x_T;
+    (2) world 2 on gloo, both ranks on the card (NCCL refuses two ranks on
+        one device; gloo stages the card tensors through the host):
+        ``dp_sample`` at 250 rows a rank against (1)'s one-process samples
+        (bit-equal, else the whole-model flip gate and the first module
+        that differs), each rank's launches per forward those of one
+        process (K1 76, K2 35, K3 6), and one forward on each rank's rows
+        through the kernels and the plain versions (every K1 and K2 call
+        bit-equal, K3 by ``check_recorded``, the output by the flip gate);
+    (3) tp = 2 on the same two ranks: a DEPLOY_INT8 forward at t = 500,
+        bit-equal to the unsharded forward, each rank's weight bytes beside
+        the unsharded model's;
+    (4) ``dp_calibrate_acts`` at world 2 over 256 rows (``DDPMConfig()``
+        seed 0, CALIB_W first), each quantizer on this rank's rows of the
+        single process's inputs: every act quantizer's Δ, zp, ``one_side``
+        and running range bit-equal to ``set_act_quantize_params``'s (the
+        statistics are exact over the ranks); free-running (the card's
+        convs pick their algorithm by batch size, so the inputs differ in
+        their last bits and a flat search score may move a candidate):
+        ``one_side`` equal and every Δ within rel 5 %, the bit-equal ones
+        and those within rel 1e-3 counted (as phase 10 prints its free run
+        beside its exact check);
+    (5) ``dp_reconstruct`` at world 2 over the same rows: the first 3 block
+        targets of ``ddpm_recon_plan``, 20 iterations, lr 1e-4, batch 32:
+        alphas and act Δ within JAX's dp tolerance (rtol 1e-3, atol 6·lr)
+        of ``reconstruct``; a rounding mask may differ only where both
+        alphas lie within 6·lr of 0 (the differing ones counted);
+    (6) ``validate_ptq --task cifar`` at full width, one process: ``--n
+        500 --no_recon --serve int8``, the calibration cut to 256 rows
+        and 10 DDIM steps (the task: 100); its numbers finite.
+
+    No speedup is expected from two ranks that share one card."""
+    import shutil
+    import tempfile
+    from eda_dm_tpu_torch.parallel.launch import spawn
+    from eda_dm_tpu_torch.validate_ptq import main as validate_ptq
+    print("[14] data and tensor parallelism: dp_sample on NCCL (world 1) and gloo "
+          "(world 2, one card), tp = 2, dp_calibrate_acts, dp_reconstruct, validate_ptq")
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_p14_")
+    res = {"card": smi}
+    try:
+        path = os.path.join(work, "cifar_int8.pt")
+        torch.save(model, path)
+        x_T = torch.randn(BATCH, 32, 32, 3, generator=torch.Generator().manual_seed(140))
+
+        t0 = time.perf_counter()
+        (w1,) = spawn(p14_world1, 1, "nccl", "cuda", path, x_T, timeout_s=300)
+        res["world1_s"] = time.perf_counter() - t0
+        check(w1["backend"] == "nccl" and torch.equal(w1["dp"], w1["single"]),
+              f"world 1 on NCCL: dp_sample bit-equal to one process ({BATCH} rows)")
+        check(w1["dp_launches"] == w1["single_launches"],
+              f"world 1: the same launches as one process ({w1['dp_launches']})")
+        res["world1"] = {"img_s_single": BATCH / w1["single_s"], "img_s_dp": BATCH / w1["dp_s"],
+                         "collective_s": w1["comm"]["seconds"],
+                         "collectives": w1["comm"]["calls"]}
+
+        t0 = time.perf_counter()
+        ranks = spawn(p14_world2, 2, "gloo", "cuda", path, x_T, w1["single"], timeout_s=300)
+        res["world2_s"] = time.perf_counter() - t0
+        r0 = ranks[0]
+        check(all(r["backend"] == "gloo" for r in ranks), "world 2 on gloo")
+        equal = all(r["bit_equal"] for r in ranks)
+        if equal:
+            check(True, f"world 2: gathered dp_sample bit-equal to one process")
+        else:
+            print(f"    world 2 samples differ from one process's; first module that "
+                  f"differs: {[r.get('first_difference') for r in ranks]}")
+            flip_gate(r0["samples"].float(), w1["single"].float(), "world 2 dp_sample")
+        res["world2"] = {
+            "bit_equal": equal, "img_s": BATCH / max(r["sample_s"] for r in ranks),
+            "collective_s": [r["comm"]["seconds"] for r in ranks],
+            "collectives": [r["comm"]["calls"] for r in ranks],
+            "launches_per_forward": [r["launches"] for r in ranks],
+            "held_launches": [r["held_launches"] for r in ranks],
+            "tp_launches": [r["tp_launches"] for r in ranks],
+            "tp_collective_s": [r["tp_comm"]["seconds"] for r in ranks],
+            "tp_weight_bytes": [r["tp_weight_bytes"] for r in ranks],
+            "weight_bytes": r0["weight_bytes"],
+            "calib_quantizers": r0["calib_quantizers"],
+            "calib_free_bit_equal": [r["calib_free_bit_equal"] for r in ranks],
+            "calib_free_rel": [r["calib_free_rel"] for r in ranks],
+            "recon_max_alpha_d": [r["recon_max_alpha_d"] for r in ranks],
+            "recon_masks_differ": [r["recon_masks_differ"] for r in ranks],
+            "seconds": [r["seconds"] for r in ranks]}
+        for k in kernels[:3]:
+            k["parallel_launches"] = [r["launches"].get(k["name"], 0) for r in ranks]
+        w2 = res["world2"]
+        print(f"    tp = 2 weight bytes a rank {w2['tp_weight_bytes']} beside the unsharded "
+              f"model's {w2['weight_bytes']}")
+
+        t0 = time.perf_counter()
+        out_dir = os.path.join(work, "validate")
+        v = validate_ptq(["--task", "cifar", "--n", str(BATCH), "--no_recon", "--serve", "int8",
+                          "--calib_num_samples", str(P14_CAL_ROWS), "--batch_samples",
+                          str(P14_CAL_ROWS), "--timesteps", str(STEPS), "--out", out_dir])
+        res["validate_s"] = time.perf_counter() - t0
+        check(all(math.isfinite(v[k]) for k in ("fid_quant_vs_fp", "split_noise_floor"))
+              and os.path.exists(os.path.join(out_dir, "features.npz")),
+              f"validate_ptq --task cifar: fid_quant_vs_fp {v['fid_quant_vs_fp']} "
+              f"(split noise floor {v['split_noise_floor']}) finite, features written")
+        res["validate"] = v
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"    on {smi}: world 1 (NCCL) {res['world1']['img_s_single']:.1f} img/s one "
+          f"process, {res['world1']['img_s_dp']:.1f} img/s dp_sample "
+          f"({res['world1']['collectives']} collectives, "
+          f"{res['world1']['collective_s']:.4f} s); world 2 (gloo, one card) "
+          f"{w2['img_s']:.1f} img/s, collectives {w2['collective_s']} s")
+    print(f"    seconds: world 1 {res['world1_s']:.1f}, world 2 {res['world2_s']:.1f} "
+          f"(rank 0's steps {r0['seconds']}), validate_ptq {res['validate_s']:.1f}, "
+          f"phase 14 {res['phase_s']:.1f}")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2911,6 +3335,7 @@ def main():
         print(f"    profile, {what} forward at batch {BATCH}, bf16 carrier:")
         with torch.no_grad(), environ(EDM_FUSED_GN="1" if "fused Group" in what else "0"):
             profile_forward(lambda: fn(xb, t500))
+    p14_model = copy.deepcopy(model).cpu()      # phase 14 serves the same export
     del model
     fp32 = DDPMUNet(cfg, qc, device="cuda", seed=0)
     fp32_sps, _ = steps_per_s(lambda x, t: fp32(x, t, FP), xb, seq, betas)
@@ -2943,6 +3368,8 @@ def main():
     print("[13] the scoring path: checkpoints in through the converters, sample_ddim "
           "(int8 and fp sets), evaluate (FID, IS, sFID) on the FID InceptionV3")
     scored = scoring(smi)
+    free_memory("after phase 13")
+    parallel_res = parallel(kernels, smi, p14_model)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
@@ -2951,7 +3378,8 @@ def main():
              "acc_ms", "other_tile_ms", "sd_ms", "shapes_ms", "rates", "plain_by_shape",
              "library_peak", "mma_sync_ms", "mma_sync_launches", "mma_sync_source",
              "calibrated_launches", "latent_calibrated_launches", "church_launches",
-             "imagenet_launches", "imagenet_calibrated_launches", "imagenet_ms")
+             "imagenet_launches", "imagenet_calibrated_launches", "imagenet_ms",
+             "parallel_launches")
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{**{k: kern[k] for k in keys},
                                    **{k: kern[k] for k in extra if k in kern},
@@ -2962,7 +3390,7 @@ def main():
         "batch": BATCH},
         "bedroom_serving": serving, "sd_serving": sd_serving,
         "cifar_calibration": calibrated, "latent_calibration": latent,
-        "imagenet": imagenet_serving, "scoring": scored}))
+        "imagenet": imagenet_serving, "scoring": scored, "parallel": parallel_res}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

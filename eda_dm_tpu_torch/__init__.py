@@ -6,5 +6,7 @@ caller passes ``device="cpu"``; on a CUDA tensor every op on the int8
 serving path launches its hand-written kernel (``ops/``, ``csrc/``), on a
 CPU tensor it runs the kernel's plain PyTorch version.  The command-line
 entry points are ``python -m eda_dm_tpu_torch.sample_ddim``,
-``.sample_ldm`` and ``.evaluate`` (``--device cpu`` for the host).
+``.sample_ldm``, ``.evaluate`` and ``.validate_ptq`` (``--device cpu`` for
+the host).  ``parallel/`` shards calibration, reconstruction and sampling
+over ranks on ``torch.distributed``.
 """

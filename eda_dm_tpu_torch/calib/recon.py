@@ -24,11 +24,23 @@
   fake tensors, nothing computed) and splits groups or caps the rows as
   in JAX.
 
+* **Data parallel** (``mesh``, ``parallel/dp.py::dp_reconstruct``).  The
+  JAX package's semantics: the same rows, the same loss, the gradients of
+  the global mean.  Every rank draws the global minibatch indices and the
+  input-mixing mask from the same generator state and takes its
+  contiguous ``batch_size / n`` positions; QDrop draws its mask for the
+  global minibatch and slices it (``parallel/rows.py``).  A rank's data
+  loss is weighted by its share of the rows, the rounding regularizer is
+  counted once (on the first rank), and the gradients are summed over the
+  ranks before the two Adam groups step, so the Adam state stays equal on
+  every rank.  The captures stay whole on every rank (the memory of one
+  process; JAX row-shards them).
+
 As in the JAX package, the FP inner activations are captured once and
 reused (the reference recomputes them every step on the same inputs), and
 the quantized forward runs once a step.  The JAX package's XLA-only knobs
-(``mesh``, ``shared_capture``, ``clear_caches_every``) have no meaning
-here and are not accepted.
+(``shared_capture``, ``clear_caches_every``) have no meaning here and are
+not accepted.
 """
 
 from __future__ import annotations
@@ -43,6 +55,7 @@ import torch
 import torch.nn as nn
 
 from ..nn.layers import ActQuantizer, QConv, QDense
+from ..parallel import comm, rows
 from ..quant.adaround import round_regularization
 from ..quant.affine import lp_loss
 from ..quant.config import QuantMode
@@ -279,9 +292,18 @@ def _cosine(iters: int):
     return lambda t: 0.5 * (1.0 + math.cos(math.pi * min(t, iters) / iters))
 
 
+def _sum_grads(tensors: List[torch.Tensor], group) -> None:
+    """Every trained tensor's gradient summed over the ranks, in one
+    collective."""
+    grads = [torch.zeros_like(t) if t.grad is None else t.grad for t in tensors]
+    flat = comm.all_reduce_(torch.cat([g.reshape(-1) for g in grads]), "sum", group)
+    for t, g in zip(tensors, flat.split([g.numel() for g in grads])):
+        t.grad = g.view_as(t).clone()
+
+
 def reconstruct_target(target: ReconTarget, model: nn.Module,
                        data: Dict[str, Any], args: ReconArgs,
-                       generator: torch.Generator) -> torch.Tensor:
+                       generator: torch.Generator, group=None) -> torch.Tensor:
     """Optimize one target's rounding masks and act scales in place; return
     the per-iteration losses (iters,).
 
@@ -290,7 +312,10 @@ def reconstruct_target(target: ReconTarget, model: nn.Module,
     ``ctx_q`` for those that take a context (``has_ctx``), and
     ``inner_fp`` (FP inner-layer outputs in ``target.inner_taps`` order).
     ``generator`` (on the model's device) draws the minibatches, the input
-    mixing and QDrop.
+    mixing and QDrop.  With a ``group`` (data parallel) this rank computes
+    its block of each global minibatch and the gradients are summed over
+    the group (see the module docstring); the losses returned are the
+    global ones.
     """
     module = target.module(model)
     alphas, deltas, args = _trainable(target, module, args)
@@ -307,6 +332,11 @@ def reconstruct_target(target: ReconTarget, model: nn.Module,
     n = out_fp_all.shape[0]
     bs = min(args.batch_size, n)
     dev = out_fp_all.device
+    n_rank, rank = comm.size(group), comm.rank(group)
+    if bs % n_rank:
+        raise ValueError(f"a minibatch of {bs} rows does not shard over "
+                         f"{n_rank} ranks")
+    mine = slice(rank * (bs // n_rank), (rank + 1) * (bs // n_rank))
 
     trained = alphas + deltas
     for t in trained:
@@ -324,37 +354,45 @@ def reconstruct_target(target: ReconTarget, model: nn.Module,
     f32 = lambda a: a.float()
     losses = []
     try:
-        for it in range(args.iters):
-            # a minibatch of every row is every row: no draw, no gather
-            idx = (torch.randperm(n, generator=generator, device=dev)[:bs]
-                   if bs < n else None)
-            take = (lambda a: f32(a)) if idx is None else (lambda a: f32(a[idx]))
-            xq, xs = take(inp_q), take(inp_s)
-            if args.input_prob < 1.0:
-                m = torch.rand(xq.shape, generator=generator, device=dev) < args.input_prob
-                x = torch.where(m, xq, xs)
-            else:
-                x = xs
-            inputs = ((x, take(temb_q)) if target.has_temb else
-                      (x, take(ctx_q)) if target.has_ctx else (x,))
-            store.clear()
-            out = module(*inputs, mode)
-            loss = lp_loss(out, take(out_fp_all), args.p, channel_axis=-1)
-            if use_inner:
-                m_loss = 0.0
-                for tap, fp_act in zip(target.inner_taps[:-1], inner_fp[:-1]):
-                    m_loss = m_loss + lp_loss(store[tap + ("out",)], take(fp_act),
-                                              2.0, channel_axis=-1)
-                loss = loss + args.add_loss * m_loss
-            if args.round_loss == "relaxation":
-                b = _linear_temp_decay(it, args.iters, args.warmup, args.b_range)
-                loss = loss + args.weight * sum(round_regularization(a, b)
-                                                for a in alphas)
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            opt.step()
-            sched.step()
-            losses.append(loss.detach())
+        with rows.sharded_rows(group):
+            for it in range(args.iters):
+                # a minibatch of every row is every row: no draw, no gather
+                idx = (torch.randperm(n, generator=generator, device=dev)[:bs]
+                       if bs < n else None)
+                if n_rank > 1:
+                    idx = (torch.arange(bs, device=dev) if idx is None else idx)[mine]
+                take = (lambda a: f32(a)) if idx is None else (lambda a: f32(a[idx]))
+                xq, xs = take(inp_q), take(inp_s)
+                if args.input_prob < 1.0:
+                    m = rows.draw(torch.rand, xq.shape, generator=generator,
+                                  device=dev) < args.input_prob
+                    x = torch.where(m, xq, xs)
+                else:
+                    x = xs
+                inputs = ((x, take(temb_q)) if target.has_temb else
+                          (x, take(ctx_q)) if target.has_ctx else (x,))
+                store.clear()
+                out = module(*inputs, mode)
+                loss = lp_loss(out, take(out_fp_all), args.p, channel_axis=-1)
+                if use_inner:
+                    m_loss = 0.0
+                    for tap, fp_act in zip(target.inner_taps[:-1], inner_fp[:-1]):
+                        m_loss = m_loss + lp_loss(store[tap + ("out",)], take(fp_act),
+                                                  2.0, channel_axis=-1)
+                    loss = loss + args.add_loss * m_loss
+                if n_rank > 1:
+                    loss = loss / n_rank            # this rank's share of the rows
+                if args.round_loss == "relaxation" and rank == 0:
+                    b = _linear_temp_decay(it, args.iters, args.warmup, args.b_range)
+                    loss = loss + args.weight * sum(round_regularization(a, b)
+                                                    for a in alphas)
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                if n_rank > 1:
+                    _sum_grads(trained, group)
+                opt.step()
+                sched.step()
+                losses.append(loss.detach())
     finally:
         for h in handles:
             h.remove()
@@ -362,7 +400,7 @@ def reconstruct_target(target: ReconTarget, model: nn.Module,
             q.generator = None
         for t in trained:
             t.requires_grad_(False)
-    return torch.stack(losses)
+    return comm.all_reduce_(torch.stack(losses), "sum", group)
 
 
 def reconstruct_group(targets: Sequence[ReconTarget], model: nn.Module,
@@ -516,7 +554,7 @@ def reconstruct(model: nn.Module, cali_data: Sequence[torch.Tensor],
                 generator: Optional[torch.Generator] = None,
                 progress: Optional[Callable[[str, float], None]] = None,
                 group_size: int = 1, group_window: int = 0,
-                log: Optional[list] = None) -> nn.Module:
+                log: Optional[list] = None, mesh=None) -> nn.Module:
     """Block/layer reconstruction over the plan, in place; returns the model.
 
     Each target's quantized-input capture sees the state that all earlier
@@ -526,8 +564,12 @@ def reconstruct(model: nn.Module, cali_data: Sequence[torch.Tensor],
     seed 0 if None) draws every minibatch and QDrop mask.  ``progress(name,
     last loss)`` is called after each target; ``log``, a list, gets one
     dict a target: name, kind, iterations, the loop's seconds and its
-    first and last loss.
+    first and last loss.  ``mesh`` (a 1-D ``parallel.mesh.make_mesh``)
+    runs each target's loop data-parallel over its ranks, every rank
+    holding the same model and the whole calibration set
+    (``parallel/dp.py::dp_reconstruct`` checks and replicates them).
     """
+    group = None if mesh is None else mesh.get_group(0)
     dev = cali_data[0].device
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -549,7 +591,8 @@ def reconstruct(model: nn.Module, cali_data: Sequence[torch.Tensor],
                 if log is not None and dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 t0 = time.perf_counter()
-                losses = reconstruct_target(t, model, datas[i], args, generator)
+                losses = reconstruct_target(t, model, datas[i], args, generator,
+                                            group)
                 if log is not None:
                     if dev.type == "cuda":
                         torch.cuda.synchronize(dev)

@@ -34,7 +34,7 @@ quantizer of a layer whose act quantization is disabled has no leaves.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -162,13 +162,19 @@ def from_jax_variables(tree: Dict[str, Any], cfg: DDPMConfig, qc,
 
 
 def first_stage_from_jax(tree: Dict[str, Any], cfg: VAEConfig,
-                         device=None) -> FirstStage:
-    """A ``FirstStage`` on ``device`` holding the decode part of a JAX
-    ``FirstStage`` tree (``decoder``, ``post_quant_conv``, ``codebook``);
-    the encoder and ``quant_conv`` are not read."""
-    params = {k: v for k, v in tree["params"].items()
-              if k not in ("encoder", "quant_conv")}
-    return load_jax_variables(FirstStage(cfg, device=device), {"params": params})
+                         device=None, encoder: Optional[bool] = None) -> FirstStage:
+    """A ``FirstStage`` on ``device`` holding a JAX ``FirstStage`` tree:
+    the whole of it (``encoder``, ``quant_conv``, ``decoder``,
+    ``post_quant_conv``, ``codebook``), or with ``encoder=False`` its decode
+    part alone.  By default the encoder is read where the tree has it (a
+    JAX ``init`` through ``decode`` makes none)."""
+    params = tree["params"]
+    if encoder is None:
+        encoder = "encoder" in params
+    if not encoder:
+        params = {k: v for k, v in params.items() if k not in ("encoder", "quant_conv")}
+    return load_jax_variables(FirstStage(cfg, device=device, encoder=encoder),
+                              {"params": params})
 
 
 def to_jax_variables(module: nn.Module) -> Dict[str, Any]:

@@ -36,6 +36,7 @@ from ..ops.int8_einsum import (int8_act_einsum, int8_code_einsum,
 from ..ops.serving_policy import (attention_impl, int8_attention_serving,
                                   use_fused_softmax)
 from ..ops.softmax_codes import softmax_codes
+from ..parallel.rows import global_rows
 from ..quant.config import FP, QuantConfig, QuantizerSpec, QuantMode
 
 
@@ -115,7 +116,8 @@ class AttnBlockD(nn.Module):
             dk, zk = self.act_quantizer_k(k, mode, params_only=True)
             dv, zv = self.act_quantizer_v(v, mode, params_only=True)
             dw, zw = self.act_quantizer_w(None, mode, params_only=True)
-            if attention_impl(n, 1, hh * ww, hh * ww, c) == "fused":
+            # the global batch's branch, as JAX's traced shapes choose it
+            if attention_impl(global_rows(n), 1, hh * ww, hh * ww, c) == "fused":
                 # the whole attention in one kernel (K4): the (n, hw, hw)
                 # logits never reach device memory
                 Qc, cq = quantize_act_int8(q, dq, zq, L)

@@ -53,7 +53,8 @@ class LatentDiffusion:
             raise ValueError(f"unknown conditioning {cfg.cond!r}")
         self.cfg, self.qc = cfg, qc
         self.unet = LDMUNet(cfg.unet, qc, device=device, seed=seed)
-        self.first_stage = FirstStage(cfg.vae, device=device, seed=seed)
+        self.first_stage = FirstStage(cfg.vae, device=device, seed=seed,
+                                      encoder=False)
         self.cond_stage = None
         if cfg.cond == "class":
             self.cond_stage = ClassEmbedder(cfg.class_embed_dim, cfg.n_classes,

@@ -71,6 +71,7 @@ from ..ops.int8_einsum import (int8_act_einsum, int8_code_einsum,
 from ..ops.serving_policy import (attention_impl, int8_attention_serving,
                                   int8_serving, use_fused_gn)
 from ..ops.softmax_codes import softmax_codes
+from ..parallel.rows import global_rows
 from ..quant.config import FP, QuantConfig, QuantizerSpec, QuantMode
 from .encoders import Embed
 
@@ -276,7 +277,7 @@ class _QKVAttention(nn.Module):
             dk, zk = self.act_quantizer_k(k, mode, params_only=True)
             dw, zw = self.act_quantizer_w(None, mode, params_only=True)
             dv, zv = self.act_quantizer_v(v, mode, params_only=True)
-            impl = attention_impl(b, heads, sq, k.shape[1], c)
+            impl = attention_impl(global_rows(b), heads, sq, k.shape[1], c)
             if impl in ("fused", "flash"):
                 # the (b, h, i, j) logits never reach device memory
                 Qc, cq = quantize_act_int8(q, dq, zq, L)

@@ -1,4 +1,5 @@
-"""First-stage VAE, decode path (port of ``eda_dm_tpu/models/vae.py``).
+"""First-stage VAE (port of ``eda_dm_tpu/models/vae.py``): the encoder
+(``encode``) and the decoder (``decode``).
 
 The first stage is never quantized; it runs in float32.  The public
 functions keep the JAX package's NHWC layout (latents in, images out);
@@ -13,10 +14,11 @@ lookup computes ``|z|² − 2z·E + |E|²`` in that order, in row chunks, as
 ``FirstStage.quantize`` does.  Call it with TF32 off on the card
 (``ops.int8_einsum.tf32_off``): the reference is full float32.
 
-The encoder is not ported: only calibration reads it.
 ``vae_state_dict_to_params`` converts a reference AutoencoderKL / VQModel
 state dict (encoder included) to the JAX package's tree;
-``models/bridge.py::first_stage_from_jax`` reads its decode part.
+``models/bridge.py::first_stage_from_jax`` reads it whole, or its decode
+part alone.  ``LatentDiffusion`` holds a decode-only first stage, as the
+JAX package's reads only the decode part of a checkpoint.
 """
 
 from __future__ import annotations
@@ -55,16 +57,22 @@ class VAEConfig:
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv`` with SAME padding and stride 1, on NCHW."""
+    """flax ``nn.Conv`` on NCHW: SAME padding at stride 1; at stride 2
+    VALID, the input padded by one row and column at its end first (the
+    encoder's downsample, ``jnp.pad(h, ((0, 0), (0, 1), (0, 1), (0, 0)))``)."""
 
-    def __init__(self, in_ch: int, out_ch: int, k: int = 3):
+    def __init__(self, in_ch: int, out_ch: int, k: int = 3, stride: int = 1):
         super().__init__()
+        self.stride = stride
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, k, k))
         self.bias = nn.Parameter(torch.zeros(out_ch))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight, self.bias,
-                        padding=self.weight.shape[-1] // 2)
+        if self.stride == 1:
+            return F.conv2d(x, self.weight, self.bias,
+                            padding=self.weight.shape[-1] // 2)
+        return F.conv2d(F.pad(x, (0, 1, 0, 1)), self.weight, self.bias,
+                        stride=self.stride)
 
 
 class GroupNorm(nn.Module):
@@ -126,7 +134,50 @@ class VAEAttnBlock(nn.Module):
         return x + self.proj_out(h)
 
 
-class VAEDecoder(nn.Module):
+class _Path(nn.Module):
+    """A module whose ``order`` lists, in call order, the flax-named
+    submodules of its down or up path."""
+
+    def __init__(self):
+        super().__init__()
+        self.order = []
+
+    def _add(self, name, module):
+        setattr(self, name, module)
+        self.order.append(name)
+
+
+class VAEEncoder(_Path):
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        curr_res = cfg.resolution
+        self.conv_in = Conv(cfg.in_channels, cfg.ch)
+        ch = cfg.ch
+        for i, mult in enumerate(cfg.ch_mult):
+            out_ch = cfg.ch * mult
+            for j in range(cfg.num_res_blocks):
+                self._add(f"down_{i}_block_{j}", VAEResnetBlock(ch, out_ch))
+                ch = out_ch
+                if curr_res in cfg.attn_resolutions:
+                    self._add(f"down_{i}_attn_{j}", VAEAttnBlock(ch))
+            if i != len(cfg.ch_mult) - 1:
+                self._add(f"down_{i}_downsample", Conv(ch, ch, stride=2))
+                curr_res //= 2
+        self.mid_block_1 = VAEResnetBlock(ch, ch)
+        self.mid_attn_1 = VAEAttnBlock(ch)
+        self.mid_block_2 = VAEResnetBlock(ch, ch)
+        self.norm_out = GroupNorm(ch)
+        self.conv_out = Conv(ch, 2 * cfg.z_channels if cfg.double_z else cfg.z_channels)
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for name in self.order:
+            h = getattr(self, name)(h)
+        h = self.mid_block_2(self.mid_attn_1(self.mid_block_1(h)))
+        return self.conv_out(F.silu(self.norm_out(h)))
+
+
+class VAEDecoder(_Path):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         n_lv = len(cfg.ch_mult)
@@ -136,7 +187,6 @@ class VAEDecoder(nn.Module):
         self.mid_block_1 = VAEResnetBlock(block_in, block_in)
         self.mid_attn_1 = VAEAttnBlock(block_in)
         self.mid_block_2 = VAEResnetBlock(block_in, block_in)
-        self.order = []                # module names of the up path, in order
         ch = block_in
         for i in reversed(range(n_lv)):
             out_ch = cfg.ch * cfg.ch_mult[i]
@@ -151,10 +201,6 @@ class VAEDecoder(nn.Module):
         self.norm_out = GroupNorm(ch)
         self.conv_out = Conv(ch, cfg.out_ch)
 
-    def _add(self, name, module):
-        setattr(self, name, module)
-        self.order.append(name)
-
     def forward(self, z):
         h = self.conv_in(z)
         h = self.mid_block_2(self.mid_attn_1(self.mid_block_1(h)))
@@ -166,12 +212,15 @@ class VAEDecoder(nn.Module):
 
 
 class FirstStage(nn.Module):
-    """VQModelInterface / AutoencoderKL decode surface.  Built on
-    ``device`` (the card unless the caller passes ``"cpu"``) with
-    N(0, 1/fan_in) conv weights and a U[0, 1) codebook drawn from
-    ``seed``; real weights come through ``models/bridge.py``."""
+    """VQModelInterface / AutoencoderKL encode and decode surface
+    (``encoder=False``: decode only).  Built on ``device`` (the card unless
+    the caller passes ``"cpu"``) with N(0, 1/fan_in) conv weights and a
+    U[0, 1) codebook drawn from ``seed`` (the encoder's drawn after the
+    decode part's, which are the same with or without it); real weights
+    come through ``models/bridge.py``."""
 
-    def __init__(self, cfg: VAEConfig, device=None, seed: int = 0):
+    def __init__(self, cfg: VAEConfig, device=None, seed: int = 0,
+                 encoder: bool = True):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
@@ -180,13 +229,21 @@ class FirstStage(nn.Module):
             self.post_quant_conv = Conv(cfg.embed_dim, cfg.z_channels, 1)
             self.codebook = (nn.Parameter(torch.empty(cfg.n_embed, cfg.embed_dim))
                              if cfg.n_embed is not None else None)
+            self.encoder = self.quant_conv = None
+            if encoder:
+                two = 2 if cfg.double_z else 1
+                self.encoder = VAEEncoder(cfg)
+                self.quant_conv = Conv(two * cfg.z_channels, two * cfg.embed_dim, 1)
         g = torch.Generator(device=device).manual_seed(seed)
         with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, Conv):
-                    lecun_normal_(m.weight, g)
-            if self.codebook is not None:
-                self.codebook.uniform_(0.0, 1.0, generator=g)
+            for part in (self.decoder, self.post_quant_conv, self.codebook,
+                         self.encoder, self.quant_conv):
+                if isinstance(part, nn.Parameter):
+                    part.uniform_(0.0, 1.0, generator=g)
+                elif part is not None:
+                    for m in part.modules():
+                        if isinstance(m, Conv):
+                            lecun_normal_(m.weight, g)
 
     @torch.no_grad()
     def quantize(self, z: torch.Tensor) -> torch.Tensor:
@@ -200,6 +257,15 @@ class FirstStage(nn.Module):
             for fc in flat.split(VQ_CHUNK)])
         zq = self.codebook[idx].reshape(z.shape)
         return z + (zq - z)        # the straight-through value, as JAX forms it
+
+    @torch.no_grad()
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC images → NHWC latents: VQ the pre-quantization latents, KL
+        the concatenated (mean, logvar)."""
+        if self.encoder is None:
+            raise RuntimeError("a decode-only first stage has no encoder")
+        h = self.quant_conv(self.encoder(x.permute(0, 3, 1, 2)))
+        return h.permute(0, 2, 3, 1)
 
     @torch.no_grad()
     def decode(self, z: torch.Tensor, force_not_quantize: bool = False):

@@ -39,6 +39,7 @@ from ..ops.int8_conv import border_map, int8_conv, same_pads
 from ..ops.int8_einsum import int8_dense, quantize_act_int8
 from ..ops.quant_matmul import fakequant_matmul
 from ..ops.serving_policy import int8_conv_serving, int8_serving, use_fused_gn
+from ..parallel import comm, rows
 from ..quant import search
 from ..quant.adaround import adaround_fake_quant, adaround_int, init_alpha
 from ..quant.affine import ema_update, fake_quant, qdrop
@@ -87,26 +88,31 @@ class ActQuantizer(nn.Module):
             if self.generator is None:
                 raise RuntimeError("a QDrop forward needs the quantizer's "
                                    "generator (calib/recon.py sets it)")
-            x_fq = qdrop(x_fq, x, self.spec.prob, self.generator)
+            keep = rows.draw(torch.rand, x.shape, generator=self.generator,
+                             device=x.device) < self.spec.prob
+            x_fq = qdrop(x_fq, x, self.spec.prob, mask=keep)
         return x_fq
 
     @torch.no_grad()
     def calibrate(self, x: torch.Tensor, mode: QuantMode) -> None:
         spec = self.spec
         xf = x.reshape(-1).float()
+        group = rows.stats_group()
         static_side = (dict(mode.static_sides).get(self.name)
                        if mode.static_sides is not None else None)
         if static_side is not None:
             side = torch.tensor(static_side, dtype=torch.int32, device=x.device)
         elif int(self.one_side) == search.ONE_SIDE_UNSET:
-            side = search.detect_one_side(xf)
+            side = search.detect_one_side(xf, group)
         else:
             side = self.one_side
-        if spec.search_bins and xf.numel() > 4 * spec.search_bins:
+        if spec.search_bins and rows.global_rows(xf.numel()) > 4 * spec.search_bins:
             lo, hi = search.search_range_hist(
                 xf, spec.n_levels, side, spec.symmetric, spec.num_candidates,
-                spec.search_bins, static_side=static_side)
+                spec.search_bins, static_side=static_side, group=group)
         else:
+            if group is not None:
+                xf = comm.all_gather(xf, group)     # small: the rows in rank order
             lo, hi = search.search_range(xf, spec.n_levels, side, spec.symmetric,
                                          spec.num_candidates,
                                          static_side=static_side)

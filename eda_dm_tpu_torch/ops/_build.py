@@ -57,7 +57,9 @@ def build(names: Iterable[str] = CUDA_SOURCES) -> float:
     """Compile every named source that is not built yet, one ``nvcc`` each,
     all started together.  Returns the wall seconds; raises on a failure
     with the compiler's output.  ``ptxas`` register and spill reports go to
-    ``_build/<name>.log``."""
+    ``_build/<name>.log``.  With ``EDM_NO_KERNEL_BUILD=1`` (the ranks of
+    ``parallel/launch.py``) a source that is not built yet raises instead:
+    the parent builds, the ranks load."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = []
@@ -65,6 +67,9 @@ def build(names: Iterable[str] = CUDA_SOURCES) -> float:
         out = _lib_path(name)
         if out.exists():
             continue
+        if os.environ.get("EDM_NO_KERNEL_BUILD") == "1":
+            raise RuntimeError(f"kernel {name} is not built: build it before "
+                               "starting the ranks (ops/_build.py::build)")
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp,

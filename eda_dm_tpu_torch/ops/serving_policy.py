@@ -102,7 +102,9 @@ def attention_impl(batch: int, heads: int, sq: int, skv: int, c: int) -> str:
     K3 → K2), ``'fused'`` (K4: self-attention whose (S, S) logits fit the
     gate) or ``'flash'`` (K5: the tiled kernel, SD's 4096-token
     self-attention; the 77-token text context is not tileable and keeps
-    the einsum branch)."""
+    the einsum branch).  ``batch`` is the global batch: under a dp mesh
+    the callers pass ``parallel/rows.py::global_rows`` of their rows, as
+    JAX's traced shapes are the global ones."""
     narrow = narrow_lanes_allowed()
     can_fuse = sq == skv and fused_attention_applicable(sq, c, narrow_lanes=narrow)
     can_flash = flash_attention_applicable(sq, skv, c, narrow_lanes=narrow)

@@ -11,6 +11,14 @@ A division by a constant is a product with the constant's float32
 reciprocal (:func:`_recip`): XLA compiles the JAX package's jitted
 divisions so, and the candidate grids then agree bit for bit.
 
+Over a batch sharded across ranks (``parallel/rows.py``) the per-tensor
+activation search takes a ``group``, and each decision is the global
+batch's: the side from all-reduced extremes, the histogram's counts summed
+over the ranks on the shared grid of the global range (exact, so bit-equal
+to one process), and the plain search (at most 4·``bins`` elements) on the
+all-gathered tensor.  Without a group every function is the
+single-process one.
+
 One-side-distribution codes (sticky across calibration batches):
     0 = unset, 1 = 'pos', 2 = 'neg', 3 = 'no' (two-sided).
 """
@@ -21,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel import comm
 from .affine import EPS
 
 SEARCH_P = 2.4  # L_p exponent used by every scale search
@@ -28,11 +37,20 @@ SEARCH_P = 2.4  # L_p exponent used by every scale search
 ONE_SIDE_UNSET, ONE_SIDE_POS, ONE_SIDE_NEG, ONE_SIDE_NO = 0, 1, 2, 3
 
 
-def detect_one_side(x: torch.Tensor) -> torch.Tensor:
+def _extremes(x: torch.Tensor, group=None):
+    """(min, max) of ``x``, over every rank's part with a ``group``."""
+    lo, hi = torch.amin(x), torch.amax(x)
+    if comm.size(group) > 1:
+        lo, hi = comm.all_reduce_(lo, "min", group), comm.all_reduce_(hi, "max", group)
+    return lo, hi
+
+
+def detect_one_side(x: torch.Tensor, group=None) -> torch.Tensor:
     """Classify the distribution of ``x`` (whole tensor, even channel-wise)
     as an int32 code."""
-    code = (ONE_SIDE_POS if bool(x.min() >= 0.0) else
-            ONE_SIDE_NEG if bool(x.max() <= 0.0) else ONE_SIDE_NO)
+    lo, hi = _extremes(x, group)
+    code = (ONE_SIDE_POS if bool(lo >= 0.0) else
+            ONE_SIDE_NEG if bool(hi <= 0.0) else ONE_SIDE_NO)
     return torch.tensor(code, dtype=torch.int32, device=x.device)
 
 
@@ -199,13 +217,14 @@ def search_range(x_flat: torch.Tensor, n_levels: int, one_side, symmetric: bool,
 _HIST_CHUNK = 1 << 28      # sort at most 256M elements at a time
 
 
-def _exact_histogram(x_flat: torch.Tensor, bins: int):
+def _exact_histogram(x_flat: torch.Tensor, bins: int, group=None):
     """Exact value histogram of a flat tensor by sort and a ``bins + 1``
     edge ``searchsorted`` (left side), in chunks of 2^28 elements against
-    the shared global-range edges, counts summed in int32.  Returns
+    the shared global-range edges, counts summed in int32 (with a
+    ``group``: the range and the counts over every rank's part).  Returns
     (centers (bins,), counts (bins,) in x's dtype, x_min, x_max)."""
     size = x_flat.shape[-1]
-    x_min, x_max = torch.amin(x_flat), torch.amax(x_flat)
+    x_min, x_max = _extremes(x_flat, group)
     span = torch.clamp(x_max - x_min, min=EPS)
     edges = x_min + span * torch.arange(bins + 1, dtype=x_flat.dtype,
                                         device=x_flat.device) * _recip(bins)
@@ -223,6 +242,7 @@ def _exact_histogram(x_flat: torch.Tensor, bins: int):
         counts = torch.zeros((bins,), dtype=torch.int32, device=x_flat.device)
         for start in range(0, size, _HIST_CHUNK):
             counts = counts + chunk_counts(x_flat[..., start:start + _HIST_CHUNK])
+    comm.all_reduce_(counts, "sum", group)
     centers = 0.5 * (edges[:-1] + edges[1:])
     return centers, counts.to(x_flat.dtype), x_min, x_max
 
@@ -238,12 +258,12 @@ def _score_hist(centers: torch.Tensor, counts: torch.Tensor, new_min: torch.Tens
 
 
 def search_range_1d_hist(x_flat: torch.Tensor, n_levels: int, one_side,
-                         num: int = 100, bins: int = 4096):
+                         num: int = 100, bins: int = 4096, group=None):
     """1-D search scored on an exact histogram (per-tensor activations),
     on :func:`search_range_1d`'s candidate grid."""
     if x_flat.dim() != 1:
         raise ValueError("histogram search is per-tensor")
-    centers, counts, x_min, x_max = _exact_histogram(x_flat, bins)
+    centers, counts, x_min, x_max = _exact_histogram(x_flat, bins, group)
     new_min, new_max = _candidates_1d(x_min, x_max, one_side, n_levels, num,
                                       x_flat.dtype)
     idx = torch.argmin(_score_hist(centers, counts, new_min, new_max, n_levels))
@@ -251,24 +271,25 @@ def search_range_1d_hist(x_flat: torch.Tensor, n_levels: int, one_side,
 
 
 def search_range_2d_hist(x_flat: torch.Tensor, n_levels: int, num: int = 100,
-                         bins: int = 4096, zp_chunk: int = 16):
+                         bins: int = 4096, zp_chunk: int = 16, group=None):
     """2-D search scored on an exact histogram (mirrors
     :func:`search_range_2d`)."""
     if x_flat.dim() != 1:
         raise ValueError("histogram search is per-tensor")
-    centers, counts, x_min, x_max = _exact_histogram(x_flat, bins)
+    centers, counts, x_min, x_max = _exact_histogram(x_flat, bins, group)
     return _search_2d(lambda nm, nx: _score_hist(centers, counts, nm, nx, n_levels),
                       x_min, x_max, n_levels, num, zp_chunk, x_flat.dtype)
 
 
 def search_range_hist(x_flat: torch.Tensor, n_levels: int, one_side,
                       symmetric: bool, num: int = 100, bins: int = 4096,
-                      static_side=None):
+                      static_side=None, group=None):
     """Histogram-scored dispatch mirroring :func:`search_range`."""
     side = int(one_side) if static_side is None else static_side
     if symmetric or side != ONE_SIDE_NO:
-        return search_range_1d_hist(x_flat, n_levels, one_side, num, bins)
-    return search_range_2d_hist(x_flat, n_levels, num, bins)
+        return search_range_1d_hist(x_flat, n_levels, one_side, num, bins,
+                                    group=group)
+    return search_range_2d_hist(x_flat, n_levels, num, bins, group=group)
 
 
 def channelwise_view(x: torch.Tensor, channel_axis: int) -> torch.Tensor:

@@ -4,7 +4,9 @@ the schedules, classifier-free guidance, the DDIM loop and the PLMS loop).
 The JAX ``lax.scan`` is a Python step loop here.  Noise comes from an
 explicit ``torch.Generator`` or is passed in per step: JAX's PRNG and
 torch's give different numbers from one seed.  A step whose σ is 0 adds no
-noise and draws none.  DPM-Solver comes with a later slice.
+noise and draws none.  On a batch sharded over ranks (``parallel/dp.py``)
+each rank draws the global batch's noise and keeps its rows
+(``parallel/rows.py``), as one process would draw it.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel import rows
 
 
 def make_beta_schedule(n_timestep: int, linear_start: float = 1e-4,
@@ -135,8 +138,8 @@ def ldm_ddim_sample(x_T: torch.Tensor, sched: LDMSchedule, model_fn: Callable,
         z = None
         if sched.ddim_sigmas[index] != 0:
             z = (noise[k].to(device) if noise is not None else
-                 torch.randn(x.shape, generator=generator, device=device,
-                             dtype=x.dtype))
+                 rows.draw(torch.randn, x.shape, generator=generator,
+                           device=device, dtype=x.dtype))
         x, _ = ddim_update(x, e_t, al[index], al_prev[index], sig[index],
                            som[index], z)
     if not (record_xt or model_returns_aux):
@@ -185,8 +188,8 @@ def ldm_plms_sample(x_T: torch.Tensor, sched: LDMSchedule, model_fn: Callable,
         z = None
         if sched.ddim_sigmas[index] != 0:
             z = (noise[i].to(device) if noise is not None else
-                 torch.randn(x.shape, generator=generator, device=device,
-                             dtype=x.dtype))
+                 rows.draw(torch.randn, x.shape, generator=generator,
+                           device=device, dtype=x.dtype))
 
         def update(e):
             return ddim_update(x, e, al[index], al_prev[index], sig[index],

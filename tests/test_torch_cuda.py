@@ -32,7 +32,12 @@ and SD UNets in DEPLOY_INT8 on the card against the same model on the
 host, module by module and as a whole, and the tiny DDPM so again with
 the fused GroupNorm and in DEPLOY_FUSED.  Then the scoring path: the FID
 InceptionV3 on the card against the host, and full-width reference-layout
-checkpoints (CIFAR, church) loaded on the card bit-equal.
+checkpoints (CIFAR, church) loaded on the card bit-equal.  Last, two gloo
+ranks sharing the card (``parallel/launch.py``): the tiny DDPM's
+``dp_calibrate_acts`` bit-equal to one process's act calibration on its
+quantizer inputs (free-running under the free-running calibrations'
+gate), and its
+tp = 2 DEPLOY_INT8 forward bit-equal to the unsharded one.
 """
 
 import numpy as np
@@ -994,3 +999,88 @@ def test_full_width_checkpoint_loads_bit_equal(gen, tmp_path, family):
     assert equal(pipe.ld.unet, ld.unet) and equal(pipe.ld.first_stage, ld.first_stage)
     assert pipe.mc.scale_factor == float(np.float32(0.8))
     assert equal(api.quantize_model("ldm", mc.unet, ckpt_path=path, device="cuda"), ema)
+
+
+# --------------------------------------------------------------------------
+# data and tensor parallelism: two gloo ranks sharing the card
+
+def _tiny_parallel_ranks(rank, world, dev):
+    """On each rank: the tiny DDPM's ``dp_calibrate_acts`` against one
+    process's ``set_act_quantize_params``, each quantizer on this rank's
+    rows of the single process's inputs (every act quantizer's state) and
+    free-running; and its tp = 2 DEPLOY_INT8 forward (bf16 carrier,
+    through K1–K3) against the unsharded one."""
+    import copy
+    from eda_dm_tpu_torch.calib.scale_init import (set_act_quantize_params,
+                                                   set_weight_quantize_params)
+    from eda_dm_tpu_torch.models.ddpm_unet import DDPMConfig, DDPMUNet
+    from eda_dm_tpu_torch.nn.layers import ActQuantizer
+    from eda_dm_tpu_torch.ops import _build
+    from eda_dm_tpu_torch.parallel import dp, mesh as pm, tp
+    from eda_dm_tpu_torch.parity import tap
+    from eda_dm_tpu_torch.quant import DEPLOY_INT8, QuantConfig
+    from eda_dm_tpu_torch.quant.export import export_serving_int8
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = DDPMConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(8,),
+                     resolution=16)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(8, 16, 16, 3, generator=g).to(dev)
+    t = torch.linspace(0.0, 90.0, 8, device=dev)
+    base = DDPMUNet(cfg, QuantConfig(weight_bit=4, act_bit=8), device=dev, seed=0)
+    set_weight_quantize_params(base, (x, t), device=dev)
+    one = copy.deepcopy(base)
+    with tap(one, ActQuantizer) as rec:
+        set_act_quantize_params(one, (x, t), batch_size=4, device=dev)
+    # each batch's call of each quantizer, on this rank's rows of it
+    b = 4 // world
+    forced = {n: [(a[rank * b:(rank + 1) * b], None) for a, _ in calls]
+              for n, calls in rec.items()}
+    same = copy.deepcopy(base)
+    mesh = pm.make_mesh()
+    with tap(same, ActQuantizer, replace=forced):
+        dp.dp_calibrate_acts(same, (x, t), mesh, batch_size=4)
+    free = dp.dp_calibrate_acts(copy.deepcopy(base), (x, t), mesh, batch_size=4)
+    leaves = ("delta", "zero_point", "one_side", "running_min", "running_max")
+    qs = lambda m: {n: q for n, q in m.named_modules() if isinstance(q, ActQuantizer)}
+    differ = [n for n, q in qs(one).items()
+              if not all(torch.equal(getattr(q, k), getattr(qs(same)[n], k)) for k in leaves)]
+    rels = [float((q.delta - qs(free)[n].delta).abs() / q.delta.abs())
+            for n, q in qs(one).items()]
+    sides = all(torch.equal(q.one_side, qs(free)[n].one_side) for n, q in qs(one).items())
+    serving = export_serving_int8(copy.deepcopy(one))
+    sharded = tp.shard_params_tp(tp.make_mesh2d(1, world), copy.deepcopy(serving))
+    with torch.no_grad():
+        ref = serving(x.bfloat16(), t, DEPLOY_INT8)
+        _build.launch_counts.clear()
+        out = sharded(x.bfloat16(), t, DEPLOY_INT8)
+    return dict(differ=differ, free_rels=rels, sides=sides, tp_equal=bool(torch.equal(out, ref)),
+                launches=dict(_build.launch_counts), n_sharded=len(tp.tp_layers(sharded)))
+
+
+@pytest.fixture(scope="module")
+def two_ranks():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from eda_dm_tpu_torch.ops import _build
+    from eda_dm_tpu_torch.parallel.launch import spawn
+    _build.build(["int8_conv", "int8_bmm", "softmax_codes", "int8_attention"])
+    return spawn(_tiny_parallel_ranks, 2, "gloo", "cuda", timeout_s=300)
+
+
+def test_dp_calibration_on_two_ranks_bit_equal(two_ranks):
+    """On the single process's quantizer inputs, bit-equal; free-running
+    (the card's convs may take another algorithm at 2 rows than at 4)
+    under the gate of the free-running calibrations: ``one_side`` equal,
+    every delta within rel 5 %, half within rel 1e-3."""
+    for r in two_ranks:
+        assert r["differ"] == [], r["differ"][:5]
+        rels = r["free_rels"]
+        assert r["sides"] and max(rels) <= 0.05
+        assert sum(x <= 1e-3 for x in rels) >= 0.5 * len(rels)
+
+
+def test_tp_int8_forward_on_two_ranks_bit_equal(two_ranks):
+    for r in two_ranks:
+        assert r["tp_equal"] and r["n_sharded"] == 50
+        assert r["launches"].get("int8_conv", 0) > 0, r["launches"]
