@@ -98,7 +98,7 @@ exits non-zero before the last line:
    set to 0 just before and read just after, and printed per forward;
    ms per denoise step of int8 W4A8, int8 with the fused GroupNorm
    (``EDM_FUSED_GN=1 EDM_FUSED_GN_NARROW=1``), bf16-FP and fp32-FP (each
-   warmed up at batch 50 and timed twice), the decode ms, img/s, peak
+   warmed up at batch 50 and timed twice, fp32-FP once), the decode ms, img/s, peak
    memory and one profiled forward of each int8 arm;
 8. the full Stable Diffusion v1.4 UNet (``sd_v1_config()``), smoke quant
    state, DEPLOY_INT8 through the kernels and the plain versions (one
@@ -172,7 +172,21 @@ exits non-zero before the last line:
     ``set_act_quantize_params`` on the same quantizer inputs (free-running
     within its tolerance) and ``dp_reconstruct`` within JAX's dp tolerance
     of ``reconstruct``, then ``python -m
-    eda_dm_tpu_torch.validate_ptq --task cifar``'s ``main`` at full width.
+    eda_dm_tpu_torch.validate_ptq --task cifar``'s ``main`` at full width;
+15. spatial parallelism, this slice's main path (``spatial_phase``'s
+    docstring lists every step): K1 on every shard geometry of
+    ``DDPMConfig()`` and bedroom's UNet (each shard's rows, halo and pads)
+    bit-equal to its plain version and, concatenated, to the unsharded
+    output; then the activations' height over two gloo ranks sharing the
+    card: CIFAR's 10 DDIM steps at batch 500 (launch counts set to 0 just
+    before and read just after: K1 76, K2 35, K3 6 a forward a rank),
+    bedroom's DEPLOY_INT8 forward at batch 50 (K4 on the gathered
+    sites) and SD's KL-f8 decode of 4 latents to 512×512, each against
+    one process, with img/s or ms, the halo's calls, bytes and seconds
+    and each rank's peak memory beside one process's;
+16. ``python -m eda_dm_tpu_torch.gate_recon_deviations``'s ``main`` at
+    ``--iters 20 --n 64 --calib 64 --steps 10``: every metric finite, the
+    verdict printed, arm B's row cap taken.
 
 The serving switches (``EDM_FUSED_ATTN`` and the others that
 ``eda_dm_tpu_torch/ops/serving_policy.py`` reads) are unset for the run,
@@ -1464,7 +1478,8 @@ def timed(fn):
 
 
 def bedroom(kernels, smi):
-    """Phases 6 and 7: the LSUN-Bedroom LDM-4 at full width and depth."""
+    """Phases 6 and 7: the LSUN-Bedroom LDM-4 at full width and depth.
+    Returns phase 7's numbers and its DEPLOY_INT8 export on the host."""
     from eda_dm_tpu_torch.models.latent_diffusion import bedroom_config
     from eda_dm_tpu_torch.models.ldm_unet import LDMUNet
     from eda_dm_tpu_torch.ops import _build
@@ -1542,7 +1557,8 @@ def bedroom(kernels, smi):
     def step_ms(mode):
         _, secs = timed(lambda: pipe.sample_batch(mode, generator=g, decode=False))
         return secs / STEPS * 1e3
-    # each arm timed twice in a row, after a warm-up at the timed batch
+    # each arm timed twice in a row (fp32-FP once), after a warm-up at the
+    # timed batch
     ms = {"int8": [int8_s / STEPS * 1e3, step_ms(DEPLOY_INT8)]}
     print(f"    profile, DEPLOY_INT8 forward at batch {LDM_BATCH}, bf16 carrier:")
     with torch.no_grad():
@@ -1555,22 +1571,24 @@ def bedroom(kernels, smi):
               f"EDM_FUSED_GN_NARROW=1) forward at batch {LDM_BATCH}, bf16 carrier:")
         with torch.no_grad():
             profile_forward(int8_fwd)
+    export = copy.deepcopy(unet).cpu()          # phase 15 serves it
     del pipe.ld.unet, unet
-    for arm, dtype in (("bf16_fp", torch.bfloat16), ("fp32_fp", torch.float32)):
+    for arm, dtype, runs in (("bf16_fp", torch.bfloat16, 2), ("fp32_fp", torch.float32, 1)):
         pipe.ld.unet = LDMUNet(cfg, qc, device="cuda", seed=0).to(dtype)
         with torch.no_grad():
             pipe.ld.unet(x50.to(dtype), t50, mode=FP)        # warm up
-        ms[arm] = [step_ms(FP), step_ms(FP)]
+        ms[arm] = [step_ms(FP) for _ in range(runs)]
         del pipe.ld.unet
     both = lambda arm: " / ".join(f"{v:.3f}" for v in ms[arm])
-    print(f"    on {smi}: ms per denoise step at batch {LDM_BATCH} (two runs each): "
+    print(f"    on {smi}: ms per denoise step at batch {LDM_BATCH} (two runs each, "
+          f"fp32-FP one): "
           f"int8 W4A8 {both('int8')} | int8 W4A8 fused GN {both('int8_fused_gn')} | "
           f"bf16-FP {both('bf16_fp')} | fp32-FP "
           f"{both('fp32_fp')}; decode {decode_s * 1e3:.1f} ms; sample_batch {wall:.3f} s = "
           f"{LDM_BATCH / wall:.4f} img/s ({STEPS} steps + decode); peak memory "
           f"{peak:.2f} GiB")
     return dict(ms_per_step=ms, decode_ms=decode_s * 1e3, img_per_s=LDM_BATCH / wall,
-                steps=STEPS, batch=LDM_BATCH, peak_gib=peak)
+                steps=STEPS, batch=LDM_BATCH, peak_gib=peak), export
 
 
 def sd(kernels, smi):
@@ -2330,8 +2348,9 @@ def imagenet(kernels, smi):
     decode to (50, 256, 256, 3) images in [0, 1]; launch counts set to 0
     just before and read just after.  ms per denoise step of int8, folded
     W4A8 (DEPLOY on the same bf16 export: what ``preferred_export_kind``
-    names for this family), bf16-FP and fp32-FP, each warmed up and timed
-    twice; decode ms, img/s, peak memory, one profiled int8 forward.
+    names for this family), bf16-FP and fp32-FP, each warmed up, int8 timed
+    twice and the others once; decode ms, img/s, peak memory, one profiled
+    int8 forward.
 
     (c) The same export through ``sampler="dpm"`` (multistep DPM-Solver++
     at order 2), 10 steps at 100 rows: ms per step, images finite in
@@ -2456,11 +2475,12 @@ def imagenet(kernels, smi):
 
     def step_ms(mode):
         return timed(lambda: sample(mode, decode=False))[1] / STEPS * 1e3
-    # each arm timed twice in a row, after a warm-up at the serving rows
+    # int8 timed twice in a row, the other arms once, each after a warm-up
+    # at the serving rows
     ms = {"int8": [int8_s / STEPS * 1e3, step_ms(DEPLOY_INT8)]}
     with torch.no_grad():
         fwd(unet, DEPLOY, torch.bfloat16)         # warm up the folded arm
-    ms["folded"] = [step_ms(DEPLOY), step_ms(DEPLOY)]
+    ms["folded"] = [step_ms(DEPLOY)]
     print(f"    profile, DEPLOY_INT8 forward at {rows} rows, bf16 carrier:")
     with torch.no_grad():
         profile_forward(lambda: fwd(unet, DEPLOY_INT8, torch.bfloat16))
@@ -2476,7 +2496,7 @@ def imagenet(kernels, smi):
           and {k: v / STEPS for k, v in dpm_launches.items()} == DEFAULT_LAUNCHES["imagenet"],
           f"DPM-Solver++ images finite, shape {tuple(dimgs.shape)}, in [0, 1] (mean "
           f"{float(dimgs.mean()):.4f}); {STEPS} forwards on the default branches")
-    dpm_ms = [dpm_s / STEPS * 1e3, step_ms(DEPLOY_INT8)]
+    dpm_ms = [dpm_s / STEPS * 1e3]
     pipe.cfg = dataclasses.replace(pipe.cfg, sampler="ddim")
     del z, zd, imgs, dimgs, pipe.ld.unet, unet
     torch.cuda.empty_cache()
@@ -2484,11 +2504,12 @@ def imagenet(kernels, smi):
         pipe.ld.unet = LDMUNet(cfg, qc, device="cuda", seed=0).to(dtype)
         with torch.no_grad():
             fwd(pipe.ld.unet, FP, dtype)          # warm up
-        ms[arm] = [step_ms(FP), step_ms(FP)]
+        ms[arm] = [step_ms(FP)]
         del pipe.ld.unet
         torch.cuda.empty_cache()
     both = lambda v: " / ".join(f"{x:.3f}" for x in v)
-    print(f"    on {smi}: ms per denoise step at {rows} rows (two runs each): int8 W4A8 "
+    print(f"    on {smi}: ms per denoise step at {rows} rows (int8 two runs, the other "
+          f"arms one): int8 W4A8 "
           f"{both(ms['int8'])} | folded W4A8 {both(ms['folded'])} | bf16-FP "
           f"{both(ms['bf16_fp'])} | fp32-FP {both(ms['fp32_fp'])}; DPM-Solver++ int8 "
           f"{both(dpm_ms)}; decode {decode_s * 1e3:.1f} ms; sample_batch {wall:.3f} s = "
@@ -3191,6 +3212,418 @@ def parallel(kernels, smi, model):
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 15: spatial parallelism (the height over ranks)
+
+P15_CODE_ROWS = 50                     # the rows of (b)'s act-code and K1/K2 checks
+P15_SD_LATENTS = 4                     # the COCO task's 4 prompts
+
+
+def _sp(mesh, fn, x, dim=1):
+    """``fn`` on this rank's rows of ``x``'s height (``tp.shard_spatial``
+    over the mesh's ``tp`` axis, inside ``sharded_height``), gathered."""
+    from eda_dm_tpu_torch.parallel import spatial, tp
+    from eda_dm_tpu_torch.parallel.mesh import axis_group
+    with spatial.sharded_height(axis_group(mesh, "tp")):
+        out = fn(tp.shard_spatial(mesh, x, dim=dim))
+    return tp.gather_spatial(mesh, out, dim=dim)
+
+
+def _codes_differ(full_calls, sp_calls, rank, world):
+    """Act codes of every K1 call of a sharded forward (this rank's rows
+    and their halo) that differ from the same rows of a one-process
+    forward's (``full_calls``): (codes that differ, codes compared)."""
+    from eda_dm_tpu_torch.parallel import spatial
+    check(len(full_calls) == len(sp_calls), f"rank {rank}: {len(sp_calls)} K1 calls "
+          f"sharded, {len(full_calls)} in one process")
+    differ = total = 0
+    for (fa, _), (sa, _) in zip(full_calls, sp_calls):
+        full, mine, w, stride, gp = fa[0], sa[0], fa[1], fa[6], fa[7]
+        if mine.shape != full.shape:
+            halo = spatial.halo_plan(w.shape[1], stride[0], gp[0], full.shape[1], rank, world)
+            full = spatial.halo_rows(full, halo, rank, world)
+        differ += int((full != mine).sum())
+        total += mine.numel()
+    return differ, total
+
+
+def flip_reading(out, ref):
+    """The flip gate's numbers of ``out`` against ``ref``, as a reading."""
+    d = (out - ref).abs()
+    return (f"median {float(d.median()):.3g}, max {float(d.max()):.3g}, mean "
+            f"{float(d.mean()):.3g}, share < 2e-4 {float((d < 2e-4).float().mean()):.4f}")
+
+
+def p15_rank(rank, world, dev, paths, inp):
+    """Two gloo ranks sharing the card, each on its rows of H: CIFAR's DDIM
+    run, the K1 and K2 calls of one forward (and the act codes of one
+    process's, and of its rank-order control's, K1 calls), a bedroom
+    forward and SD's KL-f8 decode."""
+    from eda_dm_tpu_torch.ops import _build
+    from eda_dm_tpu_torch.parallel import comm, spatial, tp
+    from eda_dm_tpu_torch.quant import DEPLOY_INT8
+    sample, seq = _p14_setup(dev)
+    mesh = tp.make_mesh2d(1, world)
+    out = {"rank": rank}
+
+    def measured(run):
+        """(output, seconds, launches, collective stats, peak bytes above
+        what was allocated before: the weights and inputs) of a
+        synchronised run after a warm-up, everything set to 0 just before."""
+        run(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _build.launch_counts.clear()
+        comm.reset_stats()
+        res, secs = timed(lambda: run(False))
+        return (res, secs, dict(_build.launch_counts), dict(comm.stats),
+                torch.cuda.max_memory_allocated() - base)
+
+    # (b) CIFAR: DDIM, 10 quad steps at batch 500, bf16 carrier DEPLOY_INT8
+    model = torch.load(paths["cifar"], weights_only=False).to(dev)
+    x = inp["x_T"].to(dev)
+    samples, secs, launches, stats, peak = measured(lambda warm: _sp(
+        mesh, lambda xs: sample(model, xs, None, seq[:2] if warm else seq), x))
+    out["cifar"] = dict(samples=samples, s=secs, comm=stats, peak=peak,
+                        launches={k: v / STEPS for k, v in launches.items()})
+    x50 = x[:P15_CODE_ROWS].to(torch.bfloat16)
+    t50 = torch.full((P15_CODE_ROWS,), 500.0, device=dev)
+    full, control, mine = {}, {}, {}
+    with torch.no_grad():
+        with recording_k1_k2(full):
+            model(x50, t50, DEPLOY_INT8)
+        with recording_k1_k2(control), spatial.rank_blocks(world):
+            model(x50, t50, DEPLOY_INT8)
+        with recording_k1_k2(mine):
+            _sp(mesh, lambda xs: model(xs, t50, DEPLOY_INT8), x50)
+    out["cifar"]["codes_differ"] = _codes_differ(full["int8_conv"], mine["int8_conv"],
+                                                 rank, world)
+    out["cifar"]["codes_differ_control"] = _codes_differ(
+        control["int8_conv"], mine["int8_conv"], rank, world)
+    del full, control
+    check_k1_k2(mine, f"rank {rank} on its rows of H")
+    del mine, model
+    torch.cuda.empty_cache()
+
+    # (c) bedroom: one DEPLOY_INT8 forward at batch 50, bf16 carrier
+    unet = torch.load(paths["bedroom"], weights_only=False).to(dev)
+    xb, tb = inp["bed_x"].to(dev), inp["bed_t"].to(dev)
+    with torch.no_grad():
+        y, secs, launches, stats, peak = measured(
+            lambda warm: _sp(mesh, lambda xs: unet(xs, tb, mode=DEPLOY_INT8), xb))
+    out["bedroom"] = dict(out=y, s=secs, launches=launches, comm=stats, peak=peak)
+    del unet
+    torch.cuda.empty_cache()
+
+    # (d) SD's KL-f8 decode of four 64x64x4 latents to 512x512, float32
+    fs = torch.load(paths["vae"], weights_only=False).to(dev)
+    z = inp["z"].to(dev)
+    with torch.no_grad():
+        img, secs, _, stats, peak = measured(lambda warm: _sp(mesh, fs.decode, z))
+    out["decode"] = dict(out=img, s=secs, comm=stats, peak=peak)
+    return out
+
+
+@torch.no_grad()
+def check_shard_geometries(models):
+    """(a) K1 on every conv geometry of ``models`` (name → DEPLOY_INT8
+    export, ``(x, t)``) at world 2: each shard's K1 output (its rows, halo
+    and pads) bit-equal to the plain version on the same inputs, and the
+    shards' outputs, concatenated, bit-equal to the rows of the unsharded
+    K1 output.  Returns the geometries checked."""
+    from eda_dm_tpu_torch.nn.layers import QConv
+    from eda_dm_tpu_torch.ops.int8_conv import border_map, int8_conv, int8_conv_plain
+    from eda_dm_tpu_torch.ops.serving_policy import int8_conv_serving
+    from eda_dm_tpu_torch.parallel import spatial
+    from eda_dm_tpu_torch.quant import DEPLOY_INT8
+    world, n_rows = 2, 4
+    g = torch.Generator(device="cuda").manual_seed(15)
+    seen, checked, whole, bad = set(), [], 0, []
+    for name, (model, x, t) in models.items():
+        sites = []
+        hooks = [m.register_forward_pre_hook(lambda m, a: sites.append((m, a[0].shape)))
+                 for m in model.modules()
+                 if isinstance(m, QConv) and int8_conv_serving(
+                     DEPLOY_INT8, m.wq, m.aq, m.disable_act_quant, m.split)]
+        try:
+            model(x, t, mode=DEPLOY_INT8)
+        finally:
+            for h in hooks:
+                h.remove()
+        for m, shape in sites:
+            _, H, W, cin = shape
+            key = (m.kernel_size, m.strides, m.padding, H, W, cin, m.features)
+            if key in seen:
+                continue
+            seen.add(key)
+            codes = torch.randint(-128, 128, (n_rows, H, W, cin), generator=g, device="cuda",
+                                  dtype=torch.int8)
+            c = torch.tensor(3.0, device="cuda")
+            scale = m.w0_delta.float() * 0.01
+            args = (m.w0_int, m.w0_isum, c, scale, m.bias.float(), m.strides)
+            gp = m.pads(H, W)
+            border = lambda h, pads: (border_map(m.w0_int, h, W, m.strides, pads)
+                                      if pads != ((0, 0), (0, 0)) else None)
+            full = int8_conv(codes, *args, gp, border(H, gp), torch.float32)
+            plans = [spatial.halo_plan(m.kernel_size[0], m.strides[0], gp[0], H, r, world)
+                     for r in range(world)]
+            if plans[0] is None:
+                whole += 1
+                continue
+            parts = []
+            for r, p in enumerate(plans):
+                rows = spatial.halo_rows(codes, p, r, world).contiguous()
+                pads = (p.pads, gp[1])
+                mine = int8_conv(rows, *args, pads, border(rows.shape[1], pads), torch.float32)
+                plain = int8_conv_plain(rows, *args, pads, border(rows.shape[1], pads),
+                                        torch.float32)
+                if not torch.equal(mine, plain):
+                    bad.append((name, key, f"rank {r}"))
+                parts.append(mine)
+            if not torch.equal(torch.cat(parts, 1), full):
+                bad.append((name, key, "concatenated"))
+            checked.append(key)
+    check(checked and not bad, f"(a) K1 on {len(checked)} shard geometries at world {world} "
+          f"({whole} kept whole by the rule): each shard's output bit-equal to the plain "
+          f"version on its rows, halo and pads, the shards concatenated bit-equal to the "
+          f"unsharded output (failing: {bad[:3]})")
+    print("    geometries (kernel, stride, H x W x Cin -> Cout): "
+          + "; ".join(f"{k[0][0]}x{k[0][1]} s{k[1][0]} {k[3]}x{k[4]}x{k[5]}->{k[6]}"
+                      for k in checked))
+    return checked
+
+
+def spatial_phase(kernels, smi, cifar_model, bedroom_unet):
+    """Phase 15: spatial parallelism (``parallel/spatial.py``,
+    ``tp.shard_spatial``), the activations' height split over two gloo
+    ranks sharing the card (NCCL refuses two ranks on one device; every
+    halo is staged through the host and its seconds counted apart):
+
+    (a) K1 on every conv geometry of ``DDPMConfig()`` and of bedroom's UNet
+        (3×3 SAME, DDPM's stride-2 ``((0, 1), (0, 1))``, LDM's stride-2
+        ``((1, 1), (1, 1))``, 1×1) with each shard's rows, halo and pads:
+        bit-equal to the plain version, and the shards concatenated
+        bit-equal to the unsharded output;
+    (b) CIFAR ``DDPMConfig()``, phase 5's smoke-state export in DEPLOY_INT8
+        (bf16 carrier), 10 quad DDIM steps at batch 500, each rank on 16 of
+        the 32 rows: the samples bit-equal to one process's under
+        ``spatial.rank_blocks(2)`` (the control: what a rank computes at
+        its own number of rows, the norms' sums and the folded float
+        convs, done in the ranks' blocks, so the halos, pads and gathers
+        are exact where it holds), and the act codes of one forward's K1
+        calls equal to that control's; against the plain one process the
+        flip gate's numbers and the act codes that differ are printed (a
+        float sum in another order flips a bf16 rounding or an act code,
+        and the norms spread it); each rank's K1, K2 and K3 launches per
+        forward one process's, each K1 and K2 call of that forward
+        bit-equal to its plain version; img/s, halo calls, bytes and
+        seconds and each rank's peak memory beside one process's;
+    (c) bedroom's UNet (phase 7's export), one DEPLOY_INT8 forward at batch
+        50 (K4 on the gathered 32×32 and 16×16 sites, ``DownsampleL``'s
+        halo), timed after a warm-up: the flip gate against one process
+        and bit-equal to its rank-order control, the launches one
+        process's;
+    (d) SD v1.4's KL-f8 decode of four 64×64×4 latents to 512×512 in
+        float32: max |Δ| / max |ref| within 1e-4 of one process (cuDNN picks
+        its algorithm by shape, so not bit for bit), ms and each rank's
+        peak memory beside one process's, the halo bytes."""
+    import shutil
+    import tempfile
+    from eda_dm_tpu_torch.models.latent_diffusion import sd_v1_config
+    from eda_dm_tpu_torch.models.vae import FirstStage
+    from eda_dm_tpu_torch.ops import _build
+    from eda_dm_tpu_torch.parallel import spatial
+    from eda_dm_tpu_torch.parallel.launch import spawn
+    from eda_dm_tpu_torch.quant import DEPLOY_INT8
+    print("[15] spatial parallelism: the height over 2 gloo ranks on one card (K1 on "
+          "haloed shards, CIFAR DDIM, a bedroom forward, SD's 512x512 decode)")
+    t_phase = time.perf_counter()
+    res = {"card": smi}
+    work = tempfile.mkdtemp(prefix="chip_smoke_p15_")
+    try:
+        g = torch.Generator().manual_seed(150)
+        inp = {"x_T": torch.randn(BATCH, 32, 32, 3, generator=g),
+               "bed_x": torch.randn(LDM_BATCH, 64, 64, 3, generator=g).to(torch.bfloat16),
+               "bed_t": torch.full((LDM_BATCH,), 500.0),
+               "z": torch.randn(P15_SD_LATENTS, 64, 64, 4, generator=g)}
+        cifar, unet = cifar_model.cuda(), bedroom_unet.cuda()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            x8 = torch.randn(2, 32, 32, 3, device="cuda").to(torch.bfloat16)
+            xb = inp["bed_x"][:2].cuda()
+            res["geometries"] = len(check_shard_geometries({
+                "CIFAR": (cifar, x8, torch.full((2,), 500.0, device="cuda")),
+                "bedroom": (unet, xb, torch.full((2,), 500.0, device="cuda"))}))
+        res["geometries_s"] = time.perf_counter() - t0
+
+        # one process: the references, their times and peak memory
+        sample, seq = _p14_setup("cuda")
+        single = {}
+        x = inp["x_T"].cuda()
+        sample(cifar, x, None, seq[:2])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _build.launch_counts.clear()
+        s_out, s_secs = timed(lambda: sample(cifar, x, None, seq))
+        with spatial.rank_blocks(2):
+            control = sample(cifar, x, None, seq).cpu()
+        single["cifar"] = dict(out=s_out.cpu(), s=s_secs,
+                               peak=torch.cuda.max_memory_allocated() - base,
+                               control=control)
+        with torch.no_grad():
+            xb, tb = inp["bed_x"].cuda(), inp["bed_t"].cuda()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            _build.launch_counts.clear()
+            y, secs = timed(lambda: unet(xb, tb, mode=DEPLOY_INT8))
+            single["bedroom"] = dict(out=y.cpu(), s=secs, launches=dict(_build.launch_counts),
+                                     peak=torch.cuda.max_memory_allocated() - base)
+            with spatial.rank_blocks(2):
+                single["bedroom"]["control"] = unet(xb, tb, mode=DEPLOY_INT8).cpu()
+        torch.save(cifar.cpu(), os.path.join(work, "cifar.pt"))
+        torch.save(unet.cpu(), os.path.join(work, "bedroom.pt"))
+        del cifar, unet, x, xb, y, s_out
+        torch.cuda.empty_cache()
+        fs = FirstStage(sd_v1_config().vae, device="cuda", seed=0, encoder=False)
+        with torch.no_grad():
+            z = inp["z"].cuda()
+            fs.decode(z)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            img, secs = timed(lambda: fs.decode(z))
+            single["decode"] = dict(out=img.cpu(), s=secs,
+                                    peak=torch.cuda.max_memory_allocated() - base)
+        torch.save(fs.cpu(), os.path.join(work, "vae.pt"))
+        del fs, img, z
+        torch.cuda.empty_cache()
+
+        paths = {k: os.path.join(work, f"{k}.pt") for k in ("cifar", "bedroom", "vae")}
+        t0 = time.perf_counter()
+        ranks = spawn(p15_rank, 2, "gloo", "cuda", paths, inp, timeout_s=300)
+        res["ranks_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    gib = lambda b: b / 2 ** 30
+    halo = lambda r, part: (r[part]["comm"]["halo_calls"], r[part]["comm"]["halo_bytes"],
+                            r[part]["comm"]["halo_seconds"])
+    # (b)
+    r0 = ranks[0]
+    sp_samples = r0["cifar"]["samples"].cpu()
+    check(torch.equal(sp_samples, single["cifar"]["control"]),
+          f"sp CIFAR DDIM (world 2) bit-equal to one process under rank_blocks(2) "
+          f"(max |d| {float((sp_samples - single['cifar']['control']).abs().max()):.3g})")
+    for r in ranks:
+        d, n = r["cifar"]["codes_differ_control"]
+        check(d == 0, f"rank {r['rank']}: act codes of one forward's K1 calls "
+              f"({P15_CODE_ROWS} rows) equal to the rank_blocks control's: {d} of {n} differ")
+    for r in ranks:
+        check(r["cifar"]["launches"] == DEFAULT_LAUNCHES["cifar"],
+              f"rank {r['rank']}: launches per forward {r['cifar']['launches']} = one "
+              f"process's {DEFAULT_LAUNCHES['cifar']}")
+    for k in kernels[:4]:                       # a forward a rank
+        k["spatial_launches"] = {part: [r[part]["launches"].get(k["name"], 0) for r in ranks]
+                                 for part in ("cifar", "bedroom")}
+    differ = [r["cifar"]["codes_differ"] for r in ranks]
+    res["cifar"] = {
+        "img_s_single": BATCH / single["cifar"]["s"],
+        "img_s_sp": BATCH / max(r["cifar"]["s"] for r in ranks),
+        "halo": [halo(r, "cifar") for r in ranks],
+        "collective_s": [r["cifar"]["comm"]["seconds"] for r in ranks],
+        "peak_gib_single": gib(single["cifar"]["peak"]),
+        "peak_gib_ranks": [gib(r["cifar"]["peak"]) for r in ranks],
+        "codes_differ": differ,
+        "flip_reading": flip_reading(sp_samples.float(), single["cifar"]["out"].float())}
+    c = res["cifar"]
+    print(f"    (b) on {smi}: CIFAR DDIM {STEPS} steps at batch {BATCH}: one process "
+          f"{c['img_s_single']:.1f} img/s, sp world 2 {c['img_s_sp']:.1f} img/s; halo "
+          f"(calls, bytes, s) a rank {c['halo']}, all collectives {c['collective_s']} s; "
+          f"peak memory one process {c['peak_gib_single']:.3f} GiB, ranks "
+          f"{[round(p, 3) for p in c['peak_gib_ranks']]} GiB; act codes of one forward's K1 "
+          f"calls ({P15_CODE_ROWS} rows) that differ from the plain one process's "
+          f"(a reading): {[d for d, _ in differ]} of {[n for _, n in differ]}; the samples "
+          f"against the plain one process (a reading): {c['flip_reading']}")
+    # (c)
+    flip_gate(r0["bedroom"]["out"].float().cpu(), single["bedroom"]["out"].float(),
+              "sp bedroom DEPLOY_INT8 forward (world 2) against one process")
+    check(torch.equal(r0["bedroom"]["out"].cpu(), single["bedroom"]["control"]),
+          "sp bedroom DEPLOY_INT8 forward bit-equal to one process under rank_blocks(2)")
+    for r in ranks:
+        check(r["bedroom"]["launches"] == single["bedroom"]["launches"]
+              and r["bedroom"]["launches"] == DEFAULT_LAUNCHES["bedroom"],
+              f"rank {r['rank']}: bedroom launches {r['bedroom']['launches']} = one "
+              f"process's (K4 on the gathered 32x32 and 16x16 sites)")
+    res["bedroom"] = {"ms_single": single["bedroom"]["s"] * 1e3,
+                      "ms_sp": max(r["bedroom"]["s"] for r in ranks) * 1e3,
+                      "halo": [halo(r, "bedroom") for r in ranks],
+                      "peak_gib_single": gib(single["bedroom"]["peak"]),
+                      "peak_gib_ranks": [gib(r["bedroom"]["peak"]) for r in ranks]}
+    b = res["bedroom"]
+    print(f"    (c) bedroom forward at batch {LDM_BATCH}: one process {b['ms_single']:.1f} ms, "
+          f"sp {b['ms_sp']:.1f} ms; halo {b['halo']}; peak one process "
+          f"{b['peak_gib_single']:.3f} GiB, ranks {[round(p, 3) for p in b['peak_gib_ranks']]}")
+    # (d)
+    ref = single["decode"]["out"]
+    rel = float((r0["decode"]["out"].cpu() - ref).abs().max() / ref.abs().max())
+    check(rel <= 1e-4 and r0["decode"]["out"].shape == (P15_SD_LATENTS, 512, 512, 3),
+          f"sp KL-f8 decode (world 2): max |d| / max |ref| {rel:.3g} <= 1e-4, shape "
+          f"{tuple(r0['decode']['out'].shape)}")
+    res["decode"] = {"rel_err": rel, "ms_single": single["decode"]["s"] * 1e3,
+                     "ms_sp": max(r["decode"]["s"] for r in ranks) * 1e3,
+                     "halo": [halo(r, "decode") for r in ranks],
+                     "collective_s": [r["decode"]["comm"]["seconds"] for r in ranks],
+                     "peak_gib_single": gib(single["decode"]["peak"]),
+                     "peak_gib_ranks": [gib(r["decode"]["peak"]) for r in ranks]}
+    d = res["decode"]
+    print(f"    (d) on {smi}: SD KL-f8 decode of {P15_SD_LATENTS} latents to 512x512, f32: "
+          f"one process {d['ms_single']:.1f} ms, sp {d['ms_sp']:.1f} ms; peak memory one "
+          f"process {d['peak_gib_single']:.3f} GiB, ranks "
+          f"{[round(p, 3) for p in d['peak_gib_ranks']]} GiB (ratio "
+          f"{max(d['peak_gib_ranks']) / max(d['peak_gib_single'], 1e-9):.3f}); halo "
+          f"(calls, bytes, s) "
+          f"{d['halo']}, all collectives {d['collective_s']} s")
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"    seconds: geometries {res['geometries_s']:.1f}, ranks {res['ranks_s']:.1f}, "
+          f"phase 15 {res['phase_s']:.1f}")
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 16: the gate on the grouped-reconstruction deviations
+
+def gate_phase(smi):
+    """Phase 16: ``python -m eda_dm_tpu_torch.gate_recon_deviations``'s
+    ``main`` at ``--iters 20 --n 64 --calib 64 --steps 10`` on the card
+    (the mid-size W4A8 DDPM, arms A and B over the whole plan, FP, A and B
+    populations through the random-init FID InceptionV3): every metric
+    finite, the verdict one of the four, and arm B's row cap taken.  At 20
+    iterations on random weights a FAIL or INCONCLUSIVE is a finding, not a
+    fault."""
+    import shutil
+    import tempfile
+    from eda_dm_tpu_torch.gate_recon_deviations import main as gate_main
+    print("[16] gate_recon_deviations: --iters 20 --n 64 --calib 64 --steps 10")
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_p16_")
+    try:
+        out = gate_main(["--iters", "20", "--n", "64", "--calib", "64", "--steps", "10",
+                         "--dump", os.path.join(work, "dump.npz")])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    m, caps = out["metrics"], out["arm_b_row_caps"]
+    check(all(math.isfinite(v) for v in m.values() if isinstance(v, float))
+          and m["gate"] in ("PASS", "WEAK-PASS", "INCONCLUSIVE", "FAIL"),
+          f"gate {m['gate']}: every metric finite")
+    check(len(caps) > 0, f"arm B: {len(caps)} targets over the budget under the row cap "
+          f"{min(caps, default=None)} of 64 rows")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"    on {smi}: {json.dumps(m)}; arm B row caps {caps}; {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3349,7 +3782,7 @@ def main():
     del fp32, bf16
     torch.cuda.empty_cache()
 
-    serving = bedroom(kernels, smi)
+    serving, bedroom_unet = bedroom(kernels, smi)
     torch.cuda.empty_cache()
     sd_serving = sd(kernels, smi)
     torch.cuda.empty_cache()
@@ -3370,6 +3803,11 @@ def main():
     scored = scoring(smi)
     free_memory("after phase 13")
     parallel_res = parallel(kernels, smi, p14_model)
+    free_memory("after phase 14")
+    spatial_res = spatial_phase(kernels, smi, p14_model, bedroom_unet)
+    del p14_model, bedroom_unet
+    free_memory("after phase 15")
+    gate_res = gate_phase(smi)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
@@ -3379,7 +3817,7 @@ def main():
              "library_peak", "mma_sync_ms", "mma_sync_launches", "mma_sync_source",
              "calibrated_launches", "latent_calibrated_launches", "church_launches",
              "imagenet_launches", "imagenet_calibrated_launches", "imagenet_ms",
-             "parallel_launches")
+             "parallel_launches", "spatial_launches")
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{**{k: kern[k] for k in keys},
                                    **{k: kern[k] for k in extra if k in kern},
@@ -3390,7 +3828,8 @@ def main():
         "batch": BATCH},
         "bedroom_serving": serving, "sd_serving": sd_serving,
         "cifar_calibration": calibrated, "latent_calibration": latent,
-        "imagenet": imagenet_serving, "scoring": scored, "parallel": parallel_res}))
+        "imagenet": imagenet_serving, "scoring": scored, "parallel": parallel_res,
+        "spatial": spatial_res, "gate_recon_deviations": gate_res}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -563,8 +563,9 @@ def reconstruct(model: nn.Module, cali_data: Sequence[torch.Tensor],
     reference-exact sequential path.  ``generator`` (on the model's device;
     seed 0 if None) draws every minibatch and QDrop mask.  ``progress(name,
     last loss)`` is called after each target; ``log``, a list, gets one
-    dict a target: name, kind, iterations, the loop's seconds and its
-    first and last loss.  ``mesh`` (a 1-D ``parallel.mesh.make_mesh``)
+    dict a target: name, kind, iterations, the row cap its caches took
+    (None where its group fit the budget), the loop's seconds and its first
+    and last loss.  ``mesh`` (a 1-D ``parallel.mesh.make_mesh``)
     runs each target's loop data-parallel over its ranks, every rank
     holding the same model and the whole calibration set
     (``parallel/dp.py::dp_reconstruct`` checks and replicates them).
@@ -597,7 +598,7 @@ def reconstruct(model: nn.Module, cali_data: Sequence[torch.Tensor],
                     if dev.type == "cuda":
                         torch.cuda.synchronize(dev)
                     log.append(dict(name=t.name, kind=t.spec[0], iters=args.iters,
-                                    seconds=time.perf_counter() - t0,
+                                    row_cap=row_cap, seconds=time.perf_counter() - t0,
                                     first_loss=float(losses[0]),
                                     last_loss=float(losses[-1])))
                 datas[i] = None              # free the caches before the next

@@ -36,6 +36,7 @@ from ..ops.int8_einsum import (int8_act_einsum, int8_code_einsum,
 from ..ops.serving_policy import (attention_impl, int8_attention_serving,
                                   use_fused_softmax)
 from ..ops.softmax_codes import softmax_codes
+from ..parallel import spatial
 from ..parallel.rows import global_rows
 from ..quant.config import FP, QuantConfig, QuantizerSpec, QuantMode
 
@@ -88,7 +89,9 @@ class ResnetBlockD(nn.Module):
 class AttnBlockD(nn.Module):
     """DDPM self-attention block.  q and k are quantized unscaled after
     their 1×1 convs; the softmax output is quantized at sm_abit and v at
-    act_bit before the second product."""
+    act_bit before the second product.  On rows of a sharded height the
+    block runs on the gathered height (``spatial.run_whole``), as one
+    process runs it."""
 
     def __init__(self, ch: int, wq: QuantizerSpec, aq: QuantizerSpec,
                  aq_w: QuantizerSpec):
@@ -105,6 +108,9 @@ class AttnBlockD(nn.Module):
         self.proj_out = QConv(ch, ch, (1, 1), padding="VALID", wq=wq, aq=aq)
 
     def forward(self, x, mode: QuantMode):
+        return spatial.run_whole(self._forward, x, mode)
+
+    def _forward(self, x, mode: QuantMode):
         n, hh, ww, c = x.shape
         h = norm_act(self.GroupNorm_0, x, mode)
         q = self.q(h, mode).reshape(n, hh * ww, c)
@@ -165,7 +171,8 @@ class Upsample(nn.Module):
         self.conv = QConv(ch, ch, (3, 3), wq=wq, aq=aq)
 
     def forward(self, x, mode):
-        x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+        x = spatial.upsample(
+            lambda t: t.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2), x)
         return self.conv(x, mode)
 
 

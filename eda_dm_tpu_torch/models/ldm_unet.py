@@ -71,6 +71,7 @@ from ..ops.int8_einsum import (int8_act_einsum, int8_code_einsum,
 from ..ops.serving_policy import (attention_impl, int8_attention_serving,
                                   int8_serving, use_fused_gn)
 from ..ops.softmax_codes import softmax_codes
+from ..parallel import spatial
 from ..parallel.rows import global_rows
 from ..quant.config import FP, QuantConfig, QuantizerSpec, QuantMode
 from .encoders import Embed
@@ -230,8 +231,8 @@ class ResBlockL(nn.Module):
 
     def _resample(self, x):
         if self.updown == "up":
-            return _up2(x)
-        return _avg_pool2(x) if self.updown == "down" else x
+            return spatial.upsample(_up2, x)
+        return spatial.downsample(_avg_pool2, x) if self.updown == "down" else x
 
     def forward(self, x, emb, mode: QuantMode):
         # a resample between the norm and the conv keeps the norm unfused
@@ -326,6 +327,9 @@ class AttentionBlockL(_QKVAttention):
         self.proj_out = QDense(ch, ch, wq=wq, aq=aq_last or aq)
 
     def forward(self, x, mode: QuantMode):
+        return spatial.run_whole(self._forward, x, mode)
+
+    def _forward(self, x, mode: QuantMode):
         b, hh, ww, c = x.shape
         t_len, heads = hh * ww, self.num_heads
         if int8_serving(mode) and use_fused_gn(hh, ww, c):
@@ -439,6 +443,9 @@ class SpatialTransformerL(nn.Module):
                               aq=aq_last or aq)
 
     def forward(self, x, context, mode: QuantMode):
+        return spatial.run_whole(self._forward, x, context, mode)
+
+    def _forward(self, x, context, mode: QuantMode):
         b, hh, ww, _ = x.shape
         h = norm_conv(self.norm, self.proj_in, x, mode, act=False).reshape(
             b, hh * ww, self.inner)
@@ -468,7 +475,7 @@ class UpsampleL(nn.Module):
         self.conv = QConv(ch, ch, (3, 3), wq=wq, aq=aq)
 
     def forward(self, x, mode):
-        return self.conv(_up2(x), mode)
+        return self.conv(spatial.upsample(_up2, x), mode)
 
 
 class LDMUNet(nn.Module):

@@ -7,6 +7,11 @@ inside, the decoder runs NCHW, PyTorch's convolution layout.  Module names
 are the flax names (``decoder.up_0_block_1.conv1``, ``post_quant_conv``,
 ``codebook``), so ``models/bridge.py`` maps the trees one to one.
 
+On rows of a sharded height (``parallel/spatial.py``; NCHW, so H is dim
+2) the convs exchange their halo rows, the GroupNorm's two sums are
+reduced over the ranks in one collective, the attention blocks run on the
+gathered height and the decoder's 2× upsample is local.
+
 Two details follow flax rather than PyTorch's habits: the GroupNorm is
 flax ``nn.GroupNorm`` (variance E[x²] − E[x]², clipped at 0, and the scale
 folded into the reciprocal deviation before the product), and the VQ
@@ -35,6 +40,7 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..nn.layers import lecun_normal_
+from ..parallel import spatial
 from .convert import as_numpy, insert
 
 VQ_CHUNK = 8192          # rows of the (pixels, n_embed) distance matrix at once
@@ -67,11 +73,20 @@ class Conv(nn.Module):
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, k, k))
         self.bias = nn.Parameter(torch.zeros(out_ch))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _pads(self, h: int, w: int):
         if self.stride == 1:
-            return F.conv2d(x, self.weight, self.bias,
-                            padding=self.weight.shape[-1] // 2)
-        return F.conv2d(F.pad(x, (0, 1, 0, 1)), self.weight, self.bias,
+            p = self.weight.shape[-1] // 2
+            return (p, p), (p, p)
+        return (0, 1), (0, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k = self.weight.shape[-1]
+        site = spatial.conv_site(x, (k, k), (self.stride,) * 2, self._pads, dim=2)
+        x = site.rows(x)
+        (top, bottom), (left, right) = site.pads
+        if self.stride == 1 and top == bottom == left == right:
+            return F.conv2d(x, self.weight, self.bias, padding=top)
+        return F.conv2d(F.pad(x, (left, right, top, bottom)), self.weight, self.bias,
                         stride=self.stride)
 
 
@@ -88,8 +103,13 @@ class GroupNorm(nn.Module):
         n, c = x.shape[:2]
         g = self.num_groups
         xg = x.reshape(n, g, c // g, -1)
-        mean = xg.mean(dim=(2, 3), keepdim=True)
-        mean2 = (xg * xg).mean(dim=(2, 3), keepdim=True)
+        if spatial.is_sharded(x, dim=2):
+            sums = spatial.all_reduce_stats(torch.cat(
+                [xg.sum(dim=(2, 3), keepdim=True), (xg * xg).sum(dim=(2, 3), keepdim=True)]))
+            mean, mean2 = (sums / (spatial.count(x, (2, 3), dim=2) * (c // g))).chunk(2)
+        else:
+            mean = xg.mean(dim=(2, 3), keepdim=True)
+            mean2 = (xg * xg).mean(dim=(2, 3), keepdim=True)
         var = torch.clamp_min(mean2 - mean * mean, 0.0)
         mul = torch.rsqrt(var + self.eps) * self.scale.reshape(1, g, c // g, 1)
         y = (xg - mean) * mul + self.bias.reshape(1, g, c // g, 1)
@@ -123,6 +143,9 @@ class VAEAttnBlock(nn.Module):
         self.proj_out = Conv(ch, ch, 1)
 
     def forward(self, x):
+        return spatial.run_whole(self._forward, x, dim=2)
+
+    def _forward(self, x):
         b, c, hh, ww = x.shape
         h = self.norm(x)
         q = self.q(h).reshape(b, c, hh * ww)
@@ -206,7 +229,8 @@ class VAEDecoder(_Path):
         h = self.mid_block_2(self.mid_attn_1(self.mid_block_1(h)))
         for name in self.order:
             if name.endswith("_upsample"):
-                h = F.interpolate(h, scale_factor=2, mode="nearest")
+                h = spatial.upsample(
+                    lambda t: F.interpolate(t, scale_factor=2, mode="nearest"), h, dim=2)
             h = getattr(self, name)(h)
         return self.conv_out(F.silu(self.norm_out(h)))
 

@@ -39,7 +39,7 @@ from ..ops.int8_conv import border_map, int8_conv, same_pads
 from ..ops.int8_einsum import int8_dense, quantize_act_int8
 from ..ops.quant_matmul import fakequant_matmul
 from ..ops.serving_policy import int8_conv_serving, int8_serving, use_fused_gn
-from ..parallel import comm, rows
+from ..parallel import comm, rows, spatial
 from ..quant import search
 from ..quant.adaround import adaround_fake_quant, adaround_int, init_alpha
 from ..quant.affine import ema_update, fake_quant, qdrop
@@ -81,6 +81,9 @@ class ActQuantizer(nn.Module):
             return self.delta, self.zero_point
         if not (mode.a_quant or mode.calib_a):
             return x
+        if spatial.active() and (mode.calib_a or (mode.training and self.spec.prob < 1.0)):
+            raise NotImplementedError("calibration and QDrop forwards do not run "
+                                      "with the height sharded (parallel/spatial.py)")
         if mode.calib_a:
             self.calibrate(x, mode)
         x_fq = fake_quant(x, self.delta, self.zero_point, self.spec.n_levels)
@@ -133,6 +136,9 @@ class GNorm(nn.Module):
     """GroupNorm(32, eps=1e-6) over NHWC with the JAX package's explicit
     two-pass float32 variance; the output keeps the input dtype.
     (``F.group_norm``'s variance differs and flips borderline act codes.)
+    On rows of a sharded height (``parallel/spatial.py``) each pass's sums
+    are added over the ranks in rank order and divided by the global count
+    (under ``spatial.rank_blocks``, one process's blocks of rows alike).
     ``params_only=True`` returns ``(scale, bias)`` for the fused kernel."""
 
     def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-6):
@@ -148,8 +154,13 @@ class GNorm(nn.Module):
         xg = x.float().reshape(*x.shape[:-1], self.num_groups,
                                c // self.num_groups)
         axes = tuple(range(1, x.dim() - 1)) + (x.dim(),)
-        mean = xg.mean(dim=axes, keepdim=True)
-        var = ((xg - mean) ** 2).mean(dim=axes, keepdim=True)
+        if spatial.splits_sums(x):
+            count = spatial.count(xg, axes)
+            mean = spatial.height_sum(xg, axes) / count
+            var = spatial.height_sum((xg - mean) ** 2, axes) / count
+        else:
+            mean = xg.mean(dim=axes, keepdim=True)
+            var = ((xg - mean) ** 2).mean(dim=axes, keepdim=True)
         y = (xg - mean) * torch.rsqrt(var + self.eps)
         y = y.reshape(x.shape) * self.scale + self.bias
         return y.to(x.dtype)
@@ -360,26 +371,28 @@ class QConv(_WeightQuantMixin, nn.Module):
             else:
                 x = self.act_quantizer(x, mode)
         x, w = _promote(x, self.quantized_weight(mode))
-        (top, bottom), (left, right) = self.pads(x.shape[1], x.shape[2])
-        if (self.kernel_size == (1, 1) and self.strides == (1, 1)
-                and self.padding == "VALID" and (mode.a_quant or mode.calib_a)):
-            n, h, ww, ci = x.shape
-            out = (x.reshape(-1, ci) @ w.reshape(self.features, ci).t()
-                   ).reshape(n, h, ww, self.features)
-        else:
+
+        def conv(x, pads):
+            (top, bottom), (left, right) = pads
+            if (self.kernel_size == (1, 1) and self.strides == (1, 1)
+                    and self.padding == "VALID" and (mode.a_quant or mode.calib_a)):
+                n, h, ww, ci = x.shape
+                return (x.reshape(-1, ci) @ w.reshape(self.features, ci).t()
+                        ).reshape(n, h, ww, self.features)
             xn = x.permute(0, 3, 1, 2)
             if top == bottom and left == right:
                 out = F.conv2d(xn, w, stride=self.strides, padding=(top, left))
             else:
                 out = F.conv2d(F.pad(xn, (left, right, top, bottom)), w,
                                stride=self.strides)
-            out = out.permute(0, 2, 3, 1)
-        return out + self.bias
+            return out.permute(0, 2, 3, 1)
+        return spatial.conv(conv, x, self.kernel_size, self.strides, self.pads) + self.bias
 
     def border(self, h: int, w: int, pads) -> torch.Tensor:
         """int32 pad-indicator conv of the weight codes, cached per input
-        size (the codes are fixed while serving)."""
-        key = (h, w, self.w0_int.device, self.w0_int.data_ptr(),
+        size and pads (the codes are fixed while serving; the shards of a
+        sharded height take other pads at the same size)."""
+        key = (h, w, pads, self.w0_int.device, self.w0_int.data_ptr(),
                self.w0_int._version)
         b = self._border_cache.get(key)
         if b is None:
@@ -394,22 +407,34 @@ class QConv(_WeightQuantMixin, nn.Module):
         int32 accumulation and the fused f32 epilogue (kernel K1).  With
         ``pre_gn`` the fused GroupNorm (K6) writes the codes already padded
         with the code of 0, and K1 runs VALID over them, with no border
-        correction."""
+        correction.
+
+        On rows of a sharded height (``parallel/spatial.py``) the halo rows
+        are exchanged as int8 codes (quantization is elementwise under one
+        Δ, so this equals exchanging the activations, at half a bf16
+        carrier's bytes) and K1 takes the shard's pads, so the border
+        correction applies only at the global edge.  With ``pre_gn``, K6
+        computes its statistics over the tensor it is given, so it runs on
+        the gathered height and this rank keeps its codes with their halo
+        rows."""
         if self.w0_int is None:
             raise RuntimeError("DEPLOY_INT8 needs export_serving_int8 weights")
         if pre_gn is not None and self.split:
             raise ValueError("pre_gn takes no split layer")
-        h, w = x.shape[1], x.shape[2]
-        pads = self.pads(h, w)
+        site = spatial.conv_site(x, self.kernel_size, self.strides, self.pads)
+        pads = site.pads
         d, zp = self.act_quantizer(x, mode, params_only=True)
         if pre_gn is not None:
             gn_scale, gn_bias, act = pre_gn
-            codes, c = gn_swish_int8(x, gn_scale, gn_bias, d, zp,
-                                     self.aq.n_levels, pads, swish=act)
+            codes, c = gn_swish_int8(site.whole(x), gn_scale, gn_bias, d, zp,
+                                     self.aq.n_levels, site.global_pads, swish=act)
+            codes = site.padded_rows(codes)
             pads, border = NO_PADS, None
         else:
             codes, c = quantize_act_int8(x, d, zp, self.aq.n_levels)
-            border = self.border(h, w, pads) if pads != NO_PADS else None
+            codes = site.rows(codes)
+            border = (self.border(codes.shape[1], codes.shape[2], pads)
+                      if pads != NO_PADS else None)
         return int8_conv(codes.contiguous(), self.w0_int, self.w0_isum, c,
                          d * self.w0_delta, self.bias.float(), self.strides,
                          pads, border, x.dtype)
@@ -472,7 +497,7 @@ def norm_conv(norm: GNorm, conv: QConv, x: torch.Tensor, mode: QuantMode,
     the JAX package's blocks choose it."""
     if (int8_conv_serving(mode, conv.wq, conv.aq, conv.disable_act_quant,
                           conv.split)
-            and use_fused_gn(*x.shape[1:])):
+            and use_fused_gn(*spatial.global_shape(x)[1:])):
         return conv(x, mode, pre_gn=(*norm(x, params_only=True), act))
     y = norm(x)
     return conv(swish(y) if act else y, mode)
@@ -482,9 +507,12 @@ def norm_act(norm: GNorm, x: torch.Tensor, mode: QuantMode,
              act: bool = False) -> torch.Tensor:
     """``norm(x)`` (``act``: ``swish(norm(x))``) of an NHWC x, for a norm
     with several consumers; on the int8 serving path, where
-    ``use_fused_gn`` admits the shape, in one pass (K6's ``gn_norm``)."""
-    if int8_serving(mode) and use_fused_gn(*x.shape[1:]):
-        return gn_norm(x, *norm(x, params_only=True), swish=act)
+    ``use_fused_gn`` admits the shape, in one pass (K6's ``gn_norm``; on
+    rows of a sharded height, over the gathered height, this rank's rows
+    kept)."""
+    if int8_serving(mode) and use_fused_gn(*spatial.global_shape(x)[1:]):
+        return spatial.run_whole(
+            lambda t: gn_norm(t, *norm(t, params_only=True), swish=act), x)
     y = norm(x)
     return swish(y) if act else y
 

@@ -12,26 +12,31 @@ which every backend takes), so they are exact in every dtype.
 
 ``stats`` counts the collectives, their bytes and their wall seconds (a
 card tensor's stream is synchronized before and after, so the seconds are
-the collective's own).
+the collective's own); the ``halo_*`` entries count the halo exchanges of
+spatial parallelism (``parallel/spatial.py``) apart, which are in the
+totals too.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 import time
-from typing import List
+from typing import List, Tuple
 
 import torch
 import torch.distributed as dist
 
-stats = {"calls": 0, "bytes": 0, "seconds": 0.0}
+stats = {"calls": 0, "bytes": 0, "seconds": 0.0,
+         "halo_calls": 0, "halo_bytes": 0, "halo_seconds": 0.0}
 
 _OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
         "max": dist.ReduceOp.MAX}
 
 
 def reset_stats() -> None:
-    stats.update(calls=0, bytes=0, seconds=0.0)
+    stats.update(calls=0, bytes=0, seconds=0.0,
+                 halo_calls=0, halo_bytes=0, halo_seconds=0.0)
 
 
 def size(group) -> int:
@@ -44,16 +49,18 @@ def rank(group) -> int:
 
 
 @contextlib.contextmanager
-def _timed(t: torch.Tensor):
+def _timed(t: torch.Tensor, nbytes=None, kind=()):
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
     t0 = time.perf_counter()
     yield
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
-    stats["calls"] += 1
-    stats["bytes"] += t.numel() * t.element_size()
-    stats["seconds"] += time.perf_counter() - t0
+    secs = time.perf_counter() - t0
+    for prefix in ("",) + kind:
+        stats[prefix + "calls"] += 1
+        stats[prefix + "bytes"] += t.numel() * t.element_size() if nbytes is None else nbytes
+        stats[prefix + "seconds"] += secs
 
 
 def _staged(t: torch.Tensor, group) -> bool:
@@ -122,3 +129,40 @@ def broadcast_(t: torch.Tensor, group=None) -> torch.Tensor:
             t.copy_(h.view(t.dtype).reshape(t.shape))
     return t
 
+
+
+def halo_exchange(t: torch.Tensor, dim: int, up: int, down: int, from_above: int,
+                  from_below: int, group) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The halo exchange of a tensor split along ``dim`` in rank order:
+    ``t``'s first ``up`` rows go to the rank before this one in ``group``
+    and its last ``down`` rows to the rank after it; ``from_above`` rows
+    come from the rank before (its last ones) and ``from_below`` from the
+    rank after (its first).  Returns (rows from above, rows from below),
+    each with ``t``'s other axes.  Every rank passes the counts its
+    neighbours expect (``spatial.halo_plan`` gives them alike on every
+    rank); point-to-point sends of the rows' bytes, in one batch.  The
+    bytes counted are those received."""
+    r, n = rank(group), size(group)
+    dev = torch.device("cpu") if _staged(t, group) else t.device
+    peer = lambda i: dist.get_global_rank(group, i)
+    shape = lambda rows: t.shape[:dim] + (rows,) + t.shape[dim + 1:]
+    sends = [(rows, start, to) for rows, start, to in
+             ((up, 0, r - 1), (down, t.shape[dim] - down, r + 1)) if rows and 0 <= to < n]
+    recvs = [(rows if 0 <= frm < n else 0, frm) for rows, frm in
+             ((from_above, r - 1), (from_below, r + 1))]
+    nbytes = sum(math.prod(shape(rows)) for rows, _ in recvs) * t.element_size()
+    with _timed(t, nbytes, ("halo_",)):
+        ops, bufs = [], []
+        for rows, start, to in sends:
+            ops.append(dist.P2POp(dist.isend, _as_bytes(t.narrow(dim, start, rows).to(dev)),
+                                  peer(to), group))
+        for rows, frm in recvs:
+            bufs.append(torch.empty(math.prod(shape(rows)) * t.element_size(),
+                                    dtype=torch.uint8, device=dev))
+            if rows:
+                ops.append(dist.P2POp(dist.irecv, bufs[-1], peer(frm), group))
+        for req in (dist.batch_isend_irecv(ops) if ops else []):
+            req.wait()
+        above, below = (b.view(t.dtype).reshape(shape(rows)).to(t.device)
+                        for b, (rows, _) in zip(bufs, recvs))
+    return above, below

@@ -1,5 +1,4 @@
-"""Tensor-parallel serving (port of ``eda_dm_tpu/parallel/tp.py``, without
-``shard_spatial``).
+"""Tensor- and spatial-parallel serving (port of ``eda_dm_tpu/parallel/tp.py``).
 
 JAX annotates each parameter's output axis with a ``tp`` sharding and
 lets GSPMD place the collectives.  Here :func:`shard_params_tp` cuts every
@@ -15,10 +14,18 @@ epilogue are those of the unsharded layer, so the sharded forward equals
 the single-process one bit for bit.  The gather carries no gradient: tp is
 for serving.
 
-``shard_spatial`` (the H-axis sharding of the VAE decode's activations) is
-not ported: without GSPMD it needs a halo exchange in every 3×3 and
-stride-2 conv, cross-shard GroupNorm statistics and a gather before every
-attention.
+:func:`shard_spatial` splits an activation's height over the ``tp`` axis
+(JAX: the 256²/512² VAE decode's memory-bound stages).  Without GSPMD the
+layers do the partitioning themselves inside ``with
+spatial.sharded_height(group):`` (``parallel/spatial.py``: the halo
+exchange of every 3×3 and stride-2 conv, the norms' statistics over all
+ranks, a gather around every attention); :func:`gather_spatial` puts the
+rows back together::
+
+    mesh = make_mesh2d(1, n)
+    with spatial.sharded_height(axis_group(mesh, "tp")):
+        out = model(shard_spatial(mesh, x), t, mode)
+    y = gather_spatial(mesh, out)
 """
 
 from __future__ import annotations
@@ -109,6 +116,25 @@ def shard_params_tp(mesh: DeviceMesh, model: nn.Module, axis: str = "tp",
                 and tp_spec(_jax_shape(m.weight), size, axis, min_shard)):
             _shard_layer(m, rank, size, group)
     return model
+
+
+def shard_spatial(mesh: DeviceMesh, x: torch.Tensor, axis: str = "tp",
+                  dim: int = 1) -> torch.Tensor:
+    """This rank's contiguous block of ``x``'s ``dim`` (H of NHWC by
+    default) over the mesh axis ``axis``; the axis must divide evenly."""
+    n, r = axis_size(mesh, axis), axis_rank(mesh, axis)
+    if x.shape[dim] % n:
+        raise ValueError(f"{x.shape[dim]} rows of dim {dim} do not shard evenly "
+                         f"over {n} devices")
+    h = x.shape[dim] // n
+    return x.narrow(dim, r * h, h)
+
+
+def gather_spatial(mesh: DeviceMesh, x: torch.Tensor, axis: str = "tp",
+                   dim: int = 1) -> torch.Tensor:
+    """The inverse of :func:`shard_spatial`: every rank's block of ``dim``
+    in rank order."""
+    return comm.all_gather(x, axis_group(mesh, axis), dim=dim)
 
 
 def tp_layers(model: nn.Module) -> List[str]:

@@ -5,7 +5,9 @@ from an explicit ``torch.Generator`` or is passed in per step: JAX's PRNG
 and torch's give different numbers from one seed.  At ``eta=0`` the noise
 term is multiplied by zero, so no noise is drawn.  On a batch sharded over
 ranks (``parallel/dp.py``) each rank draws the global batch's noise and
-keeps its rows (``parallel/rows.py``), as one process would draw it.
+keeps its rows (``parallel/rows.py``), as one process would draw it; on a
+height sharded over ranks (``parallel/spatial.py``) each rank draws the
+global height and keeps its rows of it.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..parallel import rows
+from ..parallel import spatial
 from .schedules import alphas_cumprod_padded
 
 
@@ -75,7 +77,7 @@ def generalized_steps(x: torch.Tensor, seq, model_fn: Callable, betas,
         z = None
         if eta != 0.0:
             z = (noise[k] if noise is not None else
-                 rows.draw(torch.randn, x.shape, generator=generator,
+                 spatial.draw(torch.randn, x.shape, generator=generator,
                            device=device, dtype=x.dtype))
         x, _ = ddim_denoise_step(x, et, alphas[i + 1], alphas[j + 1], eta, z)
     if not (record_xt or model_returns_aux or capture_fn is not None):
@@ -110,7 +112,7 @@ def ddpm_steps(x: torch.Tensor, seq, model_fn: Callable, betas,
         mean = (torch.sqrt(atm1) * beta_t * x0 +
                 torch.sqrt(1.0 - beta_t) * (1.0 - atm1) * x) / (1.0 - at)
         z = (noise[k] if noise is not None else
-             rows.draw(torch.randn, x.shape, generator=generator, device=device,
+             spatial.draw(torch.randn, x.shape, generator=generator, device=device,
                        dtype=x.dtype))
         mask = float(i != 0)
         x = mean + mask * torch.exp(0.5 * torch.log(beta_t)) * z

@@ -24,6 +24,8 @@ difference of two close solutions, so a last-bit difference between
 XLA's and PyTorch's ``exp`` / ``expm1`` / ``log`` moves E, and through
 the step size every later step, by far more than a bit: a free run is
 held against JAX's step by step (``tests/test_torch_dpm_solver.py``).
+On a height sharded over ranks (``parallel/spatial.py``) the updates are
+elementwise on each rank's rows and E's mean is taken over all of them.
 """
 
 from __future__ import annotations
@@ -34,6 +36,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from ..parallel import spatial
 
 
 class NoiseScheduleVP:
@@ -546,7 +550,7 @@ def adaptive_stepper(ns: NoiseScheduleVP, model_fn: Callable, order: int,
             x_higher = update3(x, s, t, m_s, m_s1b)
         delta = torch.maximum(f32(atol), rtol * torch.maximum(x_lower.abs(),
                                                               x_prev.abs()))
-        E = torch.sqrt(torch.mean(((x_higher - x_lower) / delta) ** 2))
+        E = torch.sqrt(spatial.mean(((x_higher - x_lower) / delta) ** 2))
         accept = E <= 1.0
         x = torch.where(accept, x_higher, x)
         x_prev = torch.where(accept, x_lower, x_prev)

@@ -6,7 +6,8 @@ explicit ``torch.Generator`` or is passed in per step: JAX's PRNG and
 torch's give different numbers from one seed.  A step whose σ is 0 adds no
 noise and draws none.  On a batch sharded over ranks (``parallel/dp.py``)
 each rank draws the global batch's noise and keeps its rows
-(``parallel/rows.py``), as one process would draw it.
+(``parallel/rows.py``), as one process would draw it; on a height sharded
+over ranks (``parallel/spatial.py``), the global height and its rows.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..parallel import rows
+from ..parallel import spatial
 
 
 def make_beta_schedule(n_timestep: int, linear_start: float = 1e-4,
@@ -138,7 +139,7 @@ def ldm_ddim_sample(x_T: torch.Tensor, sched: LDMSchedule, model_fn: Callable,
         z = None
         if sched.ddim_sigmas[index] != 0:
             z = (noise[k].to(device) if noise is not None else
-                 rows.draw(torch.randn, x.shape, generator=generator,
+                 spatial.draw(torch.randn, x.shape, generator=generator,
                            device=device, dtype=x.dtype))
         x, _ = ddim_update(x, e_t, al[index], al_prev[index], sig[index],
                            som[index], z)
@@ -188,7 +189,7 @@ def ldm_plms_sample(x_T: torch.Tensor, sched: LDMSchedule, model_fn: Callable,
         z = None
         if sched.ddim_sigmas[index] != 0:
             z = (noise[i].to(device) if noise is not None else
-                 rows.draw(torch.randn, x.shape, generator=generator,
+                 spatial.draw(torch.randn, x.shape, generator=generator,
                            device=device, dtype=x.dtype))
 
         def update(e):

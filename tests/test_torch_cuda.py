@@ -37,7 +37,12 @@ ranks sharing the card (``parallel/launch.py``): the tiny DDPM's
 ``dp_calibrate_acts`` bit-equal to one process's act calibration on its
 quantizer inputs (free-running under the free-running calibrations'
 gate), and its
-tp = 2 DEPLOY_INT8 forward bit-equal to the unsharded one.
+tp = 2 DEPLOY_INT8 forward bit-equal to the unsharded one.  Spatial
+parallelism: K1 on each rank's rows, halo and pads at every conv
+geometry of the models (bit-equal to the plain version, the shards
+concatenated bit-equal to the unsharded output), and the tiny DDPM's
+DEPLOY_INT8 forward with its height over two gloo ranks sharing the card
+against one process.
 """
 
 import numpy as np
@@ -1084,3 +1089,72 @@ def test_tp_int8_forward_on_two_ranks_bit_equal(two_ranks):
     for r in two_ranks:
         assert r["tp_equal"] and r["n_sharded"] == 50
         assert r["launches"].get("int8_conv", 0) > 0, r["launches"]
+
+
+# --------------------------------------------------------------------------
+# spatial parallelism: K1 on haloed shards, and two gloo ranks sharing the card
+
+SHARD_GEOMETRIES = [((3, 3), (1, 1), "SAME"), ((3, 3), (2, 2), ((0, 1), (0, 1))),
+                    ((3, 3), (2, 2), ((1, 1), (1, 1))), ((1, 1), (1, 1), "VALID")]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("kernel,stride,padding", SHARD_GEOMETRIES, ids=str)
+def test_int8_conv_on_shard_geometries(gen, kernel, stride, padding, n):
+    from eda_dm_tpu_torch.nn.layers import QConv
+    from eda_dm_tpu_torch.ops.int8_conv import border_map, int8_conv, int8_conv_plain
+    from eda_dm_tpu_torch.parallel import spatial
+    cin, cout, W = 40, 72, 24
+    pads_fn = QConv(cin, cout, kernel, strides=stride, padding=padding).pads
+    w = _codes(gen, (cout, *kernel, cin), -8, 7)
+    isum = w.float().sum((1, 2, 3))
+    c = torch.tensor(3.0, device="cuda")
+    scale = torch.rand(cout, generator=gen, device="cuda") * 0.01
+    bias = torch.randn(cout, generator=gen, device="cuda")
+    border = lambda h, pads: (border_map(w, h, W, stride, pads)
+                              if pads != ((0, 0), (0, 0)) else None)
+    checked = 0
+    for H in (8, 16, 24, 32, 64):
+        x = _codes(gen, (3, H, W, cin))
+        gp = pads_fn(H, W)
+        full = int8_conv(x, w, isum, c, scale, bias, stride, gp, border(H, gp), torch.float32)
+        plans = [spatial.halo_plan(kernel[0], stride[0], gp[0], H, r, n) for r in range(n)]
+        if plans[0] is None:
+            continue
+        parts = []
+        for r, p in enumerate(plans):
+            rows = spatial.halo_rows(x, p, r, n).contiguous()
+            pads = (p.pads, gp[1])
+            args = (rows, w, isum, c, scale, bias, stride, pads, border(rows.shape[1], pads),
+                    torch.float32)
+            parts.append(int8_conv(*args))
+            assert torch.equal(parts[-1], int8_conv_plain(*args)), (H, r)
+        assert torch.equal(torch.cat(parts, 1), full), H
+        checked += 1
+    assert checked >= 3
+
+
+@pytest.fixture(scope="module")
+def sp_two_ranks():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import spatial_ranks
+    from eda_dm_tpu_torch.ops import _build
+    from eda_dm_tpu_torch.parallel.launch import spawn
+    _build.build(["int8_conv", "int8_bmm", "softmax_codes", "int8_attention"])
+    return spawn(spatial_ranks.card_world, 2, "gloo", "cuda", timeout_s=300)
+
+
+def test_sp_int8_forward_on_two_ranks(sp_two_ranks):
+    """The tiny DDPM's DEPLOY_INT8 forward (f32 carrier) with its height
+    over two ranks: bit-equal to one process that computes the norms' sums
+    and the folded float convs in the ranks' blocks (``spatial.rank_blocks``:
+    cuDNN and cuBLAS choose their sums by the number of rows), so the
+    halos, pads and gathers are exact; against one process under the flip
+    gate; K1 launched on each rank as often as in one process."""
+    for r in sp_two_ranks:
+        assert torch.equal(r["sp"], r["control"])
+        d = (r["sp"] - r["one"]).abs()
+        assert float(d.median()) < 2e-4 and float(d.max()) < 0.15, d.max()
+        assert float((d < 2e-4).float().mean()) > 0.7
+        assert r["launches"] == r["one_launches"] and r["launches"]["int8_conv"] > 0
