@@ -186,7 +186,16 @@ exits non-zero before the last line:
     and each rank's peak memory beside one process's;
 16. ``python -m eda_dm_tpu_torch.gate_recon_deviations``'s ``main`` at
     ``--iters 20 --n 64 --calib 64 --steps 10``: every metric finite, the
-    verdict printed, arm B's row cap taken.
+    verdict printed, arm B's row cap taken;
+17. CLIP ViT-L/14 at its published widths on random weights, this
+    slice's main path (``clip_phase``'s docstring lists every step): a
+    text checkout with a synthetic 49,408-entry vocabulary,
+    ``FrozenCLIPTextEncoder`` card against host, ``python -m
+    eda_dm_tpu_torch.sample_ldm --task coco --text_encoder clip --serve
+    int8``'s ``main`` (launch counts set to 0 just before and read just
+    after: ``DEFAULT_LAUNCHES["sd"]`` a forward under the CLIP context),
+    then ``CLIPScorer`` on its images, card against host, with the
+    towers' images/s and prompts/s at batch 64.
 
 The serving switches (``EDM_FUSED_ATTN`` and the others that
 ``eda_dm_tpu_torch/ops/serving_policy.py`` reads) are unset for the run,
@@ -204,6 +213,7 @@ and the first-stage decode compute in full float32.
 
 import contextlib
 import copy
+import dataclasses
 import gc
 import json
 import math
@@ -3624,6 +3634,213 @@ def gate_phase(smi):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 17: CLIP ViT-L/14, SD v1.4's text conditioner and the CLIP scorer
+
+CLIP_SEED = 17
+CLIP_BATCH = 64                        # the towers' timed batch
+CLIP_HELD = 4                          # the card-vs-host comparison's images
+
+
+def host_gate(card, host, what):
+    """Card against host: within 1e-4 of the largest |host| value plus 1e-3
+    relative (cuBLAS and the host's products sum in other orders).
+    Returns the largest |Δ|."""
+    c = torch.as_tensor(card).detach().cpu().double()
+    h = torch.as_tensor(host).detach().cpu().double()
+    err, top = float((c - h).abs().max()), float(h.abs().max())
+    check(c.shape == h.shape and bool(((c - h).abs() <= 1e-4 * top + 1e-3 * h.abs()).all()),
+          f"{what}: card vs host max |d| {err:.3g} (largest |host| {top:.3g}) within 1e-4 "
+          f"of it plus 1e-3 relative")
+    return err
+
+
+def clip_phase(kernels, smi, dev="cuda"):
+    """Phase 17: CLIP ViT-L/14 in the port (``models/clip.py``,
+    ``models/clip_tokenizer.py``) as SD v1.4's text conditioner and as the
+    CLIP scorer, at openai/clip-vit-large-patch14's published widths on
+    random weights (seed 17).
+
+    (a) A text checkout written into a temporary directory of the
+    checkout's ignored ``_build/`` and deleted after: ``config.json`` in
+    the published two-tower layout (``eos_token_id`` 2), the text tower
+    (123,060,480 parameters, and ``text_projection``) as
+    ``pytorch_model.bin``, and a synthetic ``vocab.json`` / ``merges.txt``
+    of the published 49,408 entries (the 512 byte symbols, merges learned
+    from SD's four prompts, filler merges, the specials at 49,406 and
+    49,407).
+
+    (b) ``FrozenCLIPTextEncoder`` on it, on the card and on the host: SD's
+    four prompts and "" → (4, 77, 768) and (1, 77, 768), finite, the card
+    against the host in phase 13's gate; the ms of an encode at 8 rows.
+
+    (c) ``python -m eda_dm_tpu_torch.sample_ldm``'s ``main`` in process:
+    ``--task coco --text_encoder clip --clip_path <checkout> --serve int8``
+    at ``sd_v1_config()`` on random weights, cut to the smallest
+    calibration its flags take (4 prompts: ``--calib_num_samples 4
+    --batch_samples 4``, ``--iters 1`` over the whole reconstruction plan)
+    and phase 11's 10 PLMS steps, 4 images at batch 4 (CFG 7.5, 8 UNet
+    rows).  Launch counts set to 0 just before and read just after: 11
+    forwards of ``DEFAULT_LAUNCHES["sd"]``, so K1-K5 serve a UNet
+    conditioned by the CLIP tower.  Images finite in [0, 1]; img/s (the
+    PNG writes counted) and the encode's share of ``main``'s wall time.
+
+    (d) ``CLIPScorer`` at both published widths (text 123,060,480 and
+    vision 303,179,776 parameters) with the injected model and the
+    checkout's tokenizer: (c)'s images scored against their prompts,
+    finite, in [-100, 100]; 4 images' and prompts' features card against
+    host in the same gate; the vision tower's images/s and the text
+    tower's prompts/s at batch 64 (float32, TF32 off)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from eda_dm_tpu_torch import sample_ldm
+    from eda_dm_tpu_torch.eval.clip import CLIPScorer, clip_preprocess
+    from eda_dm_tpu_torch.models import clip
+    from eda_dm_tpu_torch.models.clip_tokenizer import CLIPTokenizer, write_synthetic_vocab
+    from eda_dm_tpu_torch.models.encoders import FrozenCLIPTextEncoder
+    from eda_dm_tpu_torch.ops import _build
+    from eda_dm_tpu_torch.pipelines.latent import LDMPipeline
+
+    print(f"[17] CLIP ViT-L/14: the text conditioner of SD v1.4's int8 serving "
+          f"(sample_ldm --text_encoder clip) and CLIPScorer, random weights ({smi})")
+    t_phase = time.perf_counter()
+    out = {"card": smi}
+    prompts = list(COCO_PROMPTS)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="clip-", dir=_build.BUILD_DIR)
+    try:
+        print("    (a) a random text checkout at the published widths")
+        cfg = clip.vit_l14_config()
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump({"model_type": "clip", "projection_dim": cfg.projection_dim,
+                       "text_config": dataclasses.asdict(cfg.text),
+                       "vision_config": dataclasses.asdict(cfg.vision)}, f)
+        src = clip.CLIPModel(cfg.towers(("text",)), device=dev, seed=CLIP_SEED)
+        n_text = sum(p.numel() for p in src.text_model.parameters())
+        check(n_text == 123_060_480, f"text tower {n_text:,} parameters")
+        _, save_s = timed(lambda: torch.save(
+            {k: v.cpu() for k, v in src.state_dict().items()},
+            os.path.join(tmp, "pytorch_model.bin")))
+        vocab = write_synthetic_vocab(tmp, prompts)
+        check(len(vocab) == 49_408 and vocab["<|startoftext|>"] == 49_406
+              and vocab["<|endoftext|>"] == 49_407,
+              f"synthetic vocab of {len(vocab):,} entries, specials at 49,406 and 49,407")
+        del src
+
+        print("    (b) FrozenCLIPTextEncoder on the card and on the host")
+        enc, load_s = timed(lambda: FrozenCLIPTextEncoder(tmp, device=dev))
+        host = FrozenCLIPTextEncoder(tmp, device="cpu")
+        card_ctx, card_unc = enc.encode(prompts), enc.encode([""])
+        check(tuple(card_ctx.shape) == (4, 77, 768) and tuple(card_unc.shape) == (1, 77, 768)
+              and bool(torch.isfinite(card_ctx).all() and torch.isfinite(card_unc).all()),
+              f"contexts {tuple(card_ctx.shape)} and {tuple(card_unc.shape)}, finite")
+        out["encode_card_vs_host_max_abs"] = max(
+            host_gate(card_ctx, host.encode(prompts), "4 prompts' hidden states"),
+            host_gate(card_unc, host.encode([""]), "the empty prompt's"))
+        rows8 = prompts + [""] * 4
+        encode_ms = cuda_ms(lambda: enc.encode(rows8), reps=10)
+        ids8 = torch.from_numpy(enc.tokenize(rows8)).to(dev)
+        tower_ms = cuda_ms(lambda: enc.model.text_hidden_states(ids8), reps=10)
+        print(f"    checkout written in {save_s:.2f} s; loaded on the card in {load_s:.2f} s; "
+              f"an encode at 8 rows {encode_ms:.3f} ms (the tower alone {tower_ms:.3f} ms) "
+              f"on {smi}")
+        out.update(save_s=save_s, load_s=load_s, encode_8_ms=encode_ms,
+                   text_tower_8_ms=tower_ms)
+        del enc, host
+        free_memory("after the encoder")
+
+        print(f"    (c) sample_ldm --task coco --text_encoder clip --serve int8: "
+              f"{len(prompts)} prompts, {STEPS} PLMS steps, CFG 7.5, 4 calibration prompts, "
+              f"--iters 1")
+        with open(os.path.join(tmp, "prompts.txt"), "w") as f:
+            f.write("\n".join(prompts) + "\n")
+        spent, images = [0.0, 0.0], []            # encode, sample_batch seconds
+        encode, sample_batch = FrozenCLIPTextEncoder.encode, LDMPipeline.sample_batch
+
+        def timed_encode(self, rows):
+            res, sec = timed(lambda: encode(self, rows))
+            spent[0] += sec
+            return res
+
+        def kept_batch(self, *a, **kw):
+            img, sec = timed(lambda: sample_batch(self, *a, **kw))
+            spent[1] += sec
+            images.append(img.float().cpu())
+            return img
+        flags = ["--task", "coco", "--text_encoder", "clip", "--clip_path", tmp,
+                 "--prompts_file", os.path.join(tmp, "prompts.txt"), "--serve", "int8",
+                 "--custom_steps", str(STEPS), "--calib_num_samples", "4", "--batch_samples",
+                 "4", "--iters", "1", "--n_samples", "4", "--batch_size", "4",
+                 "--logdir", os.path.join(tmp, "run"), "--skip_grid"]
+        if dev != "cuda":
+            flags += ["--device", dev]
+        with swapped(FrozenCLIPTextEncoder, "encode", timed_encode), \
+                swapped(LDMPipeline, "sample_batch", kept_batch):
+            _build.launch_counts.clear()
+            run, main_s = timed(lambda: sample_ldm.main(flags))
+            launches = dict(_build.launch_counts)
+        forwards = STEPS + 1
+        check({k: v / forwards for k, v in launches.items()} == DEFAULT_LAUNCHES["sd"],
+              f"the int8 UNet under the CLIP context: {launches} over {forwards} forwards, "
+              f"{DEFAULT_LAUNCHES['sd']} each")
+        for k in kernels:
+            if k["name"] in DEFAULT_LAUNCHES["sd"]:
+                k["clip_launches"] = launches.get(k["name"], 0)
+        imgs = torch.cat(images)
+        check(tuple(imgs.shape) == (4, 512, 512, 3) and bool(torch.isfinite(imgs).all())
+              and float(imgs.min()) >= 0.0 and float(imgs.max()) <= 1.0
+              and len(os.listdir(run["img_dir"])) == 4,
+              f"images {tuple(imgs.shape)} finite in [0, 1], 4 PNGs written")
+        print(f"    main {main_s:.2f} s (calibration and reconstruction included), 4 images: "
+              f"{4 / main_s:.4f} img/s end to end, {4 / spent[1]:.4f} img/s in sample_batch "
+              f"({spent[1]:.3f} s: {STEPS} PLMS steps and the decode); the CLIP encodes "
+              f"{spent[0]:.4f} s = {spent[0] / main_s:.4%} of main's wall time, "
+              f"{spent[0] / spent[1]:.3%} of sample_batch's on {smi}")
+        out.update(main_s=main_s, main_img_per_s=4 / main_s, sample_s=spent[1],
+                   sample_img_per_s=4 / spent[1], encode_s=spent[0],
+                   encode_share=spent[0] / main_s, launches=launches)
+        free_memory("after sample_ldm")
+
+        print("    (d) CLIPScorer at both published widths, (c)'s images against their prompts")
+        model = clip.CLIPModel(cfg, device=dev, seed=CLIP_SEED)
+        n_vision = sum(p.numel() for p in model.vision_model.parameters())
+        check(n_vision == 303_179_776, f"vision tower {n_vision:,} parameters")
+        tok = CLIPTokenizer.from_pretrained(tmp)
+        scorer = CLIPScorer(model=model, tokenizer=tok, device=dev)
+        score = scorer.score(imgs.numpy(), prompts)
+        check(math.isfinite(score) and -100.0 <= score <= 100.0,
+              f"CLIP score of the 4 images against their prompts {score!r}")
+        ref = clip.CLIPModel(cfg, device="cpu", init=False)
+        clip.load_state(ref, model.state_dict())
+        host_scorer = CLIPScorer(model=ref, tokenizer=tok, device="cpu")
+        held = imgs[:CLIP_HELD].numpy()
+        out["image_card_vs_host_max_abs"] = host_gate(
+            scorer.image_features(held), host_scorer.image_features(held),
+            f"{CLIP_HELD} images' features")
+        out["text_card_vs_host_max_abs"] = host_gate(
+            scorer.text_features(prompts), host_scorer.text_features(prompts),
+            f"{len(prompts)} prompts' features")
+        del ref, host_scorer
+        g = torch.Generator(device=dev).manual_seed(CLIP_SEED)
+        px = clip_preprocess(torch.rand(CLIP_BATCH, 512, 512, 3, generator=g, device=dev))
+        vision_ms = cuda_ms(lambda: model.get_image_features(px), reps=5, warmup=1)
+        ids = torch.from_numpy(tok(prompts * (CLIP_BATCH // len(prompts)))["input_ids"]).to(dev)
+        text_ms = cuda_ms(lambda: model.get_text_features(ids), reps=5, warmup=1)
+        print(f"    score {score!r}; at batch {CLIP_BATCH} (float32, TF32 off): vision tower "
+              f"{vision_ms:.3f} ms = {CLIP_BATCH / vision_ms * 1e3:.1f} images/s, text tower "
+              f"{text_ms:.3f} ms = {CLIP_BATCH / text_ms * 1e3:.1f} prompts/s on {smi}")
+        out.update(score=score, vision_64_ms=vision_ms,
+                   vision_images_per_s=CLIP_BATCH / vision_ms * 1e3, text_64_ms=text_ms,
+                   text_prompts_per_s=CLIP_BATCH / text_ms * 1e3)
+        del model, scorer, px
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"    phase 17 on {smi}: {out['phase_s']:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3808,6 +4025,8 @@ def main():
     del p14_model, bedroom_unet
     free_memory("after phase 15")
     gate_res = gate_phase(smi)
+    free_memory("after phase 16")
+    clip_res = clip_phase(kernels, smi)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
@@ -3817,7 +4036,7 @@ def main():
              "library_peak", "mma_sync_ms", "mma_sync_launches", "mma_sync_source",
              "calibrated_launches", "latent_calibrated_launches", "church_launches",
              "imagenet_launches", "imagenet_calibrated_launches", "imagenet_ms",
-             "parallel_launches", "spatial_launches")
+             "parallel_launches", "spatial_launches", "clip_launches")
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{**{k: kern[k] for k in keys},
                                    **{k: kern[k] for k in extra if k in kern},
@@ -3829,7 +4048,7 @@ def main():
         "bedroom_serving": serving, "sd_serving": sd_serving,
         "cifar_calibration": calibrated, "latent_calibration": latent,
         "imagenet": imagenet_serving, "scoring": scored, "parallel": parallel_res,
-        "spatial": spatial_res, "gate_recon_deviations": gate_res}))
+        "spatial": spatial_res, "gate_recon_deviations": gate_res, "clip": clip_res}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,17 +1,21 @@
 """Conditioning encoders (port of ``eda_dm_tpu/models/encoders.py``): the
-class embedder of the ImageNet task and the stand-in text encoder.
+class embedder of the ImageNet task, SD v1.4's CLIP text encoder and the
+stand-in text encoder.
 
 ``ClassEmbedder``: a label → a (B, 1, embed_dim) float32 context, one
 token for the cross-attention (``ClassEmbedder`` of the reference's
 ``encoders/modules.py``); cin256-v2 has 1001 rows, row 1000 the
 unconditional token.  Never quantized.
 
-The real SD v1.4 conditioner, CLIP ViT-L/14 (``FrozenCLIPTextEncoder``),
-needs weights the repository does not hold.  The JAX package serves its
-text path without them through ``TinyTextEncoder``: crc32 hash tokens → a
-two-layer pre-LN transformer (flax ``nn.SelfAttention``, 4 heads) → a
-final LayerNorm, giving (B, 77, context_dim) rows in float32.  It is never
-quantized.
+``FrozenCLIPTextEncoder``: SD v1.4's conditioner (``FrozenCLIPEmbedder``
+of the reference), CLIP ViT-L/14's text tower (``models/clip.py``) and
+tokenizer (``models/clip_tokenizer.py``) from a local checkout: prompts
+padded to 77 tokens → ``last_hidden_state`` (B, 77, 768) in float32.
+The repository holds no such checkout, so without one it raises.  The
+JAX package serves its text path without CLIP's weights through
+``TinyTextEncoder``: crc32 hash tokens → a two-layer pre-LN transformer
+(flax ``nn.SelfAttention``, 4 heads) → a final LayerNorm, giving (B, 77,
+context_dim) rows in float32.  Neither is ever quantized.
 
 ``BERTEmbedder`` is the reference's BERT text encoder (an x_transformers
 ``TransformerWrapper``: token and absolute position embeddings, pre-norm
@@ -20,10 +24,12 @@ attention and feed-forward layers, a final LayerNorm), behind
 ``class_embedder_state_dict_to_params`` and ``bert_state_dict_to_params``
 convert the reference's state dicts to the JAX package's trees.
 
-Parameters keep the flax names and layouts (``tok.embedding``, ``pos``,
-``attn_0.query.kernel`` of shape (d, heads, head_dim), ``out.kernel``
-(heads, head_dim, d), ``fc1_0.kernel`` (d, 4d), ``attn_0_q.kernel``
-(d, inner)), so ``models/bridge.py`` loads the JAX tree as it is.
+The stand-in's and BERT's parameters keep the flax names and layouts
+(``tok.embedding``, ``pos``, ``attn_0.query.kernel`` of shape (d, heads,
+head_dim), ``out.kernel`` (heads, head_dim, d), ``fc1_0.kernel`` (d, 4d),
+``attn_0_q.kernel`` (d, inner)), so ``models/bridge.py`` loads the JAX
+tree as it is; CLIP's keep ``transformers``' PyTorch names
+(``models/clip.py``).
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..device import resolve_device
+from ..device import model_device, resolve_device
 from ..nn.layers import LayerNorm, gelu_tanh
 from .convert import as_numpy
 
@@ -171,6 +177,37 @@ class TinyTextEncoder(nn.Module):
     def encode(self, prompts: Sequence[str]) -> torch.Tensor:
         ids = torch.from_numpy(self.tokenize(prompts)).long()
         return self(ids.to(self.pos.device))
+
+
+class FrozenCLIPTextEncoder:
+    """SD v1's text conditioning (``FrozenCLIPEmbedder``): the tokenizer at
+    ``max_length`` (77, padded to it) → CLIP's text tower →
+    ``last_hidden_state``, float32 (B, 77, width) on ``device`` (the card
+    unless the caller passes ``"cpu"``).  No attention mask enters the
+    tower, as in the JAX class: the causal mask alone.
+
+    ``model_path``: a local checkout of openai/clip-vit-large-patch14
+    (``config.json``, ``model.safetensors`` or ``pytorch_model.bin``,
+    ``vocab.json``, ``merges.txt``); without one the constructor raises
+    ``RuntimeError``.  Unlike the JAX class, it also takes an injected
+    ``model`` (a ``models.clip.CLIPModel`` with a text tower, on
+    ``device``) and ``tokenizer``, as the tests build them."""
+
+    def __init__(self, model_path: str = "openai/clip-vit-large-patch14",
+                 max_length: int = 77, device=None, model=None, tokenizer=None):
+        if model is None:
+            from .clip import load_clip_checkout
+            model, tokenizer = load_clip_checkout(model_path, device, towers=("text",),
+                                                  who="FrozenCLIPTextEncoder")
+        self.device = model_device(model, device)
+        self.model, self.tokenizer, self.max_length = model, tokenizer, max_length
+
+    def tokenize(self, prompts: Sequence[str]) -> np.ndarray:
+        return self.tokenizer(list(prompts), truncation=True, max_length=self.max_length,
+                              padding="max_length", return_tensors="np")["input_ids"]
+
+    def encode(self, prompts: Sequence[str]) -> torch.Tensor:
+        return self.model.text_hidden_states(self.tokenize(prompts))
 
 
 def _init_dense(module: nn.Module, g: torch.Generator) -> None:

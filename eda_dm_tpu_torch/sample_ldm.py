@@ -8,8 +8,10 @@
 stage, the class embedder and church's ``scale_factor``); without it the
 model has random weights.  ImageNet's contexts are class rows
 (``imagenet_labels``, label 1000 the unconditional one); coco's come from
-``--text_encoder``: ``tiny`` (the stand-in encoder) or ``bert``;
-``clip`` raises, CLIP's weights not being in the repository.
+``--text_encoder``: ``clip`` (CLIP ViT-L/14's text tower from the local
+checkout ``--clip_path``: ``config.json``, ``model.safetensors`` or
+``pytorch_model.bin``, ``vocab.json``, ``merges.txt``; it raises without
+one), ``bert`` or ``tiny`` (the stand-in encoder).
 ``--phase calib|recon|sample`` runs one phase a process with the quant
 state and the calibration set handed over in ``--state_dir``; ``--dpm``
 samples with DPM-Solver++.  PNGs go to ``<logdir>/samples/<timestamp>/img``
@@ -84,10 +86,12 @@ def get_parser() -> argparse.ArgumentParser:
                    help="(phase=sample) serve the UNet from a saved "
                         "deployment bundle instead of the quant state")
     p.add_argument("--text_encoder", default="clip", choices=["clip", "bert", "tiny"],
-                   help="coco text encoder: CLIP (its weights are not in the "
-                        "repository), the BERT encoder, or the stand-in "
+                   help="coco text encoder: CLIP ViT-L/14 from the local checkout "
+                        "--clip_path, the BERT encoder, or the stand-in "
                         "TinyTextEncoder")
-    p.add_argument("--clip_path", type=str, default="openai/clip-vit-large-patch14")
+    p.add_argument("--clip_path", type=str, default="openai/clip-vit-large-patch14",
+                   help="local CLIP checkout: config.json, model.safetensors or "
+                        "pytorch_model.bin, vocab.json, merges.txt")
     p.add_argument("--prompts_file", type=str, default=None,
                    help="text prompts (one per line) for the coco task")
     p.add_argument("--skip_grid", action="store_true",
@@ -111,11 +115,9 @@ def build_coco_context(args, pipe, n: int, prompt_dir=None):
         from .eval.io import save_prompts
         save_prompts(prompts, prompt_dir)
     if args.text_encoder == "clip":
-        raise RuntimeError(
-            f"--text_encoder clip needs CLIP ViT-L/14's weights and tokenizer "
-            f"('{args.clip_path}'), which are not in the repository and are "
-            "not ported (FrozenCLIPTextEncoder); use --text_encoder tiny or bert")
-    if args.text_encoder == "bert":
+        from .models.encoders import FrozenCLIPTextEncoder
+        enc = FrozenCLIPTextEncoder(args.clip_path, device=pipe.device)
+    elif args.text_encoder == "bert":
         from .models.encoders import BERTTextEncoder
         enc = BERTTextEncoder(context_dim=pipe.mc.unet.context_dim, n_layer=4,
                               device=pipe.device)

@@ -13,8 +13,8 @@
 * ``sample_ldm``: church from a LatentDiffusion checkpoint (``--resume``:
   its ``scale_factor``), ImageNet's class contexts one phase a process
   (``--phase calib``, ``recon``, ``sample`` through ``--state_dir``), coco
-  through ``--text_encoder tiny`` and ``bert``; ``clip`` and
-  ``--clear_caches_every`` refused with their reasons;
+  through ``--text_encoder tiny`` and ``bert``; ``clip`` without a local
+  checkout and ``--clear_caches_every`` refused with their reasons;
 * without ``--device cpu`` and without a card, each raises.
 
 The model sizes are cut by patching the pipelines' configs (the scripts
@@ -207,7 +207,8 @@ def test_sample_ldm_coco_text_encoders(tiny_models, tmp_path, encoder):
 
 
 def test_sample_ldm_refusals(tiny_models, tmp_path):
-    with pytest.raises(RuntimeError, match="CLIP ViT-L/14's weights"):
+    with pytest.raises(RuntimeError, match="local CLIP checkpoint at "
+                       "'openai/clip-vit-large-patch14'"):
         sample_ldm.main(["--task", "coco", "--text_encoder", "clip", "--logdir",
                          str(tmp_path)] + LDM_FLAGS)
     with pytest.raises(SystemExit):
