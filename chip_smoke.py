@@ -1990,8 +1990,9 @@ def latent_calibration(kernels, smi, bedroom_serving):
     steps (the task: 1024 samples in batches of 64 over 200 steps); the
     reconstruction runs ``LCAL_ITERS`` = 4 iterations a target (the task:
     5000) over the whole ``ldm_recon_plan``; its int8 export's ms a step
-    is held within 3 % of the smoke state's export (medians of seven runs
-    each, timed in turns whose order alternates); the recipe's own
+    is held within 3 % of the smoke state's export (seven rounds of 10
+    pairs of forwards, each pair back to back in an order that alternates
+    by round: the median of the rounds' median ratios); the recipe's own
     ``calib_batch_size`` 32, recon batch 32, groups of 4 and bf16 caches
     stay.  The card-vs-host checks take the first res block's and the
     first attention block's quantizers: CALIB_W of their layers, CALIB_A
@@ -2203,29 +2204,52 @@ def latent_calibration(kernels, smi, bedroom_serving):
     for k in kernels[:4]:
         k["latent_calibrated_launches"] = launches.get(k["name"], 0)
     # the smoke state's export (phase 7's) timed in turns with the calibrated
-    # one, seven rounds, medians compared: the two see one card and one host
-    # state (the host's share of a step moves by several per cent between
-    # runs minutes apart), and the order alternates so that neither export
-    # always runs second
+    # one: seven rounds of STEPS pairs of UNet forwards at batch 50, each
+    # pair the two back to back (the card synchronised around each; the
+    # order alternates by round, so that neither export always runs
+    # second).  A round reads the median of its pairs' ratios, and the gate
+    # holds the median of the seven rounds'.  The shared host's and the
+    # card's speed move by several per cent over a second or two: whole
+    # 10-step runs of the two, and even their fastest forwards, read from
+    # -15 to +11 % apart on one card, while a pair 0.2 s apart sees one
+    # state
     smoke_ex = ldm_unet.LDMUNet(pipe.mc.unet, pipe.qc, device="cuda", seed=0)
     smoke_quant_state(smoke_ex, x5, t5)
     export_serving_int8(smoke_ex, pipe.qc)
+    xb, t50 = x50.bfloat16(), torch.full((LDM_BATCH,), 500.0, device="cuda")
     with torch.no_grad():
-        smoke_ex(x50.bfloat16(), torch.full((LDM_BATCH,), 500.0, device="cuda"), mode=mode)
-    step_ms = lambda m: timed(lambda: pipe.sample_batch(mode, generator=g, unet=m,
-                                                        decode=False))[1] / STEPS * 1e3
-    smoke_ms, ms = [], []
+        smoke_ex(xb, t50, mode=mode)
+
+    def forward_ms(m):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            m(xb, t50, mode=mode)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    rounds = []
     for r in range(7):
-        for m, times in ((smoke_ex, smoke_ms), (ex, ms))[::1 if r % 2 == 0 else -1]:
-            times.append(step_ms(m))
-    smoke = statistics.median(smoke_ms)
-    rel = statistics.median(ms) / smoke - 1.0
-    both = lambda v: " / ".join(f"{x:.3f}" for x in v)
+        order = (("smoke", smoke_ex), ("calibrated", ex))[::1 if r % 2 == 0 else -1]
+        pairs = [{name: forward_ms(m) for name, m in order} for _ in range(STEPS)]
+        each = [q["calibrated"] / q["smoke"] - 1.0 for q in pairs]
+        rounds.append(dict(ratio=statistics.median(each), pairs=pairs))
+        print(f"    round {r + 1} ({'smoke first' if r % 2 == 0 else 'calibrated first'}, "
+              f"{STEPS} pairs): median ratio {rounds[-1]['ratio']:+.2%} (pairs "
+              f"{min(each):+.2%} to {max(each):+.2%}); median forward calibrated "
+              f"{statistics.median(q['calibrated'] for q in pairs):.3f} ms, smoke "
+              f"{statistics.median(q['smoke'] for q in pairs):.3f}")
+    rel = statistics.median(q["ratio"] for q in rounds)
+    listed = ", ".join(f"{q['ratio']:+.2%}" for q in rounds)
+    med = {k: statistics.median(q[k] for rd in rounds for q in rd["pairs"])
+           for k in ("calibrated", "smoke")}
     check(abs(rel) <= 0.03,
-          f"calibrated bedroom {both(ms)} ms a step at batch {LDM_BATCH} against the "
-          f"smoke state's {both(smoke_ms)} in alternating turns (phase 7: "
-          f"{statistics.mean(bedroom_serving['ms_per_step']['int8']):.3f}): medians "
-          f"{rel:+.2%}, within 3 % on {smi}")
+          f"calibrated bedroom against the smoke state's export at batch {LDM_BATCH}, "
+          f"seven rounds of {STEPS} back-to-back pairs of forwards in alternating order: "
+          f"median of the rounds' ratios {rel:+.2%} (each {listed}), within 3 %; all "
+          f"forwards' medians {med['calibrated']:.3f} and {med['smoke']:.3f} ms "
+          f"({med['calibrated'] / med['smoke'] - 1.0:+.2%}; phase 7's ms a step: "
+          f"{statistics.mean(bedroom_serving['ms_per_step']['int8']):.3f}) on {smi}")
     del ex, smoke_ex, unet, pipe, cali, imgs, names, used
     free_memory("after the bedroom calibration")
 
@@ -2321,7 +2345,8 @@ def latent_calibration(kernels, smi, bedroom_serving):
     torch.cuda.empty_cache()
     return dict(seconds=secs, targets=len(plan), iters=LCAL_ITERS, rows=LCAL_TRAJ,
                 loops_s=loops, ms_per_iter=ms_iter, extrapolated_task_s=task_s,
-                bundle=stats, int8_ms_per_step=ms, smoke_int8_ms_per_step=smoke_ms,
+                bundle=stats, int8_forward_ms=med["calibrated"],
+                smoke_int8_forward_ms=med["smoke"], round_ratios=[q["ratio"] for q in rounds],
                 church_ms_per_step=church_ms, church_decode_ms=decode_s * 1e3,
                 church_bundle=church_bundle)
 
@@ -2955,11 +2980,10 @@ def p14_world2(rank, world, dev, path, x_T, single):
     """Two gloo ranks sharing the card: dp sampling, the kernels on this
     rank's rows, tp = 2, dp calibration and dp reconstruction."""
     import copy as _copy
-    from eda_dm_tpu_torch.calib.recon import ReconArgs, reconstruct
     from eda_dm_tpu_torch.calib.scale_init import (set_act_quantize_params,
                                                    set_weight_quantize_params)
-    from eda_dm_tpu_torch.models.ddpm_unet import DDPMConfig, DDPMUNet, ddpm_recon_plan
-    from eda_dm_tpu_torch.nn.layers import ActQuantizer, QConv, QDense
+    from eda_dm_tpu_torch.models.ddpm_unet import DDPMConfig, DDPMUNet
+    from eda_dm_tpu_torch.nn.layers import ActQuantizer
     from eda_dm_tpu_torch.ops import _build
     from eda_dm_tpu_torch.parallel import comm, dp, mesh as pm, rows, tp
     from eda_dm_tpu_torch.quant import DEPLOY_INT8, QuantConfig
@@ -3062,16 +3086,62 @@ def p14_world2(rank, world, dev, path, x_T, single):
     del forced, free, base
     secs["dp_calibrate_acts"] = time.perf_counter() - t0
 
-    # (e) dp_reconstruct: the first 3 block targets, 20 iterations
-    t0 = time.perf_counter()
+    out.update(p14_reconstruct(rank, one, cali, cfg, qc, mesh, dev, secs))
+    return out
+
+
+def p14_reconstruct(rank, one, cali, cfg, qc, mesh, dev, secs):
+    """Step (e) of ``p14_world2``: ``reconstruct`` and ``dp_reconstruct``
+    on row-sharded captures from the calibrated ``one``, the first 3 block
+    targets, 20 iterations (each rank holds half the rows of every capture
+    and fetches the minibatch rows it lacks from the other rank); their
+    states held by JAX's dp tolerance, the captures' bytes, peak memory,
+    the row exchange and the seconds returned."""
+    import copy as _copy
+    from eda_dm_tpu_torch.calib.recon import ReconArgs, reconstruct
+    from eda_dm_tpu_torch.models.ddpm_unet import ddpm_recon_plan
+    from eda_dm_tpu_torch.nn.layers import ActQuantizer, QConv, QDense
+    from eda_dm_tpu_torch.parallel import comm, dp
+    out = {}
     plan = [tg for tg in ddpm_recon_plan(cfg, qc) if tg.kind == "block"][:3]
     args = ReconArgs(iters=P14_RECON_ITERS, batch_size=32, lr_w=P14_LR, lr_a=P14_LR)
     gen = lambda: torch.Generator(device=dev).manual_seed(7)
-    a = reconstruct(_copy.deepcopy(one), cali, plan, args, gen())
-    secs["reconstruct"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    b = dp.dp_reconstruct(_copy.deepcopy(one), cali, plan, args, gen(), mesh)
-    secs["dp_reconstruct"] = time.perf_counter() - t0
+    logs, peaks = {}, {}
+    for name, run in (("reconstruct", lambda log: reconstruct(
+                          _copy.deepcopy(one), cali, plan, args, gen(), log=log)),
+                      ("dp_reconstruct", lambda log: dp.dp_reconstruct(
+                          _copy.deepcopy(one), cali, plan, args, gen(), mesh, log=log))):
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base_bytes = torch.cuda.memory_allocated(dev)
+        comm.reset_stats()
+        logs[name] = []
+        t0 = time.perf_counter()
+        result = run(logs[name])
+        torch.cuda.synchronize(dev)
+        secs[name] = time.perf_counter() - t0
+        peaks[name] = torch.cuda.max_memory_allocated(dev) - base_bytes
+        if name == "reconstruct":
+            a = result
+        else:
+            b = result
+            out["recon_exchange"] = {k: comm.stats[k] for k in
+                                     ("rows_calls", "rows_bytes", "rows_seconds")}
+    out["recon_cache_bytes"] = {e["name"]: (e["cache_bytes"], f["cache_bytes"])
+                                for e, f in zip(logs["reconstruct"], logs["dp_reconstruct"])}
+    out["recon_peak_bytes"] = peaks
+    halves = [n for n, (u, v) in out["recon_cache_bytes"].items() if 2 * v != u]
+    ex = out["recon_exchange"]
+    sizes = ", ".join(f"{d / 2**20:.1f} / {s / 2**20:.1f}"
+                      for s, d in out["recon_cache_bytes"].values())
+    check(not halves and len(out["recon_cache_bytes"]) == len(plan),
+          f"rank {rank}: dp_reconstruct's captures a target, this rank / one process: "
+          f"{sizes} MiB, half at every target; peak memory above the start "
+          f"{peaks['dp_reconstruct'] / 2**20:.1f} MiB against {peaks['reconstruct'] / 2**20:.1f}; "
+          f"the row exchange {ex['rows_calls']} calls, {ex['rows_bytes'] / 2**20:.1f} MiB "
+          f"received, {ex['rows_seconds']:.3f} s; {secs['dp_reconstruct']:.2f} s against "
+          f"{secs['reconstruct']:.2f} s")
     atol = 6 * P14_LR
     close = lambda u, v: torch.allclose(u, v, rtol=1e-3, atol=atol)
     worst, masks, n_alpha, far, loose = 0.0, 0, 0, [], 0
@@ -3128,11 +3198,16 @@ def parallel(kernels, smi, model):
         ``one_side`` equal and every Δ within rel 5 %, the bit-equal ones
         and those within rel 1e-3 counted (as phase 10 prints its free run
         beside its exact check);
-    (5) ``dp_reconstruct`` at world 2 over the same rows: the first 3 block
+    (5) ``dp_reconstruct`` at world 2 over the same rows, row-sharded
+        (each rank captures and keeps its 128 rows, and fetches the
+        minibatch rows it lacks from the other rank): the first 3 block
         targets of ``ddpm_recon_plan``, 20 iterations, lr 1e-4, batch 32:
         alphas and act Δ within JAX's dp tolerance (rtol 1e-3, atol 6·lr)
         of ``reconstruct``; a rounding mask may differ only where both
-        alphas lie within 6·lr of 0 (the differing ones counted);
+        alphas lie within 6·lr of 0 (the differing ones counted); each
+        target's captures on a rank exactly half the single process's,
+        with each run's peak memory, the row exchange's calls, bytes and
+        seconds, and both runs' seconds printed;
     (6) ``validate_ptq --task cifar`` at full width, one process: ``--n
         500 --no_recon --serve int8``, the calibration cut to 256 rows
         and 10 DDIM steps (the task: 100); its numbers finite.
@@ -3190,6 +3265,9 @@ def parallel(kernels, smi, model):
             "calib_free_rel": [r["calib_free_rel"] for r in ranks],
             "recon_max_alpha_d": [r["recon_max_alpha_d"] for r in ranks],
             "recon_masks_differ": [r["recon_masks_differ"] for r in ranks],
+            "recon_cache_bytes": [r["recon_cache_bytes"] for r in ranks],
+            "recon_peak_bytes": [r["recon_peak_bytes"] for r in ranks],
+            "recon_exchange": [r["recon_exchange"] for r in ranks],
             "seconds": [r["seconds"] for r in ranks]}
         for k in kernels[:3]:
             k["parallel_launches"] = [r["launches"].get(k["name"], 0) for r in ranks]
@@ -3216,6 +3294,13 @@ def parallel(kernels, smi, model):
           f"({res['world1']['collectives']} collectives, "
           f"{res['world1']['collective_s']:.4f} s); world 2 (gloo, one card) "
           f"{w2['img_s']:.1f} img/s, collectives {w2['collective_s']} s")
+    caches = {n: (u, [r["recon_cache_bytes"][n][1] for r in ranks])
+              for n, (u, _) in r0["recon_cache_bytes"].items()}
+    print(f"    dp_reconstruct (world 2, gloo, one card): capture bytes a target (single "
+          f"process, [rank 0, rank 1]) {caches}; peak bytes above the start "
+          f"{w2['recon_peak_bytes']}; row exchange {w2['recon_exchange']}; seconds (dp, "
+          f"single process) "
+          f"{[(r['seconds']['dp_reconstruct'], r['seconds']['reconstruct']) for r in ranks]}")
     print(f"    seconds: world 1 {res['world1_s']:.1f}, world 2 {res['world2_s']:.1f} "
           f"(rank 0's steps {r0['seconds']}), validate_ptq {res['validate_s']:.1f}, "
           f"phase 14 {res['phase_s']:.1f}")

@@ -26,15 +26,19 @@
 
 * **Data parallel** (``mesh``, ``parallel/dp.py::dp_reconstruct``).  The
   JAX package's semantics: the same rows, the same loss, the gradients of
-  the global mean.  Every rank draws the global minibatch indices and the
-  input-mixing mask from the same generator state and takes its
-  contiguous ``batch_size / n`` positions; QDrop draws its mask for the
-  global minibatch and slices it (``parallel/rows.py``).  A rank's data
+  the global mean.  The calibration rows and every capture are
+  row-sharded, as in JAX: each rank holds a contiguous block of the rows
+  (``mesh.shard_batch``), captures its block of each group's rows and
+  keeps only that block of every cache.  Every rank draws the global
+  minibatch indices and the input-mixing mask from the same generator
+  state and takes its contiguous ``batch_size / n`` positions; the rows
+  behind them that live on other ranks come from their owners
+  (``parallel/rows.py::fetch``, point to point, only those rows).  QDrop
+  draws its mask for the global minibatch and slices it.  A rank's data
   loss is weighted by its share of the rows, the rounding regularizer is
   counted once (on the first rank), and the gradients are summed over the
   ranks before the two Adam groups step, so the Adam state stays equal on
-  every rank.  The captures stay whole on every rank (the memory of one
-  process; JAX row-shards them).
+  every rank.
 
 As in the JAX package, the FP inner activations are captured once and
 reused (the reference recomputes them every step on the same inputs), and
@@ -56,6 +60,7 @@ import torch.nn as nn
 
 from ..nn.layers import ActQuantizer, QConv, QDense
 from ..parallel import comm, rows
+from ..parallel.mesh import shard_batch
 from ..quant.adaround import round_regularization
 from ..quant.affine import lp_loss
 from ..quant.config import QuantMode
@@ -329,14 +334,17 @@ def reconstruct_target(target: ReconTarget, model: nn.Module,
     inner_fp = tuple(data.get("inner_fp", ()))
     use_inner = (target.kind == "block" and len(inner_fp) > 1
                  and args.add_loss > 0.0)
-    n = out_fp_all.shape[0]
+    n_rank, rank = comm.size(group), comm.rank(group)
+    n = out_fp_all.shape[0] * n_rank          # the global rows
     bs = min(args.batch_size, n)
     dev = out_fp_all.device
-    n_rank, rank = comm.size(group), comm.rank(group)
     if bs % n_rank:
         raise ValueError(f"a minibatch of {bs} rows does not shard over "
                          f"{n_rank} ranks")
-    mine = slice(rank * (bs // n_rank), (rank + 1) * (bs // n_rank))
+    # the caches a step reads, in one row exchange under a mesh
+    cache = ([inp_q, inp_s, out_fp_all]
+             + ([temb_q] if target.has_temb else [ctx_q] if target.has_ctx else [])
+             + (list(inner_fp[:-1]) if use_inner else []))
 
     trained = alphas + deltas
     for t in trained:
@@ -356,28 +364,26 @@ def reconstruct_target(target: ReconTarget, model: nn.Module,
     try:
         with rows.sharded_rows(group):
             for it in range(args.iters):
-                # a minibatch of every row is every row: no draw, no gather
-                idx = (torch.randperm(n, generator=generator, device=dev)[:bs]
-                       if bs < n else None)
-                if n_rank > 1:
-                    idx = (torch.arange(bs, device=dev) if idx is None else idx)[mine]
-                take = (lambda a: f32(a)) if idx is None else (lambda a: f32(a[idx]))
-                xq, xs = take(inp_q), take(inp_s)
+                # a minibatch of every row is every row (a rank's: its
+                # own block): no draw, no gather
+                got = (rows.fetch(cache, torch.randperm(n, generator=generator,
+                                                        device=dev)[:bs], group)
+                       if bs < n else cache)
+                xq, xs, y_fp, *rest = map(f32, got)
                 if args.input_prob < 1.0:
                     m = rows.draw(torch.rand, xq.shape, generator=generator,
                                   device=dev) < args.input_prob
                     x = torch.where(m, xq, xs)
                 else:
                     x = xs
-                inputs = ((x, take(temb_q)) if target.has_temb else
-                          (x, take(ctx_q)) if target.has_ctx else (x,))
+                cond = rest[:1] if target.has_temb or target.has_ctx else []
                 store.clear()
-                out = module(*inputs, mode)
-                loss = lp_loss(out, take(out_fp_all), args.p, channel_axis=-1)
+                out = module(x, *cond, mode)
+                loss = lp_loss(out, y_fp, args.p, channel_axis=-1)
                 if use_inner:
                     m_loss = 0.0
-                    for tap, fp_act in zip(target.inner_taps[:-1], inner_fp[:-1]):
-                        m_loss = m_loss + lp_loss(store[tap + ("out",)], take(fp_act),
+                    for tap, fp_act in zip(target.inner_taps[:-1], rest[len(cond):]):
+                        m_loss = m_loss + lp_loss(store[tap + ("out",)], fp_act,
                                                   2.0, channel_axis=-1)
                     loss = loss + args.add_loss * m_loss
                 if n_rank > 1:
@@ -549,6 +555,12 @@ def _split_by_budget(row_bytes: Dict[str, int], n: int,
     return subgroups, None
 
 
+def cache_bytes(data: Dict[str, Any]) -> int:
+    """The bytes of a target's captures (``build_group_data``'s dict)."""
+    return sum(t.numel() * t.element_size() for v in data.values()
+               for t in (v if isinstance(v, tuple) else (v,)))
+
+
 def reconstruct(model: nn.Module, cali_data: Sequence[torch.Tensor],
                 plan: Sequence[ReconTarget], args: ReconArgs,
                 generator: Optional[torch.Generator] = None,
@@ -564,19 +576,28 @@ def reconstruct(model: nn.Module, cali_data: Sequence[torch.Tensor],
     seed 0 if None) draws every minibatch and QDrop mask.  ``progress(name,
     last loss)`` is called after each target; ``log``, a list, gets one
     dict a target: name, kind, iterations, the row cap its caches took
-    (None where its group fit the budget), the loop's seconds and its first
-    and last loss.  ``mesh`` (a 1-D ``parallel.mesh.make_mesh``)
-    runs each target's loop data-parallel over its ranks, every rank
-    holding the same model and the whole calibration set
-    (``parallel/dp.py::dp_reconstruct`` checks and replicates them).
+    (None where its group fit the budget), the bytes of captures this
+    process holds for it (``cache_bytes``), the loop's seconds and its
+    first and last loss.  ``mesh`` (a 1-D ``parallel.mesh.make_mesh``)
+    runs each target data-parallel over its ranks, every rank holding the
+    same model (``parallel/dp.py::dp_reconstruct`` replicates it) and
+    passing the whole calibration set, of which it keeps its contiguous
+    block of the rows (``mesh.shard_batch``; the row count must divide
+    over the ranks): each rank captures its block of each group's rows and
+    keeps only that block of the caches.  The budget's splits and row caps
+    are the single process's, from the global row count; a capped group
+    takes the same global rows (the fixed permutation, then this rank's
+    block of them, fetched from their owners).
     """
     group = None if mesh is None else mesh.get_group(0)
+    if mesh is not None:
+        cali_data = shard_batch(mesh, tuple(cali_data), mesh.mesh_dim_names[0])
     dev = cali_data[0].device
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     groups = (group_plan(plan, group_size, group_window) if group_size > 1
               else [[t] for t in plan])
-    n = cali_data[0].shape[0]
+    n = cali_data[0].shape[0] * comm.size(group)       # the global rows
     row_bytes = tap_row_bytes(model, cali_data, plan, 2 if args.cache_dtype else 4)
     for g in groups:
         subgroups, row_cap = _split_by_budget(row_bytes, n, g, args)
@@ -586,7 +607,7 @@ def reconstruct(model: nn.Module, cali_data: Sequence[torch.Tensor],
                 # a fixed permutation, not a prefix (CFG calib sets are laid
                 # out [uncond; cond])
                 perm = torch.from_numpy(np.random.RandomState(0).permutation(n)[:row_cap])
-                grp_cali = tuple(a[perm.to(a.device)] for a in cali_data)
+                grp_cali = tuple(rows.fetch(cali_data, perm, group))
             datas = build_group_data(model, grp_cali, grp, args)
             for i, t in enumerate(grp):
                 if log is not None and dev.type == "cuda":
@@ -598,7 +619,8 @@ def reconstruct(model: nn.Module, cali_data: Sequence[torch.Tensor],
                     if dev.type == "cuda":
                         torch.cuda.synchronize(dev)
                     log.append(dict(name=t.name, kind=t.spec[0], iters=args.iters,
-                                    row_cap=row_cap, seconds=time.perf_counter() - t0,
+                                    row_cap=row_cap, cache_bytes=cache_bytes(datas[i]),
+                                    seconds=time.perf_counter() - t0,
                                     first_loss=float(losses[0]),
                                     last_loss=float(losses[-1])))
                 datas[i] = None              # free the caches before the next

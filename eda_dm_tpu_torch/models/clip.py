@@ -28,7 +28,8 @@ Pooling follows ``transformers``: with the legacy ``eos_token_id == 2``
 
 Weights: ``load_clip_checkpoint`` reads a local checkout (``config.json``
 and ``model.safetensors``, through ``read_safetensors``, or
-``pytorch_model.bin``), ``load_clip_checkout`` that and its tokenizer
+``pytorch_model.bin``, or ``flax_model.msgpack``, through
+``flax_msgpack.read_flax_msgpack``), ``load_clip_checkout`` that and its tokenizer
 (``vocab.json``, ``merges.txt``); ``clip_from_flax_params`` carries the JAX
 package's Flax parameters over.  Nothing is downloaded.
 """
@@ -50,7 +51,7 @@ from ..device import resolve_device
 from ..ops.int8_einsum import tf32_off
 
 CONFIG_NAME = "config.json"
-WEIGHT_NAMES = ("model.safetensors", "pytorch_model.bin")
+WEIGHT_NAMES = ("model.safetensors", "pytorch_model.bin", "flax_model.msgpack")
 TOKENIZER_NAMES = ("vocab.json", "merges.txt")
 
 
@@ -401,7 +402,7 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
 def _missing(path: str, who: str, why: str) -> RuntimeError:
     return RuntimeError(
         f"{who} needs a local CLIP checkpoint at '{path}' (nothing is downloaded): it reads "
-        f"{CONFIG_NAME}, one of {', '.join(WEIGHT_NAMES)} (flax_model.msgpack is not read) "
+        f"{CONFIG_NAME}, one of {', '.join(WEIGHT_NAMES)} "
         f"and, for the tokenizer, {' and '.join(TOKENIZER_NAMES)}; {why}")
 
 
@@ -424,8 +425,10 @@ def load_clip_checkpoint(path: str, device=None, towers: Sequence[str] = ("text"
     """The towers of a local checkout at ``path`` named in ``towers``, in
     float32 on ``device`` (the card unless the caller passes ``"cpu"``).
     ``model.safetensors`` is read by ``read_safetensors``, else
-    ``pytorch_model.bin`` by ``torch.load(weights_only=True)``; a checkout
-    without either (a Flax-only one included) raises ``RuntimeError``."""
+    ``pytorch_model.bin`` by ``torch.load(weights_only=True)``, else
+    ``flax_model.msgpack`` by ``read_flax_msgpack`` (through
+    ``flax_to_state_dict``); a checkout without any of them raises
+    ``RuntimeError``."""
     device = resolve_device(device)
     _check_checkout(path, who, tokenizer=False)
     found = [n for n in WEIGHT_NAMES if os.path.isfile(os.path.join(path, n))]
@@ -434,8 +437,14 @@ def load_clip_checkpoint(path: str, device=None, towers: Sequence[str] = ("text"
     if cfg.text is None and cfg.vision is None:
         raise _missing(path, who, f"its {CONFIG_NAME} has none of the towers {list(towers)}")
     weights = os.path.join(path, found[0])
-    state = (read_safetensors(weights) if found[0].endswith(".safetensors")
-             else torch.load(weights, map_location="cpu", weights_only=True))
+    if found[0].endswith(".safetensors"):
+        state = read_safetensors(weights)
+    elif found[0].endswith(".msgpack"):
+        from .flax_msgpack import read_flax_msgpack
+        tree = read_flax_msgpack(weights)
+        state = flax_to_state_dict(tree.get("params", tree))
+    else:
+        state = torch.load(weights, map_location="cpu", weights_only=True)
     model = CLIPModel(cfg, device=device, init=False)
     load_state(model, state, weights)
     return model
@@ -475,7 +484,8 @@ def load_state(model: CLIPModel, state: Mapping[str, torch.Tensor], source: str 
 
 def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """``transformers``' Flax CLIP parameters (``FlaxCLIPModel`` or
-    ``FlaxCLIPTextModel``: nested dicts of arrays) → its PyTorch names:
+    ``FlaxCLIPTextModel``: nested dicts of numpy, JAX or torch arrays) →
+    its PyTorch names:
     Dense kernels transposed to (out, in), the patch kernel HWIO → OIHW,
     LayerNorm ``scale`` → ``weight``, ``embedding`` → ``weight``."""
     out = {}
@@ -486,7 +496,8 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             if isinstance(v, Mapping):
                 walk(v, name + ".")
                 continue
-            a = np.array(v, dtype=np.float32)
+            a = (v.to(torch.float32).numpy() if isinstance(v, torch.Tensor)
+                 else np.array(v, dtype=np.float32))
             module, _, leaf = name.rpartition(".")
             if leaf == "kernel":
                 a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T

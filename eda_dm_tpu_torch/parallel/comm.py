@@ -13,8 +13,9 @@ which every backend takes), so they are exact in every dtype.
 ``stats`` counts the collectives, their bytes and their wall seconds (a
 card tensor's stream is synchronized before and after, so the seconds are
 the collective's own); the ``halo_*`` entries count the halo exchanges of
-spatial parallelism (``parallel/spatial.py``) apart, which are in the
-totals too.
+spatial parallelism (``parallel/spatial.py``) apart, and the ``rows_*``
+entries the row exchanges of row-sharded reconstruction
+(``parallel/rows.py::fetch``); both are in the totals too.
 """
 
 from __future__ import annotations
@@ -22,21 +23,21 @@ from __future__ import annotations
 import contextlib
 import math
 import time
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 import torch.distributed as dist
 
 stats = {"calls": 0, "bytes": 0, "seconds": 0.0,
-         "halo_calls": 0, "halo_bytes": 0, "halo_seconds": 0.0}
+         "halo_calls": 0, "halo_bytes": 0, "halo_seconds": 0.0,
+         "rows_calls": 0, "rows_bytes": 0, "rows_seconds": 0.0}
 
 _OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
         "max": dist.ReduceOp.MAX}
 
 
 def reset_stats() -> None:
-    stats.update(calls=0, bytes=0, seconds=0.0,
-                 halo_calls=0, halo_bytes=0, halo_seconds=0.0)
+    stats.update({k: type(v)() for k, v in stats.items()})
 
 
 def size(group) -> int:
@@ -131,6 +132,27 @@ def broadcast_(t: torch.Tensor, group=None) -> torch.Tensor:
 
 
 
+def _p2p(payloads: Dict[int, torch.Tensor], recv_bytes: Dict[int, int], group,
+         t: torch.Tensor, kind: str) -> Dict[int, torch.Tensor]:
+    """One batch of point-to-point messages within ``group``: ``payloads[j]``
+    (flat uint8) goes to rank ``j`` and ``recv_bytes[j]`` bytes come from
+    rank ``j``; empty messages are not sent.  Staged through the host under
+    gloo.  Returns ``{j: the bytes received from j}`` on ``t``'s device,
+    counted in the totals and under the prefix ``kind``."""
+    dev = torch.device("cpu") if _staged(t, group) else t.device
+    peer = lambda j: dist.get_global_rank(group, j)
+    with _timed(t, sum(recv_bytes.values()), (kind,)):
+        ops = [dist.P2POp(dist.isend, p.to(dev), peer(j), group)
+               for j, p in payloads.items() if p.numel()]
+        bufs = {j: torch.empty(nb, dtype=torch.uint8, device=dev)
+                for j, nb in recv_bytes.items() if nb}
+        ops += [dist.P2POp(dist.irecv, b, peer(j), group) for j, b in bufs.items()]
+        for req in (dist.batch_isend_irecv(ops) if ops else []):
+            req.wait()
+        got = {j: b.to(t.device) for j, b in bufs.items()}
+    return got
+
+
 def halo_exchange(t: torch.Tensor, dim: int, up: int, down: int, from_above: int,
                   from_below: int, group) -> Tuple[torch.Tensor, torch.Tensor]:
     """The halo exchange of a tensor split along ``dim`` in rank order:
@@ -143,26 +165,34 @@ def halo_exchange(t: torch.Tensor, dim: int, up: int, down: int, from_above: int
     rank); point-to-point sends of the rows' bytes, in one batch.  The
     bytes counted are those received."""
     r, n = rank(group), size(group)
-    dev = torch.device("cpu") if _staged(t, group) else t.device
-    peer = lambda i: dist.get_global_rank(group, i)
     shape = lambda rows: t.shape[:dim] + (rows,) + t.shape[dim + 1:]
-    sends = [(rows, start, to) for rows, start, to in
-             ((up, 0, r - 1), (down, t.shape[dim] - down, r + 1)) if rows and 0 <= to < n]
-    recvs = [(rows if 0 <= frm < n else 0, frm) for rows, frm in
-             ((from_above, r - 1), (from_below, r + 1))]
-    nbytes = sum(math.prod(shape(rows)) for rows, _ in recvs) * t.element_size()
-    with _timed(t, nbytes, ("halo_",)):
-        ops, bufs = [], []
-        for rows, start, to in sends:
-            ops.append(dist.P2POp(dist.isend, _as_bytes(t.narrow(dim, start, rows).to(dev)),
-                                  peer(to), group))
-        for rows, frm in recvs:
-            bufs.append(torch.empty(math.prod(shape(rows)) * t.element_size(),
-                                    dtype=torch.uint8, device=dev))
-            if rows:
-                ops.append(dist.P2POp(dist.irecv, bufs[-1], peer(frm), group))
-        for req in (dist.batch_isend_irecv(ops) if ops else []):
-            req.wait()
-        above, below = (b.view(t.dtype).reshape(shape(rows)).to(t.device)
-                        for b, (rows, _) in zip(bufs, recvs))
+    sends = {to: _as_bytes(t.narrow(dim, start, rows)) for rows, start, to in
+             ((up, 0, r - 1), (down, t.shape[dim] - down, r + 1)) if rows and 0 <= to < n}
+    recvs = {frm: rows for rows, frm in ((from_above, r - 1), (from_below, r + 1))
+             if 0 <= frm < n}
+    got = _p2p(sends, {j: math.prod(shape(rows)) * t.element_size()
+                       for j, rows in recvs.items()}, group, t, "halo_")
+    above, below = (got[frm].view(t.dtype).reshape(shape(recvs[frm])) if frm in got
+                    else t.new_empty(shape(0)) for frm in (r - 1, r + 1))
     return above, below
+
+
+def exchange_rows(tensors: List[torch.Tensor], sends: List[torch.Tensor],
+                  recvs: List[int], group) -> Dict[int, List[torch.Tensor]]:
+    """Point-to-point exchange of leading-axis rows between the ranks of
+    ``group``.  ``sends[j]``: the indices (a host index tensor) of this
+    rank's rows that rank ``j`` gets; ``recvs[j]``: how many rows rank
+    ``j`` sends here.  Every tensor (one device, any dtypes) sends the same
+    rows, so each pair of ranks exchanges one message a direction: every
+    tensor's rows' bytes, one after another.  Returns ``{j: [the rows
+    received from j, one tensor per input tensor]}`` for the ranks that
+    sent any.  The bytes counted are those received."""
+    r, t0 = rank(group), tensors[0]
+    row_bytes = [math.prod(t.shape[1:]) * t.element_size() for t in tensors]
+    payloads = {j: torch.cat([_as_bytes(t[idx.to(t0.device)]) for t in tensors])
+                for j, idx in enumerate(sends) if j != r and len(idx)}
+    got = _p2p(payloads, {j: k * sum(row_bytes) for j, k in enumerate(recvs) if j != r},
+               group, t0, "rows_")
+    return {j: [p.clone().view(t.dtype).reshape((recvs[j],) + t.shape[1:])  # aligned
+                for p, t in zip(buf.split([recvs[j] * b for b in row_bytes]), tensors)]
+            for j, buf in got.items()}

@@ -11,8 +11,9 @@ lets XLA all-reduce the statistics; here every rank runs its rows inside
   bit-equal to one process's;
 * sampling: each rank draws the global batch's noise and keeps its rows,
   and the attention dispatch takes the global batch (``parallel/rows.py``);
-* reconstruction: the same rows, masks and loss, the gradients summed over
-  the ranks (``calib/recon.py``).
+* reconstruction: the calibration rows and the captures row-sharded, the
+  same rows, masks and loss, the gradients summed over the ranks
+  (``calib/recon.py``).
 """
 
 from __future__ import annotations
@@ -82,9 +83,13 @@ def dp_reconstruct(model: nn.Module, cali_data: Sequence[torch.Tensor], plan, ar
     """Data-parallel AdaRound/FBR reconstruction over the plan: the single
     process's semantics (the same minibatch rows, input mixing and QDrop
     masks, the gradients of the global mean loss); results match it up to
-    float32 summation order.  Every rank holds the whole calibration set
-    (``calib/recon.py``).  ``args.batch_size`` must divide the mesh size so
-    that each rank computes an equal block of the minibatch."""
+    float32 summation order.  Every rank passes the global calibration set;
+    ``reconstruct`` keeps its contiguous block of the rows
+    (``mesh.shard_batch``, as JAX's ``dp.py`` shards it), and its captures
+    hold that block of each group's rows (``calib/recon.py``).
+    ``args.batch_size`` and the row count must divide over the mesh, so
+    that each rank computes an equal block of the minibatch and holds an
+    equal block of the rows."""
     from ..calib.recon import reconstruct
     n_dev = axis_size(mesh, "dp")
     if args.batch_size % n_dev:

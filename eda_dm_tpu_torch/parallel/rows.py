@@ -15,6 +15,10 @@ here:
 * :func:`stats_group`: the activation range search reduces its statistics
   over the group (``quant/search.py``).
 
+:func:`fetch` takes rows of tensors that are themselves sharded in such
+blocks (reconstruction's captures): each rank gets its block of a global
+index list, the rows it does not hold coming from their owners.
+
 Outside the context (or with one rank) every function is the identity of
 the single-process path.
 """
@@ -24,7 +28,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
-from typing import Callable, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -75,3 +79,38 @@ def draw(fn: Callable, shape: Sequence[int], **kw) -> torch.Tensor:
         return fn(tuple(shape), **kw)
     full = fn((shape[0] * shard.size,) + tuple(shape[1:]), **kw)
     return full[shard.rank * shape[0]:(shard.rank + 1) * shape[0]]
+
+
+def fetch(tensors: Sequence[torch.Tensor], idx: torch.Tensor, group) -> List[torch.Tensor]:
+    """Rows ``idx`` (global indices) of tensors whose rows are sharded over
+    ``group`` in contiguous blocks (rank r holds rows ``[r·b, (r+1)·b)``).
+    Every rank passes the same ``idx`` and gets its block of it: rank r the
+    rows ``idx[r·k:(r+1)·k]``, k = ``len(idx) / n``, in that order.  Rows
+    held by another rank come from it through ``comm.exchange_rows``, and
+    only those move.  ``len(idx)`` must divide over the ranks, as
+    ``mesh.shard_batch`` requires.  Without a group: ``[a[idx] for a in
+    tensors]``."""
+    n = comm.size(group)
+    if n == 1:
+        return [a[idx.to(a.device)] for a in tensors]
+    r, b, m = comm.rank(group), tensors[0].shape[0], idx.shape[0]
+    if m % n:
+        raise ValueError(f"{m} rows do not shard evenly over {n} devices")
+    k = m // n
+    gi = idx.cpu().long()
+    if len(gi) and not (0 <= int(gi.min()) and int(gi.max()) < b * n):
+        raise IndexError(f"row indices outside the {b * n} rows sharded over {n} ranks")
+    owner, local = gi // b, gi % b
+    mine = slice(r * k, (r + 1) * k)
+    sends = [local[j * k:(j + 1) * k][owner[j * k:(j + 1) * k] == r] for j in range(n)]
+    recvs = [int((owner[mine] == j).sum()) for j in range(n)]
+    got = comm.exchange_rows(list(tensors), sends, recvs, group)
+    out = []
+    for i, a in enumerate(tensors):
+        o = torch.empty((k,) + tuple(a.shape[1:]), dtype=a.dtype, device=a.device)
+        here = (owner[mine] == r).to(a.device)
+        o[here] = a[local[mine].to(a.device)[here]]
+        for j, parts in got.items():
+            o[(owner[mine] == j).to(a.device)] = parts[i]
+        out.append(o)
+    return out

@@ -11,16 +11,21 @@ classes, which wrap ``transformers``' Flax CLIP, on the CPU at tiny sizes.
   vocabulary (first-eos pooling), with and without a padding mask;
 * ``FrozenCLIPTextEncoder`` on a tiny checkout (the vocabulary of
   ``tests/test_weights_loaders.py`` plus real merges; Flax weights for
-  the JAX class, the same weights as ``model.safetensors`` or
-  ``pytorch_model.bin`` for the port, written by ``transformers``):
-  hidden states within 1e-5, once through each file format;
+  the JAX class, the same weights as ``model.safetensors``,
+  ``pytorch_model.bin`` or, in a Flax-only checkout, ``flax_model.msgpack``
+  alone for the port, written by ``transformers``): hidden states within
+  1e-5, once through each file format; ``CLIPScorer`` likewise on a
+  two-tower checkout of each format;
 * the tokenizer: ids and masks equal to ``transformers.CLIPTokenizer``'s on
   that vocabulary and on a synthetic one of the published size, at
   ``max_length`` 77 and 16;
 * the safetensors reader bit-equal to ``safetensors.numpy.load_file``
-  (F32, F16, BF16);
-* a missing or Flax-only checkout raises ``RuntimeError`` from both
-  classes; without a card and without ``device="cpu"`` they raise;
+  (F32, F16, BF16); the Flax msgpack reader bit-equal to
+  ``flax.serialization.msgpack_restore`` (F32, F16, BF16, integers,
+  scalars and a chunked array), and a truncated or malformed file raises;
+* a missing checkout, or one without a weight file, raises
+  ``RuntimeError`` from both classes; without a card and without
+  ``device="cpu"`` they raise;
 * ``sample_ldm.build_coco_context`` with ``--text_encoder clip`` against
   the JAX script's, and ``sample_ldm.main`` through the tiny checkout.
 """
@@ -201,9 +206,10 @@ def _tiny_vocab():
 
 @pytest.fixture(scope="module")
 def checkouts(tmp_path_factory):
-    """Two tiny text checkouts with the same weights: Flax msgpack for the
-    JAX class, ``model.safetensors`` in one and ``pytorch_model.bin`` in the
-    other for the port; the tokenizer files in both."""
+    """Three tiny text checkouts with the same weights: Flax msgpack for the
+    JAX class in each, and for the port ``model.safetensors`` in one,
+    ``pytorch_model.bin`` in another and nothing more in the third (Flax
+    only); the tokenizer files in all."""
     from transformers import CLIPTextConfig, CLIPTextModel, CLIPTokenizer, FlaxCLIPTextModel
     from transformers.modeling_flax_pytorch_utils import load_flax_weights_in_pytorch_model
     vocab = _tiny_vocab()
@@ -215,21 +221,24 @@ def checkouts(tmp_path_factory):
     pt = CLIPTextModel(cfg)
     load_flax_weights_in_pytorch_model(pt, flax_model.params)
     dirs = {}
-    for fmt, safe in (("safetensors", True), ("bin", False)):
+    for fmt, safe in (("safetensors", True), ("bin", False), ("msgpack", None)):
         d = tmp_path_factory.mktemp(f"clip_{fmt}")
         (d / "vocab.json").write_text(json.dumps(vocab))
         (d / "merges.txt").write_text("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in MERGES))
         CLIPTokenizer(str(d / "vocab.json"), str(d / "merges.txt")).save_pretrained(str(d))
         flax_model.save_pretrained(str(d))
-        pt.save_pretrained(str(d), safe_serialization=safe)
+        if safe is not None:
+            pt.save_pretrained(str(d), safe_serialization=safe)
         dirs[fmt] = str(d)
     assert os.path.isfile(os.path.join(dirs["safetensors"], "model.safetensors"))
     assert os.path.isfile(os.path.join(dirs["bin"], "pytorch_model.bin"))
     assert not os.path.isfile(os.path.join(dirs["bin"], "model.safetensors"))
+    weights = [n for n in os.listdir(dirs["msgpack"]) if n in tc.WEIGHT_NAMES]
+    assert weights == ["flax_model.msgpack"]
     return dirs
 
 
-@pytest.mark.parametrize("fmt", ["safetensors", "bin"])
+@pytest.mark.parametrize("fmt", ["safetensors", "bin", "msgpack"])
 def test_frozen_clip_text_encoder_matches_jax(checkouts, fmt):
     d = checkouts[fmt]
     ref = np.asarray(jenc.FrozenCLIPTextEncoder(d).encode(PROMPTS))
@@ -242,6 +251,46 @@ def test_frozen_clip_text_encoder_matches_jax(checkouts, fmt):
     np.testing.assert_array_equal(enc.tokenize(PROMPTS), hf(
         PROMPTS, truncation=True, max_length=77, padding="max_length",
         return_tensors="np")["input_ids"])
+
+
+@pytest.fixture(scope="module")
+def scorer_checkouts(tmp_path_factory, checkouts):
+    """A tiny two-tower checkout in each format (``checkouts``' with
+    ``_tiny_flax_clip``'s weights, first-eos pooling at the tokenizer's
+    end-of-text id) and ``checkouts``' tokenizer files."""
+    from transformers import CLIPModel
+    from transformers.modeling_flax_pytorch_utils import load_flax_weights_in_pytorch_model
+    flax_model, hf_cfg = _tiny_flax_clip(_tiny_vocab()["<|endoftext|>"])
+    pt = CLIPModel(hf_cfg)
+    load_flax_weights_in_pytorch_model(pt, flax_model.params)
+    src = checkouts["bin"]
+    dirs = {}
+    for fmt, safe in (("safetensors", True), ("bin", False), ("msgpack", None)):
+        d = tmp_path_factory.mktemp(f"clip_pair_{fmt}")
+        for name in os.listdir(src):
+            if name != tc.CONFIG_NAME and name not in tc.WEIGHT_NAMES:
+                shutil.copy(os.path.join(src, name), d / name)
+        flax_model.save_pretrained(str(d))
+        if safe is not None:
+            pt.save_pretrained(str(d), safe_serialization=safe)
+        dirs[fmt] = str(d)
+    return dirs
+
+
+@pytest.mark.parametrize("fmt", ["safetensors", "bin", "msgpack"])
+def test_clip_scorer_checkout_matches_jax(scorer_checkouts, fmt):
+    """``CLIPScorer(model_path=...)`` against JAX's on the same checkout."""
+    d = scorer_checkouts[fmt]
+    jax_scorer = jclip.CLIPScorer(model_path=d)
+    scorer = tclip.CLIPScorer(model_path=d, device="cpu")
+    images = np.random.RandomState(1).rand(len(PROMPTS), 64, 64, 3).astype(np.float32)
+    _close(scorer.image_features(images), jax_scorer.image_features(images),
+           f"image features through {fmt}")
+    _close(scorer.text_features(PROMPTS), jax_scorer.text_features(PROMPTS),
+           f"text features through {fmt}")
+    s, ref = scorer.score(images, prompts=PROMPTS), jax_scorer.score(images, prompts=PROMPTS)
+    print(f"score through {fmt} {s!r} JAX {ref!r}")
+    assert abs(s - ref) <= 1e-5 * abs(ref) and -100.0 <= s <= 100.0
 
 
 def test_load_clip_checkpoint_towers(checkouts):
@@ -326,16 +375,105 @@ def test_safetensors_reader_bit_equal(tmp_path):
         torch.testing.assert_close(t, tensors[k], rtol=0, atol=0)
 
 
+def _assert_tree_bit_equal(ours, ref, where="tree"):
+    if isinstance(ref, dict):
+        assert isinstance(ours, dict) and sorted(ours) == sorted(ref), where
+        for k in ref:
+            _assert_tree_bit_equal(ours[k], ref[k], f"{where}.{k}")
+    elif isinstance(ref, (np.ndarray, np.generic)):
+        ref = np.asarray(ref)
+        assert isinstance(ours, torch.Tensor), where
+        assert str(ours.dtype).removeprefix("torch.") == ref.dtype.name, where
+        assert tuple(ours.shape) == ref.shape, where
+        bits = {1: (torch.uint8, np.uint8), 2: (torch.int16, np.int16),
+                4: (torch.int32, np.int32), 8: (torch.int64, np.int64)}
+        tbits, nbits = bits[ref.dtype.itemsize]
+        np.testing.assert_array_equal(ours.view(tbits).numpy(), ref.view(nbits), err_msg=where)
+    else:
+        assert type(ours) is type(ref) and ours == ref, where
+
+
+def _flax_tree():
+    rng = np.random.default_rng(0)
+    f32 = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return {
+        "text_model": {
+            "dense": {"kernel": f32(5, 3), "bias": f32(3)},
+            "norm": {"scale": f32(3).astype(np.float16), "empty": f32(0, 4)},
+            "half": jnp.asarray(f32(2, 3, 4), jnp.bfloat16),
+            "bf16_scalar": jnp.asarray(1.5, jnp.bfloat16),
+        },
+        "ints": {"i8": rng.integers(-128, 127, (4, 4), dtype=np.int8),
+                 "u8": rng.integers(0, 255, (6,), dtype=np.uint8),
+                 "i16": rng.integers(-2 ** 15, 2 ** 15, (3,), dtype=np.int16),
+                 "i32": np.arange(-3, 77, dtype=np.int32)[None],
+                 "i64": np.array([-2 ** 40, 0, 2 ** 62], np.int64),
+                 "bool": np.array([True, False, True])},
+        "f64": rng.standard_normal((2, 2)),
+        "scalars": {"np": np.float32(0.25), "step": 7, "neg": -40, "big": 2 ** 40,
+                    "negbig": -2 ** 40, "ratio": 0.1, "name": "ü" * 40, "none": None,
+                    "flag": True},
+        "chunked": f32(10, 21),                          # past the patched chunk size
+        "a" * 300: {},                                   # a key past 255 bytes
+    }
+
+
+def test_flax_msgpack_reader_bit_equal(monkeypatch, tmp_path):
+    """``read_flax_msgpack`` against ``flax.serialization.msgpack_restore`` on
+    ``to_bytes`` of f32, f16, bf16, f64, integer, bool and scalar leaves, with
+    the chunk size cut so that one array is chunked."""
+    from flax import serialization
+    from eda_dm_tpu_torch.models.flax_msgpack import read_flax_msgpack
+    monkeypatch.setattr(serialization, "MAX_CHUNK_SIZE", 512)
+    data = serialization.to_bytes(_flax_tree())
+    assert data.count(b"__msgpack_chunked_array__") == 1
+    path = tmp_path / "flax_model.msgpack"
+    path.write_bytes(data)
+    ours, ref = read_flax_msgpack(str(path)), serialization.msgpack_restore(data)
+    assert isinstance(ref["chunked"], np.ndarray) and ref["chunked"].shape == (10, 21)
+    _assert_tree_bit_equal(ours, ref)
+    state = tc.flax_to_state_dict({"text_model": ours["text_model"]})
+    torch.testing.assert_close(state["text_model.dense.weight"],
+                               torch.from_numpy(np.asarray(ref["text_model"]["dense"]["kernel"]).T),
+                               rtol=0, atol=0)
+
+
+def test_flax_msgpack_reader_refuses_bad_files(tmp_path):
+    from flax import serialization
+    from eda_dm_tpu_torch.models.flax_msgpack import read_flax_msgpack
+    data = serialization.to_bytes({"w": np.ones((4, 4), np.float32), "b": np.zeros(4, np.float32)})
+    cases = {"truncated": data[:-7], "cut_header": data[:3], "empty": b"",
+             "trailing": data + b"\x00",
+             "not_a_map": serialization.to_bytes(np.ones(3, np.float32)),
+             "complex": serialization.to_bytes({"c": 1 + 2j}),
+             "reserved_byte": b"\x81\xa1w\xc1"}
+    for name, blob in cases.items():
+        path = tmp_path / f"{name}.msgpack"
+        path.write_bytes(blob)
+        with pytest.raises(RuntimeError, match="not a Flax msgpack checkpoint") as e:
+            read_flax_msgpack(str(path))
+        assert str(path) in str(e.value), name
+    path = tmp_path / "truncated.msgpack"
+    with pytest.raises(RuntimeError, match="truncated"):
+        read_flax_msgpack(str(path))
+    d = tmp_path / "checkout"
+    d.mkdir()
+    (d / "config.json").write_text(json.dumps({"hidden_size": 8, "num_attention_heads": 2}))
+    (d / "flax_model.msgpack").write_bytes(data[:-7])
+    with pytest.raises(RuntimeError, match="truncated"):
+        tc.load_clip_checkpoint(str(d), device="cpu")
+
+
 # ---------------------------------------------------------------------------
 # missing checkouts and the device rule
 # ---------------------------------------------------------------------------
 
 def test_missing_checkpoint_raises(tmp_path, checkouts):
-    flax_only = tmp_path / "flax_only"
-    flax_only.mkdir()
-    for name in ("config.json", "flax_model.msgpack", "vocab.json", "merges.txt"):
-        shutil.copy(os.path.join(checkouts["bin"], name), flax_only / name)
-    for path in ("/nonexistent/clip", str(flax_only)):
+    no_weights = tmp_path / "no_weights"
+    no_weights.mkdir()
+    for name in ("config.json", "vocab.json", "merges.txt"):
+        shutil.copy(os.path.join(checkouts["bin"], name), no_weights / name)
+    for path in ("/nonexistent/clip", str(no_weights)):
         with pytest.raises(RuntimeError, match="local CLIP checkpoint") as e:
             tenc.FrozenCLIPTextEncoder(path, device="cpu")
         assert path in str(e.value) and "pytorch_model.bin" in str(e.value)

@@ -1,8 +1,9 @@
 """Package-level guarantees of the PyTorch port.
 
 * no module of ``eda_dm_tpu_torch`` and no line of ``chip_smoke.py``
-  imports JAX or the JAX package (a source scan);
-* the package imports with JAX made unimportable;
+  imports JAX, Flax, ``msgpack`` or the JAX package (a source scan; the
+  card's machine has none of them);
+* the package imports with JAX, Flax and ``msgpack`` made unimportable;
 * entry points run on the card unless asked for the CPU: without a card
   and without ``device="cpu"`` they raise.
 """
@@ -19,7 +20,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "eda_dm_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "eda_dm_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "eda_dm_tpu"}
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -41,7 +42,7 @@ def test_no_jax_imports(path):
 def test_package_imports_without_jax():
     code = (
         "import sys, importlib, pkgutil\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'eda_dm_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'msgpack', 'eda_dm_tpu'):\n"
         "    sys.modules[m] = None\n"
         "import eda_dm_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'eda_dm_tpu_torch.')]\n"

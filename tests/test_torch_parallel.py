@@ -38,7 +38,15 @@ its 8 virtual CPU devices.
   block targets) against the single-process ``reconstruct``, with JAX's
   tolerance (rtol 1e-3, atol 6·lr: Adam turns a sign flip of a
   near-zero gradient into a ±lr step); a minibatch that does not divide
-  the mesh raises "must divide".
+  the mesh raises "must divide", rows that do not divide it "do not shard
+  evenly".  The captures are row-sharded: the first group's, gathered in
+  rank order, are the single process's bit for bit, every target's
+  ``cache_bytes`` is half the single process's, and each drawn minibatch
+  is one row exchange (``comm.stats["rows_*"]``); the same on a tiny LDM's
+  first res block and first transformer block (a context target) under a
+  capture budget that caps both (the capped rows fetched from their
+  owners).  ``rows.fetch`` on its own: each rank's block of an index list
+  with repeats, in three dtypes.
 * tp at ``make_mesh2d(1, 2)``: DEPLOY_INT8 bit-equal to the unsharded
   forward, FP within 1e-5, WAQ under JAX's bounds (max < 0.15, mean <
   0.01); every layer whose output width divides is sharded.
@@ -47,6 +55,7 @@ its 8 virtual CPU devices.
 * A rank's exception reaches the parent.
 """
 
+import contextlib
 import copy
 import dataclasses
 import re
@@ -225,8 +234,64 @@ def _tp_cases(rank, world, model, serving, inp):
     return out
 
 
+@contextlib.contextmanager
+def _first_captures():
+    """Record the captures of ``reconstruct``'s first group (taken before
+    any target is reconstructed, so a dp run's equal the single
+    process's rows)."""
+    from eda_dm_tpu_torch.calib import recon
+    real, seen = recon.build_group_data, []
+
+    def record(*a, **k):
+        datas = real(*a, **k)
+        if not seen:
+            seen.extend(dict(d) for d in datas)
+        return datas
+    recon.build_group_data = record
+    try:
+        yield seen
+    finally:
+        recon.build_group_data = real
+
+
+def _tensors(data):
+    return {f"{k}.{i}": t for k, v in data.items()
+            for i, t in enumerate(v if isinstance(v, tuple) else (v,))}
+
+
+def _recon_pair(model, cali, plan, args, mesh, **kw):
+    """The single process's ``reconstruct`` and ``dp_reconstruct`` from the
+    same start: their states, logs, the keys of the first group's captures
+    whose rows, gathered in rank order, differ from the single process's
+    in any bit (and how many were compared), and the row exchange's
+    counters."""
+    from eda_dm_tpu_torch.calib.recon import reconstruct
+    from eda_dm_tpu_torch.parallel import comm, dp
+    gen = lambda: torch.Generator().manual_seed(7)
+    state = lambda m: {k: v.clone() for k, v in m.named_buffers() if v is not None}
+    log_one, log_par = [], []
+    with _first_captures() as cap_one:
+        one = reconstruct(copy.deepcopy(model), cali, plan, args, gen(), log=log_one, **kw)
+    comm.reset_stats()
+    with _first_captures() as cap_par:
+        par = dp.dp_reconstruct(copy.deepcopy(model), cali, plan, args, gen(), mesh,
+                                log=log_par, **kw)
+    exchange = {k: comm.stats[k] for k in ("rows_calls", "rows_bytes")}
+    group = mesh.get_group(0)
+    differ, compared = [], 0
+    for d_one, d_par in zip(cap_one, cap_par):
+        a, b = _tensors(d_one), _tensors(d_par)
+        assert sorted(a) == sorted(b)
+        for k in a:
+            compared += 1
+            if not torch.equal(comm.all_gather(b[k], group), a[k]):
+                differ.append(k)
+    return dict(states=(state(one), state(par)), logs=(log_one, log_par),
+                captures=(differ, compared, len(cap_one)), exchange=exchange)
+
+
 def _recon_cases(rank, world, inp, mesh):
-    from eda_dm_tpu_torch.calib.recon import ReconArgs, reconstruct
+    from eda_dm_tpu_torch.calib.recon import ReconArgs
     from eda_dm_tpu_torch.calib.scale_init import (set_act_quantize_params,
                                                    set_weight_quantize_params)
     from eda_dm_tpu_torch.models.ddpm_unet import DDPMConfig, DDPMUNet, ddpm_recon_plan
@@ -241,20 +306,53 @@ def _recon_cases(rank, world, inp, mesh):
     set_act_quantize_params(model, cali, batch_size=16, device="cpu")
     plan = [tg for tg in ddpm_recon_plan(cfg, qc) if tg.kind == "block"][:3]
     args = ReconArgs(iters=3, batch_size=8, lr_w=LR, lr_a=LR)
-    state = lambda m: {k: v.clone() for k, v in m.named_buffers() if v is not None}
-    out = {"before": state(model)}
+    out = {"before": {k: v.clone() for k, v in model.named_buffers() if v is not None}}
     for gs in (1, 2):
-        gen = lambda: torch.Generator().manual_seed(7)
-        one = reconstruct(copy.deepcopy(model), cali, plan, args, gen(), group_size=gs)
-        par = dp.dp_reconstruct(copy.deepcopy(model), cali, plan, args, gen(), mesh,
-                                group_size=gs)
-        out[gs] = (state(one), state(par))
-    try:
-        dp.dp_reconstruct(copy.deepcopy(model), cali, plan[:1],
-                          ReconArgs(iters=1, batch_size=3), torch.Generator(), mesh)
-        out["error"] = None
-    except ValueError as e:
-        out["error"] = str(e)
+        out[gs] = _recon_pair(model, cali, plan, args, mesh, group_size=gs)
+    out["ldm_capped"] = _ldm_capped_case(mesh)
+    for name, rows_, a in (("error", 16, ReconArgs(iters=1, batch_size=3)),
+                           ("rows_error", 15, ReconArgs(iters=1, batch_size=4))):
+        try:
+            dp.dp_reconstruct(copy.deepcopy(model), tuple(c[:rows_] for c in cali), plan[:1],
+                              a, torch.Generator(), mesh)
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+LDM_RECON = dict(image_size=8, in_channels=3, model_channels=32, out_channels=3,
+                 num_res_blocks=1, attention_resolutions=(2,), channel_mult=(1, 2),
+                 num_head_channels=16, use_spatial_transformer=True, context_dim=16)
+
+
+def _ldm_capped_case(mesh):
+    """A tiny text-conditional LDM UNet: its first res block and its first
+    transformer block (``has_ctx``) under a capture budget that caps both
+    (to 8 and 4 of the 16 rows), captured 2 rows at a time, minibatches of
+    2."""
+    from eda_dm_tpu_torch.calib.recon import ReconArgs, tap_row_bytes
+    from eda_dm_tpu_torch.calib.scale_init import (set_act_quantize_params,
+                                                   set_weight_quantize_params)
+    from eda_dm_tpu_torch.models.ldm_unet import LDMUNet, LDMUNetConfig, ldm_recon_plan
+    from eda_dm_tpu_torch.quant import QuantConfig
+    cfg, qc = LDMUNetConfig(**LDM_RECON), short_search(QuantConfig)
+    model = LDMUNet(cfg, qc, device="cpu", seed=3)
+    g = torch.Generator().manual_seed(1)
+    cali = (torch.randn(16, 8, 8, 3, generator=g), torch.linspace(5.0, 950.0, 16),
+            torch.randn(16, 4, 16, generator=g))
+    set_weight_quantize_params(model, cali, device="cpu")
+    set_act_quantize_params(model, cali, batch_size=16, device="cpu")
+    full = ldm_recon_plan(cfg, qc)
+    ctx = next(t for t in full if t.has_ctx)
+    res = next(t for t in full if t.has_temb and t.kind == "block")
+    plan = [t for t in full if t in (res, ctx)]
+    per_row = tap_row_bytes(model, cali, plan, 4)
+    budget = int(min(per_row.values()) * 16 * 0.6)     # every target over it
+    args = ReconArgs(iters=3, batch_size=2, lr_w=LR, lr_a=LR, capture_batch_size=2,
+                     capture_budget_bytes=budget)
+    out = _recon_pair(model, cali, plan, args, mesh)
+    out["has_ctx"] = [t.has_ctx for t in plan]
     return out
 
 
@@ -272,7 +370,26 @@ def world2(rank, world, dev, inp):
         out[f"sample_eta{eta:g}"] = (one, par)
     out["tp"] = _tp_cases(rank, world, model, serving, inp)
     out["recon"] = _recon_cases(rank, world, inp, mesh)
+    out["fetch"] = _fetch_case(rank, world, mesh)
     return out
+
+
+def _fetch_case(rank, world, mesh):
+    from eda_dm_tpu_torch.parallel import rows
+    g = torch.Generator().manual_seed(3)
+    full = [torch.randn(12, 3, 2, generator=g), torch.randn(12, 5, generator=g).bfloat16(),
+            torch.arange(12 * 4, dtype=torch.int64).reshape(12, 4)]
+    idx = torch.tensor([11, 0, 5, 6, 6, 2, 7, 1, 9, 3])      # repeats, every owner
+    group, k = mesh.get_group(0), len(idx) // world
+    local = [a[rank * 6:(rank + 1) * 6] for a in full]
+    got = rows.fetch(local, idx, group)
+    want = [a[idx[rank * k:(rank + 1) * k]] for a in full]
+    try:
+        rows.fetch(local, idx[:3], group)
+        error = ""
+    except ValueError as e:
+        error = str(e)
+    return got, want, error
 
 
 def world4(rank, world, dev, inp):
@@ -502,8 +619,52 @@ def test_dp_sample_matches_single_process(w2, eta):
 def test_dp_reconstruct_matches_single_process(w2, group_size):
     for r in w2:
         rec = r["recon"]
-        one, par = rec[group_size]
+        one, par = rec[group_size]["states"]
         assert sum(not torch.equal(one[k], rec["before"][k]) for k in one) > 0
+        for k in one:
+            np.testing.assert_allclose(par[k].float().numpy(), one[k].float().numpy(),
+                                       rtol=1e-3, atol=3 * 2 * LR, err_msg=k)
+
+
+RECON_CASES = [1, 2, "ldm_capped"]
+
+
+@pytest.mark.parametrize("case", RECON_CASES)
+def test_dp_reconstruct_captures_are_the_single_process_rows(w2, case):
+    """Each rank captures its own block of the (capped) rows: the blocks in
+    rank order are the single process's captures bit for bit."""
+    for r in w2:
+        differ, compared, members = r["recon"][case]["captures"]
+        assert differ == [] and members == (2 if case == 2 else 1)
+        assert compared >= 5 * members
+
+
+@pytest.mark.parametrize("case", RECON_CASES)
+def test_dp_reconstruct_holds_half_the_cache_bytes(w2, case):
+    """Every target's captures on a rank of 2 are half the single
+    process's; with a cap, both take the same rows.  Each iteration draws
+    a minibatch and exchanges its rows once, and each capped target
+    fetches its calibration rows once."""
+    for r in w2:
+        log_one, log_par = r["recon"][case]["logs"]
+        assert [e["name"] for e in log_one] == [e["name"] for e in log_par]
+        for a, b in zip(log_one, log_par):
+            assert a["cache_bytes"] > 0 and 2 * b["cache_bytes"] == a["cache_bytes"], a["name"]
+            assert a["row_cap"] == b["row_cap"]
+            assert (a["row_cap"] in (4, 8)) if case == "ldm_capped" else a["row_cap"] is None
+        exchange = r["recon"][case]["exchange"]
+        capped = sum(e["row_cap"] is not None for e in log_par)
+        assert exchange["rows_calls"] == 3 * len(log_par) + capped
+        assert exchange["rows_bytes"] > 0
+
+
+def test_dp_reconstruct_row_capped_ctx_target_matches_single_process(w2):
+    """The capped path with a context target (the tiny LDM's first
+    transformer block) under the tolerance of the uncapped runs."""
+    for r in w2:
+        rec = r["recon"]["ldm_capped"]
+        assert rec["has_ctx"] == [False, True]
+        one, par = rec["states"]
         for k in one:
             np.testing.assert_allclose(par[k].float().numpy(), one[k].float().numpy(),
                                        rtol=1e-3, atol=3 * 2 * LR, err_msg=k)
@@ -512,6 +673,18 @@ def test_dp_reconstruct_matches_single_process(w2, group_size):
 def test_dp_reconstruct_rejects_unshardable_batch(w2):
     for r in w2:
         assert r["recon"]["error"] and "must divide" in r["recon"]["error"]
+        assert r["recon"]["rows_error"] and "do not shard evenly" in r["recon"]["rows_error"]
+
+
+def test_fetch_takes_each_ranks_block_of_the_rows(w2):
+    """``rows.fetch`` over rows sharded in blocks: every rank gets its
+    block of the index list, in order, in every dtype, and a list that
+    does not divide over the ranks raises."""
+    for r in w2:
+        got, want, error = r["fetch"]
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        assert "do not shard evenly" in error
 
 
 @pytest.mark.parametrize("mode", ["fp", "waq", "int8"])
