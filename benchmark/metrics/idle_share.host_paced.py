@@ -1,0 +1,4 @@
+"""``idle_share`` in the host-paced cell: the same reading, kept apart because
+that cell's runs spread with the host's speed (§2 of PERF.md)."""
+
+from benchmark.metrics.idle_share import read  # noqa: F401
