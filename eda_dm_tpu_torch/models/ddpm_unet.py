@@ -39,6 +39,7 @@ from ..ops.softmax_codes import softmax_codes
 from ..parallel import spatial
 from ..parallel.rows import global_rows
 from ..quant.config import FP, QuantConfig, QuantizerSpec, QuantMode
+from ..utils.run import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -270,6 +271,9 @@ class DDPMUNet(nn.Module):
                         aq.with_bits(8) if i == L - 1 else None)
                 for i in range(L))
             self.norm_out = GNorm(cfg.ch * cfg.ch_mult[0])
+            # the block groups' span names (utils/run.py::span)
+            self.down_spans = tuple(f"edm.unet.down.{i}" for i in range(L))
+            self.up_spans = tuple(f"edm.unet.up.{i}" for i in range(L))
             self.conv_out = QConv(cfg.ch * cfg.ch_mult[0], cfg.out_ch, (3, 3),
                                   wq=wq.with_bits(8), aq=aq,
                                   disable_act_quant=True)
@@ -293,21 +297,25 @@ class DDPMUNet(nn.Module):
 
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 mode: QuantMode = FP) -> torch.Tensor:
-        # the carrier dtype follows the input (bf16 on the deployment path)
-        temb = timestep_embedding(t, self.cfg.ch).to(x.dtype)
-        temb = self.temb_dense_0(temb, mode)
-        temb = self.temb_dense_1(swish(temb), mode)
-        hs = [self.conv_in(x, mode)]
-        h = hs[-1]
-        for lvl in self.down:
-            h, outs = lvl(h, temb, mode)
-            hs.extend(outs)
-        h = self.mid_block_1(h, temb, mode)
-        h = self.mid_attn_1(h, mode)
-        h = self.mid_block_2(h, temb, mode)
-        for i in reversed(range(self.cfg.num_resolutions)):
-            h = self.up[i](h, hs, temb, mode)
-        return self.conv_out(norm_act(self.norm_out, h, mode, act=True), mode)
+        with span("edm.unet.forward"):
+            # the carrier dtype follows the input (bf16 on the deployment path)
+            temb = timestep_embedding(t, self.cfg.ch).to(x.dtype)
+            temb = self.temb_dense_0(temb, mode)
+            temb = self.temb_dense_1(swish(temb), mode)
+            hs = [self.conv_in(x, mode)]
+            h = hs[-1]
+            for lvl, name in zip(self.down, self.down_spans):
+                with span(name):
+                    h, outs = lvl(h, temb, mode)
+                hs.extend(outs)
+            with span("edm.unet.mid"):
+                h = self.mid_block_1(h, temb, mode)
+                h = self.mid_attn_1(h, mode)
+                h = self.mid_block_2(h, temb, mode)
+            for i in reversed(range(self.cfg.num_resolutions)):
+                with span(self.up_spans[i]):
+                    h = self.up[i](h, hs, temb, mode)
+            return self.conv_out(norm_act(self.norm_out, h, mode, act=True), mode)
 
 
 # --------------------------------------------------------------------------

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..quant.config import FP, QuantConfig, QuantMode
+from ..utils.run import span
 from .bridge import load_jax_variables
 from .convert import (ldm_unet_state_dict_to_params, read_state_dict,
                       split_latent_diffusion_state_dict)
@@ -95,9 +96,10 @@ class LatentDiffusion:
         (B, 77, context_dim): float32 context rows."""
         if self.cond_stage is None:
             raise ValueError("this model takes no conditioning")
-        if self.cfg.cond == "class":
-            return self.cond_stage(cond)
-        return self.cond_stage.encode(cond)
+        with span("edm.conditioning"):
+            if self.cfg.cond == "class":
+                return self.cond_stage(cond)
+            return self.cond_stage.encode(cond)
 
     def decode_first_stage(self, z: torch.Tensor,
                            force_not_quantize: bool = False) -> torch.Tensor:

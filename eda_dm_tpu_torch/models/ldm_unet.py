@@ -74,6 +74,7 @@ from ..ops.softmax_codes import softmax_codes
 from ..parallel import spatial
 from ..parallel.rows import global_rows
 from ..quant.config import FP, QuantConfig, QuantizerSpec, QuantMode
+from ..utils.run import span
 from .encoders import Embed
 
 
@@ -537,6 +538,11 @@ class LDMUNet(nn.Module):
             self.out_2 = QConv(mc, cfg.out_channels, (3, 3),
                                wq=wq.with_bits(8), aq=aq,
                                disable_act_quant=True)
+        # each block group with its span name (utils/run.py::span)
+        self.input_groups = [(f"edm.unet.input_blocks.{i}", items) for i, items
+                             in sorted(_group(self.layout.input_blocks).items())]
+        self.output_groups = [(f"edm.unet.output_blocks.{i}", items) for i, items
+                              in sorted(_group(self.layout.output_blocks).items())]
         self.init_weights(seed)
 
     def init_weights(self, seed: int) -> None:
@@ -548,17 +554,18 @@ class LDMUNet(nn.Module):
             with torch.no_grad():
                 self.label_emb.embedding.normal_(0.0, 1.0, generator=g)
 
-    def _run(self, prefix: str, items: List[LayerItem], h, emb, context,
-             mode):
-        for it in items:
-            m = getattr(self, f"{prefix}_{it.key}")
-            if it.kind == "res":
-                h = m(h, emb, mode)
-            elif it.kind == "tx":
-                h = m(h, context, mode)
-            else:
-                h = m(h, mode)
-        return h
+    def _run(self, name: str, prefix: str, items: List[LayerItem], h, emb,
+             context, mode):
+        with span(name):
+            for it in items:
+                m = getattr(self, f"{prefix}_{it.key}")
+                if it.kind == "res":
+                    h = m(h, emb, mode)
+                elif it.kind == "tx":
+                    h = m(h, context, mode)
+                else:
+                    h = m(h, mode)
+            return h
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, context=None, y=None,
                 mode: QuantMode = FP) -> torch.Tensor:
@@ -567,23 +574,24 @@ class LDMUNet(nn.Module):
         if isinstance(context, QuantMode) or isinstance(y, QuantMode):
             raise TypeError("pass the QuantMode as mode=...; LDMUNet's "
                             "positional order is (x, t, context, y, mode)")
-        # the carrier dtype follows the input (bf16 on the deployment path)
-        emb = timestep_embedding(t, self.cfg.model_channels).to(x.dtype)
-        emb = self.time_embed_0(emb, mode)
-        emb = self.time_embed_2(swish(emb), mode)
-        if self.cfg.num_classes is not None:
-            emb = emb + self.label_emb(y)
-        emb = self.temb(emb)
-        hs, h = [], x
-        for _, items in sorted(_group(self.layout.input_blocks).items()):
-            h = self._run("input_blocks", items, h, emb, context, mode)
-            hs.append(h)
-        h = self._run("middle_block", self.layout.middle_block, h, emb,
-                      context, mode)
-        for _, items in sorted(_group(self.layout.output_blocks).items()):
-            h = self._run("output_blocks", items, torch.cat([h, hs.pop()], -1),
-                          emb, context, mode)
-        return self.out_2(norm_act(self.out_0, h, mode, act=True), mode)
+        with span("edm.unet.forward"):
+            # the carrier dtype follows the input (bf16 on the deployment path)
+            emb = timestep_embedding(t, self.cfg.model_channels).to(x.dtype)
+            emb = self.time_embed_0(emb, mode)
+            emb = self.time_embed_2(swish(emb), mode)
+            if self.cfg.num_classes is not None:
+                emb = emb + self.label_emb(y)
+            emb = self.temb(emb)
+            hs, h = [], x
+            for name, items in self.input_groups:
+                h = self._run(name, "input_blocks", items, h, emb, context, mode)
+                hs.append(h)
+            h = self._run("edm.unet.middle_block", "middle_block",
+                          self.layout.middle_block, h, emb, context, mode)
+            for name, items in self.output_groups:
+                h = self._run(name, "output_blocks", items,
+                              torch.cat([h, hs.pop()], -1), emb, context, mode)
+            return self.out_2(norm_act(self.out_0, h, mode, act=True), mode)
 
 
 # --------------------------------------------------------------------------

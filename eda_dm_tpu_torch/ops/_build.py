@@ -1,10 +1,19 @@
-"""Build and load the hand-written CUDA kernels; count their launches.
+"""Build and load the hand-written CUDA kernels; count and record their
+launches.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``_build/<name>-<hash>.so`` at first use, then loaded
 with ``ctypes``: no PyTorch headers, so a build takes seconds.  The hash
 covers the sources and flags, so an edited kernel is rebuilt and an
 unchanged one is reused.
+
+``launch_counts`` counts every launch of each kernel, always.  While a
+``torch.profiler`` session records, ``launch_record`` also keeps K1's
+launches (``int8_conv``) with their problem shapes, in order: the launch
+site asks :func:`recording` and appends ``(kernel, shape)`` where it
+answers True.  The record holds one session's launches: the first launch
+recorded after a launch made with no session recording starts it anew
+(two sessions with no launch between them share it).
 
 Nothing here runs at import: the package imports on machines without
 ``nvcc`` or a card.
@@ -20,7 +29,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List, Tuple
+
+from torch.autograd import profiler as _autograd_profiler
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC = PKG_DIR / "csrc"
@@ -35,7 +46,26 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # its kernel and nowhere else (the plain versions never count)
 launch_counts: collections.Counter = collections.Counter()
 
+# (kernel, shape) of each K1 launch in the newest profiler session (module
+# docstring); the site appends only where recording() says so
+launch_record: List[Tuple[str, dict]] = []
+_record_stale = True
+
 _libs: Dict[str, ctypes.CDLL] = {}
+
+
+def recording() -> bool:
+    """Whether a ``torch.profiler`` session records now: one check where
+    none does.  The first True after a launch made with no session
+    recording empties ``launch_record``, so it holds one session."""
+    global _record_stale
+    if not _autograd_profiler._is_profiler_enabled:
+        _record_stale = True
+        return False
+    if _record_stale:
+        launch_record.clear()
+        _record_stale = False
+    return True
 
 
 def _nvcc() -> str:

@@ -39,6 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.run import span
 from ._build import check_launch, cuda_lib, launch_counts, ptr, stream_ptr
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
@@ -270,16 +271,18 @@ def gn_swish_int8(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     Returns ``(padded codes, c)`` with the ``quantize_act_int8`` contract;
     the rim carries the code of x = 0 (−c), as padding x with zeros before
     the quantizer would."""
-    if n_levels > 256:
-        raise ValueError("int8 act codes require act_bit <= 8")
-    pads = tuple(tuple(p) for p in pads)
-    codes = _gn(x, scale, bias, delta, zp, n_levels, pads, swish, num_groups,
-                eps)
-    return codes, n_levels / 2 - zp
+    with span("edm.op.gn_swish_int8"):
+        if n_levels > 256:
+            raise ValueError("int8 act codes require act_bit <= 8")
+        pads = tuple(tuple(p) for p in pads)
+        codes = _gn(x, scale, bias, delta, zp, n_levels, pads, swish, num_groups,
+                    eps)
+        return codes, n_levels / 2 - zp
 
 
 def gn_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             swish: bool = False, num_groups: int = 32,
             eps: float = 1e-6) -> torch.Tensor:
     """GroupNorm (+ swish) in one pass, returned in ``x.dtype``."""
-    return _gn(x, scale, bias, None, None, 0, NO_PADS, swish, num_groups, eps)
+    with span("edm.op.gn_norm"):
+        return _gn(x, scale, bias, None, None, 0, NO_PADS, swish, num_groups, eps)

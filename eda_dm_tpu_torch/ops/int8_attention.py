@@ -50,6 +50,7 @@ import functools
 
 import torch
 
+from ..utils.run import span
 from ._build import check_launch, cuda_lib, launch_counts, ptr, stream_ptr
 from .int8_einsum import int8_bmm_acc_plain
 
@@ -322,12 +323,13 @@ def int8_fused_attention(Q: torch.Tensor, cq, dq, K: torch.Tensor, ck, dk,
     (N, S, C), and with ``return_codes`` also the int8 codes W (N, S, S).
     On a CUDA tensor this launches kernel K4; on a CPU tensor it runs the
     plain version."""
-    sc = attention_scalars(cq, dq, ck, dk, cv, dv, attn_scale, dw, zw, Q.device)
-    if Q.is_cuda:
-        return _int8_fused_attention_cuda(Q, K, V, sc, n_levels_w, return_codes)
-    if Q.device.type != "cpu":
-        raise ValueError(f"int8_fused_attention: unsupported device {Q.device}")
-    return int8_fused_attention_plain(Q, K, V, sc, n_levels_w, return_codes)
+    with span("edm.op.int8_fused_attention"):
+        sc = attention_scalars(cq, dq, ck, dk, cv, dv, attn_scale, dw, zw, Q.device)
+        if Q.is_cuda:
+            return _int8_fused_attention_cuda(Q, K, V, sc, n_levels_w, return_codes)
+        if Q.device.type != "cpu":
+            raise ValueError(f"int8_fused_attention: unsupported device {Q.device}")
+        return int8_fused_attention_plain(Q, K, V, sc, n_levels_w, return_codes)
 
 
 def int8_flash_attention_plain(Q, K, V, sc: torch.Tensor, n_levels_w: int,
@@ -396,12 +398,13 @@ def int8_flash_attention(Q: torch.Tensor, cq, dq, K: torch.Tensor, ck, dk,
     (N, Sq, C), and with ``return_codes`` also the codes W (N, Sq, Skv).
     On a CUDA tensor this launches kernel K5 (the route of
     :func:`flash_plan`); on a CPU tensor it runs the plain version."""
-    sc = attention_scalars(cq, dq, ck, dk, cv, dv, attn_scale, dw, zw, Q.device)
-    if Q.is_cuda:
-        return _int8_flash_attention_cuda(Q, K, V, sc, n_levels_w, return_codes)
-    if Q.device.type != "cpu":
-        raise ValueError(f"int8_flash_attention: unsupported device {Q.device}")
-    return int8_flash_attention_plain(Q, K, V, sc, n_levels_w, return_codes)
+    with span("edm.op.int8_flash_attention"):
+        sc = attention_scalars(cq, dq, ck, dk, cv, dv, attn_scale, dw, zw, Q.device)
+        if Q.is_cuda:
+            return _int8_flash_attention_cuda(Q, K, V, sc, n_levels_w, return_codes)
+        if Q.device.type != "cpu":
+            raise ValueError(f"int8_flash_attention: unsupported device {Q.device}")
+        return int8_flash_attention_plain(Q, K, V, sc, n_levels_w, return_codes)
 
 
 def heads_to_batched(x: torch.Tensor) -> torch.Tensor:

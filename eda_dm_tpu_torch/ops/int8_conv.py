@@ -24,7 +24,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ._build import check_launch, cuda_lib, launch_counts, ptr, stream_ptr
+from ..utils.run import span
+from ._build import check_launch, cuda_lib, launch_counts, launch_record, ptr, recording, stream_ptr
 from .int8_einsum import TILE_LARGE, TILE_SMALL, exact_float, load_route, tf32_off
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
@@ -160,6 +161,10 @@ def _int8_conv_cuda(codes, w_codes, isum, c, scale, bias, stride, pads,
         ptr(bias), tile, route, stream_ptr(dev))
     check_launch(lib, err, "int8_conv")
     launch_counts["int8_conv"] += 1
+    if recording():
+        launch_record.append(("int8_conv", dict(
+            n=n, h=h, w=w, cin=cin, ho=ho, wo=wo, cout=cout, kh=kh, kw=kw,
+            padded=border is not None, out_bytes=out.element_size())))
     return out
 
 
@@ -174,10 +179,11 @@ def int8_conv(codes: torch.Tensor, w_codes: torch.Tensor, isum: torch.Tensor,
     int32 or None when there is no padding.  Returns (N, Ho, Wo, Cout) in
     ``out_dtype``.
     """
-    if codes.is_cuda:
-        return _int8_conv_cuda(codes, w_codes, isum, c, scale, bias, stride,
-                               pads, border, out_dtype)
-    if codes.device.type != "cpu":
-        raise ValueError(f"int8_conv: unsupported device {codes.device}")
-    return int8_conv_plain(codes, w_codes, isum, c, scale, bias, stride, pads,
-                           border, out_dtype)
+    with span("edm.op.int8_conv"):
+        if codes.is_cuda:
+            return _int8_conv_cuda(codes, w_codes, isum, c, scale, bias, stride,
+                                   pads, border, out_dtype)
+        if codes.device.type != "cpu":
+            raise ValueError(f"int8_conv: unsupported device {codes.device}")
+        return int8_conv_plain(codes, w_codes, isum, c, scale, bias, stride, pads,
+                               border, out_dtype)

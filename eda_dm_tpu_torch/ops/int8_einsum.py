@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.run import span
 from ._build import check_launch, cuda_lib, launch_counts, ptr, stream_ptr
 
 _BMM_SIG = {"edm_int8_bmm_nt": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
@@ -192,13 +193,14 @@ def int8_bmm_nt(A: torch.Tensor, B: torch.Tensor,
     returns (batch, M, N) float32.  On a CUDA tensor this launches kernel
     K2; on a CPU tensor it runs the plain version.
     """
-    if scale is None:
-        scale = torch.ones((), dtype=torch.float32, device=A.device)
-    if A.is_cuda:
-        return _int8_bmm_nt_cuda(A, B, row_add, col_add, k_add, scale, bias)
-    if A.device.type != "cpu":
-        raise ValueError(f"int8_bmm_nt: unsupported device {A.device}")
-    return int8_bmm_nt_plain(A, B, row_add, col_add, k_add, scale, bias)
+    with span("edm.op.int8_bmm"):
+        if scale is None:
+            scale = torch.ones((), dtype=torch.float32, device=A.device)
+        if A.is_cuda:
+            return _int8_bmm_nt_cuda(A, B, row_add, col_add, k_add, scale, bias)
+        if A.device.type != "cpu":
+            raise ValueError(f"int8_bmm_nt: unsupported device {A.device}")
+        return int8_bmm_nt_plain(A, B, row_add, col_add, k_add, scale, bias)
 
 
 # --------------------------------------------------------------------------

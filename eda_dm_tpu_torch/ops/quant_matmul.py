@@ -46,6 +46,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..utils.run import span
 from ._build import check_launch, cuda_lib, launch_counts, ptr, stream_ptr
 from .int8_einsum import int8_matmul_acc_plain, load_route, tf32_off
 
@@ -144,11 +145,12 @@ def fakequant_matmul(x: torch.Tensor, w: torch.Tensor, delta_k: torch.Tensor,
     """``fq(x) @ w (+ bias)``: x (M, K) float32/bf16, w (K, N) folded
     weights (any strides), delta_k / zp_k (K,) and bias (N,) float32.
     Returns (M, N) in ``x.dtype``."""
-    if x.is_cuda:
-        return _fakequant_matmul_cuda(x, w, delta_k, zp_k, n_levels, bias)
-    if x.device.type != "cpu":
-        raise ValueError(f"fakequant_matmul: unsupported device {x.device}")
-    return fakequant_matmul_plain(x, w, delta_k, zp_k, n_levels, bias)
+    with span("edm.op.fakequant_matmul"):
+        if x.is_cuda:
+            return _fakequant_matmul_cuda(x, w, delta_k, zp_k, n_levels, bias)
+        if x.device.type != "cpu":
+            raise ValueError(f"fakequant_matmul: unsupported device {x.device}")
+        return fakequant_matmul_plain(x, w, delta_k, zp_k, n_levels, bias)
 
 
 # --------------------------------------------------------------------------
@@ -333,12 +335,13 @@ def quantized_matmul(x: torch.Tensor, w_q: torch.Tensor, s_x, z_x, s_w: torch.Te
     ``w_qt``, the (N, K) copy of w_q from :func:`pack_dense_weights` (the
     kernel's layout; without it a CUDA call transposes w_q).  Returns
     (M, N) in ``x.dtype``."""
-    if x.is_cuda:
-        return _quantized_matmul_cuda(x, w_q, s_x, z_x, s_w, w_colsum, w_deq_off, bias,
-                                      w_qt)
-    if x.device.type != "cpu":
-        raise ValueError(f"quantized_matmul: unsupported device {x.device}")
-    return quantized_matmul_plain(x, w_q, s_x, z_x, s_w, w_colsum, w_deq_off, bias)
+    with span("edm.op.quantized_matmul"):
+        if x.is_cuda:
+            return _quantized_matmul_cuda(x, w_q, s_x, z_x, s_w, w_colsum, w_deq_off,
+                                          bias, w_qt)
+        if x.device.type != "cpu":
+            raise ValueError(f"quantized_matmul: unsupported device {x.device}")
+        return quantized_matmul_plain(x, w_q, s_x, z_x, s_w, w_colsum, w_deq_off, bias)
 
 
 def quantized_matmul_acc(x: torch.Tensor, w_q: torch.Tensor, s_x, z_x,

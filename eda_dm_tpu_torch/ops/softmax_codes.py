@@ -29,6 +29,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils.run import span
 from ._build import check_launch, cuda_lib, launch_counts, ptr, stream_ptr
 from .gn_int8 import BLOCK_SMEM_MAX
 from .int8_einsum import quantize_act_int8
@@ -196,8 +197,9 @@ def softmax_codes(logits: torch.Tensor, delta: torch.Tensor, zp: torch.Tensor,
     unless ``EDM_FUSED_SOFTMAX=0``, then a float32 softmax in
     ``jax.nn.softmax``'s steps (``exp(x − max) / Σ``) quantized by
     ``quantize_act_int8``."""
-    if use_fused_softmax():
-        return softmax_int8_codes(logits, delta, zp, n_levels)
-    x = logits.float()
-    e = torch.exp(x - x.amax(-1, keepdim=True))
-    return quantize_act_int8(e / e.sum(-1, keepdim=True), delta, zp, n_levels)
+    with span("edm.op.softmax_codes"):
+        if use_fused_softmax():
+            return softmax_int8_codes(logits, delta, zp, n_levels)
+        x = logits.float()
+        e = torch.exp(x - x.amax(-1, keepdim=True))
+        return quantize_act_int8(e / e.sum(-1, keepdim=True), delta, zp, n_levels)

@@ -30,6 +30,7 @@ from ..models.ddpm_unet import DDPMConfig, DDPMUNet, ddpm_recon_plan
 from ..quant.config import FP, WAQ, QuantConfig, QuantMode
 from ..samplers.ddim import ddpm_steps, generalized_steps
 from ..samplers.schedules import get_beta_schedule, skip_sequence
+from ..utils.run import span
 
 logger = logging.getLogger(__name__)
 
@@ -196,21 +197,22 @@ class CifarPipeline:
                      batch_size: Optional[int] = None, mode: QuantMode = WAQ,
                      x_T: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One sampling batch → images in [0, 1], NHWC."""
-        cfg = self.cfg
-        bs = batch_size or cfg.sample_batch_size
-        generator = generator or self.generator()
-        if x_T is None:
-            x_T = torch.randn((bs, cfg.image_size, cfg.image_size, cfg.channels),
-                              generator=generator, device=self.device)
-        model_fn = self.sampler_fn(model, mode)
-        x_T = x_T.to(self.device)
-        if cfg.sample_type == "generalized":
-            x = generalized_steps(x_T, self.seq, model_fn, self.betas, eta=cfg.eta,
+        with span("edm.pipeline.batch"):
+            cfg = self.cfg
+            bs = batch_size or cfg.sample_batch_size
+            generator = generator or self.generator()
+            if x_T is None:
+                x_T = torch.randn((bs, cfg.image_size, cfg.image_size, cfg.channels),
                                   generator=generator, device=self.device)
-        else:
-            x = ddpm_steps(x_T, self.seq, model_fn, self.betas, generator=generator,
-                           device=self.device)
-        return torch.clamp((x + 1.0) / 2.0, 0.0, 1.0)
+            model_fn = self.sampler_fn(model, mode)
+            x_T = x_T.to(self.device)
+            if cfg.sample_type == "generalized":
+                x = generalized_steps(x_T, self.seq, model_fn, self.betas, eta=cfg.eta,
+                                      generator=generator, device=self.device)
+            else:
+                x = ddpm_steps(x_T, self.seq, model_fn, self.betas, generator=generator,
+                               device=self.device)
+            return torch.clamp((x + 1.0) / 2.0, 0.0, 1.0)
 
     def sample_fid(self, model: DDPMUNet, out_dir: Optional[str] = None,
                    max_images: Optional[int] = None, mode: QuantMode = WAQ,

@@ -51,6 +51,7 @@ from ..models.ldm_unet import ldm_recon_plan
 from ..ops.int8_einsum import tf32_off
 from ..quant.config import DEPLOY_INT8, FP, WAQ, QuantConfig, QuantMode
 from ..samplers.dpm_solver import NoiseScheduleVP, dpm_solver_sample
+from ..utils.run import span
 from ..samplers.latent import (cfg_model_fn, ldm_ddim_sample, ldm_plms_sample,
                                make_ldm_schedule)
 
@@ -327,28 +328,30 @@ class LDMPipeline:
         ``self.ld.get_learned_conditioning``: the prompts' and the empty
         prompt's text rows (N, 77, context_dim), or the labels' and label
         1000's class rows (N, 1, class_embed_dim)."""
-        unet = self.ld.unet if unet is None else unet
-        if x_T is None:
-            x_T = self._latents(batch_size or self.cfg.batch_size, generator)
-        ct = next(unet.parameters()).dtype
-        on = lambda c: None if c is None else c.to(self.device, ct)
-        apply_fn = lambda x, t, c: unet(x.to(ct), t, context=c, mode=mode).to(x.dtype)
-        model_fn = cfg_model_fn(apply_fn, on(context), on(uncond),
-                                self.cfg.scale if self.is_conditional else 1.0)
-        with tf32_off():
-            if self.cfg.sampler == "dpm":
-                # multistep DPM-Solver++ at order 2 over the schedule's betas
-                ns = NoiseScheduleVP("discrete", betas=self.sched.betas)
-                z = dpm_solver_sample(x_T, model_fn, ns, steps=self.cfg.custom_steps,
-                                      order=2, algorithm_type="dpmsolver++")
-            else:
-                z = SAMPLERS[self.cfg.sampler](
-                    x_T, self.sched, model_fn, generator=generator, noise=noise,
-                    device=self.device)
-            if not decode:
-                return z
-            img = self.ld.decode_first_stage(z)
-        return torch.clamp((img + 1.0) / 2.0, 0.0, 1.0)
+        with span("edm.pipeline.batch"):
+            unet = self.ld.unet if unet is None else unet
+            if x_T is None:
+                x_T = self._latents(batch_size or self.cfg.batch_size, generator)
+            ct = next(unet.parameters()).dtype
+            on = lambda c: None if c is None else c.to(self.device, ct)
+            apply_fn = lambda x, t, c: unet(x.to(ct), t, context=c, mode=mode).to(x.dtype)
+            model_fn = cfg_model_fn(apply_fn, on(context), on(uncond),
+                                    self.cfg.scale if self.is_conditional else 1.0)
+            with tf32_off():
+                if self.cfg.sampler == "dpm":
+                    # multistep DPM-Solver++ at order 2 over the schedule's betas
+                    ns = NoiseScheduleVP("discrete", betas=self.sched.betas)
+                    z = dpm_solver_sample(x_T, model_fn, ns, steps=self.cfg.custom_steps,
+                                          order=2, algorithm_type="dpmsolver++")
+                else:
+                    z = SAMPLERS[self.cfg.sampler](
+                        x_T, self.sched, model_fn, generator=generator, noise=noise,
+                        device=self.device)
+                if not decode:
+                    return z
+                with span("edm.pipeline.decode"):
+                    img = self.ld.decode_first_stage(z)
+            return torch.clamp((img + 1.0) / 2.0, 0.0, 1.0)
 
     def sample_fid(self, unet=None, out_dir: Optional[str] = None,
                    n_samples: Optional[int] = None, context_fn=None,

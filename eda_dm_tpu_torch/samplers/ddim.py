@@ -19,7 +19,10 @@ import torch
 
 from ..device import resolve_device
 from ..parallel import spatial
+from ..utils.run import span
 from .schedules import alphas_cumprod_padded
+
+STEP = "edm.sampler.step"      # one span a sampler step (utils/run.py::span)
 
 
 def ddim_denoise_step(x, et, at, at_next, eta, noise):
@@ -63,23 +66,24 @@ def generalized_steps(x: torch.Tensor, seq, model_fn: Callable, betas,
     n = x.shape[0]
     ys = {}
     for k, (i, j) in enumerate(_seq_pairs(seq)):
-        t = torch.full((n,), float(i), dtype=torch.float32, device=device)
-        if model_returns_aux:
-            et, aux = model_fn(x, t)
-            ys.setdefault("aux", []).append(aux)
-        else:
-            et = model_fn(x, t)
-        if record_xt:
-            ys.setdefault("x", []).append(x)
-            ys.setdefault("t", []).append(i)
-        if capture_fn is not None:
-            ys.setdefault("extra", []).append(capture_fn(x, t))
-        z = None
-        if eta != 0.0:
-            z = (noise[k] if noise is not None else
-                 spatial.draw(torch.randn, x.shape, generator=generator,
-                           device=device, dtype=x.dtype))
-        x, _ = ddim_denoise_step(x, et, alphas[i + 1], alphas[j + 1], eta, z)
+        with span(STEP):
+            t = torch.full((n,), float(i), dtype=torch.float32, device=device)
+            if model_returns_aux:
+                et, aux = model_fn(x, t)
+                ys.setdefault("aux", []).append(aux)
+            else:
+                et = model_fn(x, t)
+            if record_xt:
+                ys.setdefault("x", []).append(x)
+                ys.setdefault("t", []).append(i)
+            if capture_fn is not None:
+                ys.setdefault("extra", []).append(capture_fn(x, t))
+            z = None
+            if eta != 0.0:
+                z = (noise[k] if noise is not None else
+                     spatial.draw(torch.randn, x.shape, generator=generator,
+                               device=device, dtype=x.dtype))
+            x, _ = ddim_denoise_step(x, et, alphas[i + 1], alphas[j + 1], eta, z)
     if not (record_xt or model_returns_aux or capture_fn is not None):
         return x
     out = {k: torch.stack(v) for k, v in ys.items() if k in ("x", "aux")}
@@ -103,17 +107,18 @@ def ddpm_steps(x: torch.Tensor, seq, model_fn: Callable, betas,
     alphas = alphas_cumprod_padded(betas, device=device)
     n = x.shape[0]
     for k, (i, j) in enumerate(_seq_pairs(seq)):
-        t = torch.full((n,), float(i), dtype=torch.float32, device=device)
-        at, atm1 = alphas[i + 1], alphas[j + 1]
-        beta_t = 1.0 - at / atm1
-        e = model_fn(x, t)
-        x0 = torch.clamp(torch.sqrt(1.0 / at) * x - torch.sqrt(1.0 / at - 1.0) * e,
-                         -1.0, 1.0)
-        mean = (torch.sqrt(atm1) * beta_t * x0 +
-                torch.sqrt(1.0 - beta_t) * (1.0 - atm1) * x) / (1.0 - at)
-        z = (noise[k] if noise is not None else
-             spatial.draw(torch.randn, x.shape, generator=generator, device=device,
-                       dtype=x.dtype))
-        mask = float(i != 0)
-        x = mean + mask * torch.exp(0.5 * torch.log(beta_t)) * z
+        with span(STEP):
+            t = torch.full((n,), float(i), dtype=torch.float32, device=device)
+            at, atm1 = alphas[i + 1], alphas[j + 1]
+            beta_t = 1.0 - at / atm1
+            e = model_fn(x, t)
+            x0 = torch.clamp(torch.sqrt(1.0 / at) * x - torch.sqrt(1.0 / at - 1.0) * e,
+                             -1.0, 1.0)
+            mean = (torch.sqrt(atm1) * beta_t * x0 +
+                    torch.sqrt(1.0 - beta_t) * (1.0 - atm1) * x) / (1.0 - at)
+            z = (noise[k] if noise is not None else
+                 spatial.draw(torch.randn, x.shape, generator=generator, device=device,
+                           dtype=x.dtype))
+            mask = float(i != 0)
+            x = mean + mask * torch.exp(0.5 * torch.log(beta_t)) * z
     return x

@@ -38,6 +38,8 @@ import numpy as np
 import torch
 
 from ..parallel import spatial
+from ..utils.run import span
+from .ddim import STEP
 
 
 class NoiseScheduleVP:
@@ -241,27 +243,28 @@ def dpm_solver_sample(x: torch.Tensor, model_fn: Callable,
               np.float32(ns.marginal_alpha(ts[0])))
     buf = [m_new, m_new, m_new]                 # [-3, -2, -1], newest last
     for i in range(steps):
-        m2, m1, m0 = buf
-        ratio, c1 = float(co.ratio[i]), float(co.c1[i])
-        o = int(co.order[i])
-        if o == 1:
-            x = ratio * x + c1 * m0
-        elif o == 2:
-            D1_0 = (m0 - m1) / float(co.r0[i])
-            x = ratio * x + c1 * m0 + float(co.c2[i]) * D1_0
-        else:
-            rr0, rr1 = co.r0[i], co.r1[i]       # float32 scalar arithmetic
-            D1_0 = (m0 - m1) / float(rr0)
-            D1_1 = (m1 - m2) / float(rr1)
-            D1 = D1_0 + float(rr0 / (rr0 + rr1)) * (D1_0 - D1_1)
-            D2 = (D1_0 - D1_1) / float(rr0 + rr1)
-            x = (ratio * x + c1 * m0 + float(co.c3_1[i]) * D1
-                 + float(co.c3_2[i]) * D2)
-        if i < steps - 1:
-            m_new = F(x, co.t_model[i], sig[i + 1], alp[i + 1])
-        else:
-            m_new = m0
-        buf = [m1, m0, m_new]
+        with span(STEP):
+            m2, m1, m0 = buf
+            ratio, c1 = float(co.ratio[i]), float(co.c1[i])
+            o = int(co.order[i])
+            if o == 1:
+                x = ratio * x + c1 * m0
+            elif o == 2:
+                D1_0 = (m0 - m1) / float(co.r0[i])
+                x = ratio * x + c1 * m0 + float(co.c2[i]) * D1_0
+            else:
+                rr0, rr1 = co.r0[i], co.r1[i]       # float32 scalar arithmetic
+                D1_0 = (m0 - m1) / float(rr0)
+                D1_1 = (m1 - m2) / float(rr1)
+                D1 = D1_0 + float(rr0 / (rr0 + rr1)) * (D1_0 - D1_1)
+                D2 = (D1_0 - D1_1) / float(rr0 + rr1)
+                x = (ratio * x + c1 * m0 + float(co.c3_1[i]) * D1
+                     + float(co.c3_2[i]) * D2)
+            if i < steps - 1:
+                m_new = F(x, co.t_model[i], sig[i + 1], alp[i + 1])
+            else:
+                m_new = m0
+            buf = [m1, m0, m_new]
 
     if denoise_to_zero:
         # the final x0 projection at t_0

@@ -20,6 +20,8 @@ import torch
 
 from ..device import resolve_device
 from ..parallel import spatial
+from ..utils.run import span
+from .ddim import STEP
 
 
 def make_beta_schedule(n_timestep: int, linear_start: float = 1e-4,
@@ -126,23 +128,24 @@ def ldm_ddim_sample(x_T: torch.Tensor, sched: LDMSchedule, model_fn: Callable,
     n = x.shape[0]
     ys: dict = {}
     for k, step in enumerate(steps.tolist()):
-        index = len(steps) - 1 - k
-        t = torch.full((n,), float(step), dtype=torch.float32, device=device)
-        if model_returns_aux:
-            e_t, aux = model_fn(x, t)
-            ys.setdefault("aux", []).append(aux)
-        else:
-            e_t = model_fn(x, t)
-        if record_xt:
-            for key, v in (("x", x), ("t", step), ("index", index)):
-                ys.setdefault(key, []).append(v)
-        z = None
-        if sched.ddim_sigmas[index] != 0:
-            z = (noise[k].to(device) if noise is not None else
-                 spatial.draw(torch.randn, x.shape, generator=generator,
-                           device=device, dtype=x.dtype))
-        x, _ = ddim_update(x, e_t, al[index], al_prev[index], sig[index],
-                           som[index], z)
+        with span(STEP):
+            index = len(steps) - 1 - k
+            t = torch.full((n,), float(step), dtype=torch.float32, device=device)
+            if model_returns_aux:
+                e_t, aux = model_fn(x, t)
+                ys.setdefault("aux", []).append(aux)
+            else:
+                e_t = model_fn(x, t)
+            if record_xt:
+                for key, v in (("x", x), ("t", step), ("index", index)):
+                    ys.setdefault(key, []).append(v)
+            z = None
+            if sched.ddim_sigmas[index] != 0:
+                z = (noise[k].to(device) if noise is not None else
+                     spatial.draw(torch.randn, x.shape, generator=generator,
+                               device=device, dtype=x.dtype))
+            x, _ = ddim_update(x, e_t, al[index], al_prev[index], sig[index],
+                               som[index], z)
     if not (record_xt or model_returns_aux):
         return x
     return x, _records(ys, ("t", "index"))
@@ -175,39 +178,40 @@ def ldm_plms_sample(x_T: torch.Tensor, sched: LDMSchedule, model_fn: Callable,
     ys: dict = {}
     eps = (lambda x_, t_: model_fn(x_, t_)[0]) if model_returns_aux else model_fn
     for i, step in enumerate(steps):
-        index = S - 1 - i
-        t = torch.full((n,), float(step), dtype=torch.float32, device=device)
-        if model_returns_aux:
-            e_t, aux = model_fn(x, t)
-            ys.setdefault("aux", []).append(aux)
-        else:
-            e_t = model_fn(x, t)
-        if record_xt:
-            for key, v in (("x", x), ("t", step), ("index", index),
-                           ("t_next", steps[min(i + 1, S - 1)])):
-                ys.setdefault(key, []).append(v)
-        z = None
-        if sched.ddim_sigmas[index] != 0:
-            z = (noise[i].to(device) if noise is not None else
-                 spatial.draw(torch.randn, x.shape, generator=generator,
-                           device=device, dtype=x.dtype))
+        with span(STEP):
+            index = S - 1 - i
+            t = torch.full((n,), float(step), dtype=torch.float32, device=device)
+            if model_returns_aux:
+                e_t, aux = model_fn(x, t)
+                ys.setdefault("aux", []).append(aux)
+            else:
+                e_t = model_fn(x, t)
+            if record_xt:
+                for key, v in (("x", x), ("t", step), ("index", index),
+                               ("t_next", steps[min(i + 1, S - 1)])):
+                    ys.setdefault(key, []).append(v)
+            z = None
+            if sched.ddim_sigmas[index] != 0:
+                z = (noise[i].to(device) if noise is not None else
+                     spatial.draw(torch.randn, x.shape, generator=generator,
+                               device=device, dtype=x.dtype))
 
-        def update(e):
-            return ddim_update(x, e, al[index], al_prev[index], sig[index],
-                               som[index], z)[0]
-        if i == 0:
-            t_next = torch.full((n,), float(steps[min(1, S - 1)]),
-                                dtype=torch.float32, device=device)
-            e_prime = (e_t + eps(update(e_t), t_next)) / 2.0
-        elif i == 1:
-            e_prime = (3.0 * e_t - old_eps[-1]) / 2.0
-        elif i == 2:
-            e_prime = (23.0 * e_t - 16.0 * old_eps[-1] + 5.0 * old_eps[-2]) / 12.0
-        else:
-            e_prime = (55.0 * e_t - 59.0 * old_eps[-1] + 37.0 * old_eps[-2]
-                       - 9.0 * old_eps[-3]) / 24.0
-        x = update(e_prime)
-        old_eps = (old_eps + [e_t])[-3:]
+            def update(e):
+                return ddim_update(x, e, al[index], al_prev[index], sig[index],
+                                   som[index], z)[0]
+            if i == 0:
+                t_next = torch.full((n,), float(steps[min(1, S - 1)]),
+                                    dtype=torch.float32, device=device)
+                e_prime = (e_t + eps(update(e_t), t_next)) / 2.0
+            elif i == 1:
+                e_prime = (3.0 * e_t - old_eps[-1]) / 2.0
+            elif i == 2:
+                e_prime = (23.0 * e_t - 16.0 * old_eps[-1] + 5.0 * old_eps[-2]) / 12.0
+            else:
+                e_prime = (55.0 * e_t - 59.0 * old_eps[-1] + 37.0 * old_eps[-2]
+                           - 9.0 * old_eps[-3]) / 24.0
+            x = update(e_prime)
+            old_eps = (old_eps + [e_t])[-3:]
     if not (record_xt or model_returns_aux):
         return x
     return x, _records(ys, ("t", "index", "t_next"))
